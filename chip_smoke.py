@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (firedancer_tpu_torch) on one Hopper
+card: the quickest proof that the port builds and verifies on the GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code != 0, no result line):
+
+1. Card: print the card's name and power limit (nvidia-smi) and its
+   compute capability; require CUDA with capability 9.x.
+2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
+   nvcc into build/torch_kernels/, print the seconds and ptxas's
+   registers and spills.
+3. Kernel parity: each of the four kernels against its plain PyTorch
+   version on the same CUDA tensors, at the main path's shapes; they must
+   agree exactly (canonical bytes, limbs and masks). Times with CUDA
+   events, warm, the kernel's mean over 20 launches beside the plain
+   version's.
+4. Main path: registry().acquire(EngineSpec("direct", 8192)) answers
+   three 8192-lane batches (bench traffic; the same with salted,
+   s >= L, undecodable-key lanes and the 396 Zcash vectors; MTU-sized
+   messages). Statuses must equal the constructed ones and the plain
+   path's on the card; every kernel's launch count must advance and every
+   plain count stay 0. Then verifies/s over 10 timed batches, and the
+   device time by kernel over 3 batches (torch.profiler).
+5. Output: the card line, one JSON line of per-kernel numbers, and the
+   last line {"ok": true, "device": {...}}.
+
+It imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+B = 8192                 # FD_BENCH_BATCH
+MSG_LEN = 192            # FD_BENCH_MSG_LEN
+MTU_MSG = 1232
+REPS = 20
+TIMED_BATCHES = 10
+
+# Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
+# 32-bit integer multiply-add (IMAD) and integer ALU pipes issue at half
+# the fp32 FMA rate (64 vs 128 per SM per clock on compute capability
+# 9.0, CUDA C++ Programming Guide throughput table).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 33.5e12 / 2
+# A 64x64->128-bit product costs at least four 32x32->64 IMAD.WIDE.
+IMAD_PER_MUL, IMAD_PER_SQ = 25 * 4, 15 * 4
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- bounds
+# Least time of each kernel's work on this card, from the operations its
+# inputs need (counted from the kernel source) and the bytes it must move.
+
+def _bound(int_ops: float, nbytes: float):
+    t_ops = int_ops / INT_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_sha512_mod_l(lens: np.ndarray, row_bytes: int):
+    """Per block: 80 rounds x 34 int32 ops (three 64-bit rotates = 6
+    funnel shifts per Sigma, 3-input logic ops, 64-bit adds as 2 ops)
+    + 64 schedule words x 22 ops + 16 for the state; per lane ~39
+    products for the Barrett reduction."""
+    nblocks = (np.clip(lens, 0, row_bytes).astype(np.int64) + 17 + 127) // 128
+    ops = nblocks.sum() * (80 * 34 + 64 * 22 + 16) + len(lens) * 39 * 4
+    return _bound(ops, len(lens) * (row_bytes + 4 + 32))
+
+
+def bound_decompress_so(n: int):
+    """Per lane 267 squarings + 28 multiplies: the pow22523 chain (251 S
+    + 11 M), the curve equation and root checks, and the three
+    small-order doublings (12 S + 9 M)."""
+    return _bound(n * (267 * IMAD_PER_SQ + 28 * IMAD_PER_MUL),
+                  n * (32 + 4 * 40 + 2))
+
+
+def bound_double_scalarmult(n: int):
+    """Per lane: the A table (1 + 14 x 9 multiplies), then 64 windows of
+    4 doublings (16 S + 13 M) and two adds (8 + 6 M): 1024 S + 1855 M."""
+    return _bound(n * (1024 * IMAD_PER_SQ + 1855 * IMAD_PER_MUL),
+                  n * (64 + 4 * 40 + 3 * 40))
+
+
+def bound_point_eq(n: int):
+    """Per lane two multiplies; reads five field elements, writes 1 B."""
+    return _bound(n * 2 * IMAD_PER_MUL, n * (5 * 40 + 1))
+
+
+# ------------------------------------------------------------- timing
+
+def time_ms(torch, fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def profile_batches(torch, fn, batch_ms: float, n: int = 3) -> None:
+    """Device time by kernel over n batches (torch.profiler), and the
+    device's busy and idle share of batch_ms, the batch time measured
+    without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            kernels.append((dev_us / n, ev.key, ev.count // n))
+    if not kernels:
+        say("profile: the trace shows no device time (not measured)")
+        return
+    busy = sum(k[0] for k in kernels)
+    share = busy / (batch_ms * 1e3)
+    say(f"profile over {n} batches: device busy {busy:.1f} us/batch = "
+        f"{100 * share:.1f}% of the {batch_ms:.3f} ms batch, idle "
+        f"{100 - 100 * share:.1f}%")
+    for dev_us, key, count in sorted(kernels, reverse=True):
+        say(f"  {dev_us:9.1f} us/batch {100 * dev_us / busy:5.1f}% "
+            f"x{count} {key[:60]}")
+
+
+def max_abs_err(torch, a, b) -> float:
+    if isinstance(a, tuple):
+        return max(max_abs_err(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        a, b = torch.from_numpy(a), torch.from_numpy(b)
+    if a.shape != b.shape:
+        return float("inf")
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this smoke run "
+              "needs a CUDA device", flush=True)
+        return 2
+    sys.path.insert(0, REPO)
+    from firedancer_tpu_torch import convert
+    from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.ops import backend, build
+    from firedancer_tpu_torch.ops import curve_cuda, dsm_cuda, fe25519
+    from firedancer_tpu_torch.ops import frontend_cuda
+    from firedancer_tpu_torch.ops.verify import verify_batch_ref
+
+    # 1. Card.
+    card = card_line()
+    cap = torch.cuda.get_device_capability(0)
+    kind = torch.cuda.get_device_name(0)
+    say(f"card: {card}; capability {cap[0]}.{cap[1]}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    if cap[0] != 9:
+        fail(f"need compute capability 9.x, found {cap}")
+    dev = torch.device("cuda", 0)
+
+    # 2. Build.
+    t0 = time.perf_counter()
+    build.build_all()
+    say(f"build: {time.perf_counter() - t0:.2f} s "
+        f"(stamp {build.stamp()}, {build.BUILD_DIR})")
+    for name, text in build.ptxas_report().items():
+        lines = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say(f"ptxas {name}: " + " | ".join(lines))
+
+    rng = np.random.RandomState(7)
+
+    def gpu(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def parity(name, got, want):
+        err = max_abs_err(torch, got, want)
+        if err != 0:
+            fail(f"{name}: kernel disagrees with its plain version "
+                 f"(max_abs_err {err})")
+        return err
+
+    rows = {}
+
+    def record(name, err, ms, plain_ms, bound, replaces, source):
+        rows[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+        say(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), max_abs_err {err}")
+
+    # 3. Kernel parity and times at the main path's shapes.
+    # K1: the main path's hash rows r || A || msg, (8192, 64 + 192).
+    k1_msgs = gpu(rng.randint(0, 256, (B, 64 + MSG_LEN), dtype=np.uint8))
+    k1_lens = torch.full((B,), 64 + MSG_LEN, dtype=torch.int32, device=dev)
+    err = parity("sha512_mod_l",
+                 frontend_cuda.sha512_mod_l_cuda(k1_msgs, k1_lens),
+                 frontend_cuda.sha512_mod_l_ref(k1_msgs, k1_lens))
+    spread = rng.randint(0, 64 + MTU_MSG + 1, B).astype(np.int32)
+    spread[:6] = [0, 111, 112, 239, 240, 64 + MTU_MSG]
+    s_msgs = gpu(rng.randint(0, 256, (B, 64 + MTU_MSG), dtype=np.uint8))
+    s_lens = gpu(spread)
+    err = max(err, parity("sha512_mod_l (lengths 0-1296)",
+                          frontend_cuda.sha512_mod_l_cuda(s_msgs, s_lens),
+                          frontend_cuda.sha512_mod_l_ref(s_msgs, s_lens)))
+    record("sha512_mod_l", err,
+           time_ms(torch, lambda: frontend_cuda.sha512_mod_l_cuda(
+               k1_msgs, k1_lens), REPS),
+           time_ms(torch, lambda: frontend_cuda.sha512_mod_l_ref(
+               k1_msgs, k1_lens), 2),
+           bound_sha512_mod_l(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),
+           "firedancer_tpu/ops/frontend_pallas.py:290",
+           "firedancer_tpu_torch/ops/csrc/sha512_mod_l.cu")
+
+    # K2: the stacked A || R pass, 2B lanes: the edge corpus, then
+    # encodings of random points and random bytes.
+    edge = corpus.edge_encodings(rng)
+    k2_np = rng.randint(0, 256, (2 * B, 32), dtype=np.uint8)
+    k2_np[:len(edge)] = np.frombuffer(b"".join(edge), np.uint8).reshape(-1, 32)
+    enc = gpu(k2_np)
+    k2 = curve_cuda.decompress_so_cuda(enc)
+    err = parity("decompress_so", k2, curve_cuda.decompress_so_ref(enc))
+    torsion = len(corpus.torsion_encodings())
+    if not (bool(k2[2][:torsion].all()) and bool(k2[1][:torsion].all())):
+        fail("decompress_so: a torsion encoding is not decoded small-order")
+    say(f"decompress_so: {int(k2[1].sum())}/{2 * B} lanes decode, "
+        f"{len(edge)} edge encodings")
+    record("decompress_so", err,
+           time_ms(torch, lambda: curve_cuda.decompress_so_cuda(enc), REPS),
+           time_ms(torch, lambda: curve_cuda.decompress_so_ref(enc), 2),
+           bound_decompress_so(2 * B),
+           "firedancer_tpu/ops/curve_pallas.py:234",
+           "firedancer_tpu_torch/ops/csrc/decompress_so.cu")
+
+    # K3: B decoded points (ok lanes, repeated), random h and s.
+    ok_idx = torch.nonzero(k2[1]).flatten()
+    a_pt = k2[0][ok_idx[torch.arange(B, device=dev) % ok_idx.numel()]]
+    a_pt = a_pt.contiguous()
+    h = gpu(rng.randint(0, 256, (B, 32), dtype=np.uint8))
+    s = gpu(rng.randint(0, 256, (B, 32), dtype=np.uint8))
+    k3 = dsm_cuda.double_scalarmult_cuda(h, a_pt, s)
+    err = parity("double_scalarmult", k3,
+                 dsm_cuda.double_scalarmult_ref(h, a_pt, s))
+    err = max(err, parity("double_scalarmult (affine)",
+                          convert.point_to_affine_bytes(k3[:512]),
+                          convert.point_to_affine_bytes(
+                              dsm_cuda.double_scalarmult_ref(
+                                  h[:512], a_pt[:512], s[:512]))))
+    record("double_scalarmult", err,
+           time_ms(torch, lambda: dsm_cuda.double_scalarmult_cuda(
+               h, a_pt, s), REPS),
+           time_ms(torch, lambda: dsm_cuda.double_scalarmult_ref(
+               h, a_pt, s), 2),
+           bound_double_scalarmult(B),
+           "firedancer_tpu/ops/dsm_pallas.py:252",
+           "firedancer_tpu_torch/ops/csrc/double_scalarmult.cu")
+
+    # K4: affine points against projective (lam X : lam Y : lam), half of
+    # the lanes holding the next lane's point instead.
+    lam = fe25519.fe_from_bytes(gpu(rng.randint(0, 256, (B, 32),
+                                                dtype=np.uint8)))
+    x, y = (fe25519.fe_from_limbs51(a_pt[:, c]) for c in (0, 1))
+    proj = torch.stack([fe25519.fe_to_limbs51(c) for c in
+                        (fe25519.fe_mul(lam, x), fe25519.fe_mul(lam, y),
+                         lam)], dim=1)
+    swap = gpu(rng.randint(0, 2, B).astype(bool))
+    aff = torch.where(swap[:, None, None], a_pt.roll(1, 0), a_pt).contiguous()
+    k4 = curve_cuda.point_eq_affine_cuda(aff, proj)
+    err = parity("point_eq", k4, curve_cuda.point_eq_affine_ref(aff, proj))
+    say(f"point_eq: {int(k4.sum())}/{B} lanes equal")
+    if not 0.4 * B < int(k4.sum()) < 0.6 * B:
+        fail("point_eq: expected about half of the lanes equal")
+    record("point_eq", err,
+           time_ms(torch, lambda: curve_cuda.point_eq_affine_cuda(aff, proj),
+                   REPS),
+           time_ms(torch, lambda: curve_cuda.point_eq_affine_ref(aff, proj),
+                   2),
+           bound_point_eq(B),
+           "firedancer_tpu/ops/curve_pallas.py:296",
+           "firedancer_tpu_torch/ops/csrc/point_eq.cu")
+
+    # 4. Main path. Traffic first (oracle signing on the host).
+    t0 = time.perf_counter()
+    bench_rng = np.random.RandomState(42)
+    uniq = corpus.signed_items(64, [MSG_LEN], bench_rng)
+    tiled = [uniq[b % 64] for b in range(B)]
+    batch_a = corpus.to_arrays(tiled, MSG_LEN)
+    expect_a = np.zeros(B, np.int32)
+
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    zcash = []
+    for fname, passes in (("ed25519_malleability_should_pass.bin", True),
+                          ("ed25519_malleability_should_fail.bin", False)):
+        raw = open(os.path.join(fixtures, fname), "rb").read()
+        zcash += [(raw[o:o + 64], raw[o + 64:o + 96], passes)
+                  for o in range(0, len(raw), 96)]
+    if len(zcash) != 396:
+        fail(f"expected 396 Zcash vectors, found {len(zcash)}")
+    bad_pub = corpus.undecodable_encodings(1, bench_rng)[0]
+    items_b, expect_b, zcash_pass = [], np.zeros(B, np.int32), {}
+    for b in range(B):
+        m, sig, pub = tiled[b]
+        if b < len(zcash):
+            sig, pub, passes = zcash[b]
+            m = b"Zcash"
+            zcash_pass[b] = passes
+        elif b % 64 == 1:        # s + L: the same scalar, out of range
+            s_int = int.from_bytes(sig[32:], "little") + oracle.L
+            sig = sig[:32] + s_int.to_bytes(32, "little")
+            expect_b[b] = oracle.FD_ED25519_ERR_SIG
+        elif b % 64 == 2:
+            pub = bad_pub
+            expect_b[b] = oracle.FD_ED25519_ERR_PUBKEY
+        elif b % 8 == 3:         # salted: one message byte flipped
+            m = bytes([m[0] ^ 1]) + m[1:]
+            expect_b[b] = oracle.FD_ED25519_ERR_MSG
+        items_b.append((m, sig, pub))
+    batch_b = corpus.to_arrays(items_b, MSG_LEN)
+
+    mtu_lens = list(np.linspace(100, MTU_MSG, 64).astype(int))
+    uniq_c = corpus.signed_items(64, mtu_lens, bench_rng)
+    batch_c = corpus.to_arrays([uniq_c[b % 64] for b in range(B)], MTU_MSG)
+    expect_c = np.zeros(B, np.int32)
+    say(f"traffic: {time.perf_counter() - t0:.1f} s of oracle signing")
+
+    t0 = time.perf_counter()
+    entry, warmed = registry().acquire(EngineSpec("direct", B))
+    say(f"engine {entry.key} on {entry.device}: warmed={warmed} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    batches = [("a bench", batch_a, expect_a), ("b mixed", batch_b, expect_b),
+               ("c mtu", batch_c, expect_c)]
+    inputs = [tuple(gpu(a) for a in arrs) for _, arrs, _ in batches]
+    torch.cuda.synchronize()
+
+    backend.reset_counts()
+    outs = [entry.fn(*args) for args in inputs]
+    torch.cuda.synchronize()
+    launches = dict(backend.launches)
+    plain = dict(backend.plain_calls)
+    say(f"main path: launches {launches}, plain calls {plain}")
+    for name in rows:
+        if launches.get(name, 0) < 1:
+            fail(f"{name} was not launched on the main path")
+        rows[name]["launches"] = launches[name]
+    if any(plain.values()):
+        fail(f"a plain version ran on the main path: {plain}")
+
+    for (name, _, expect), out, args in zip(batches, outs, inputs):
+        got = out.cpu().numpy()
+        ref = verify_batch_ref(*args).cpu().numpy()
+        if not np.array_equal(got, ref):
+            fail(f"batch {name}: statuses differ from the plain path on "
+                 f"{int((got != ref).sum())} lanes")
+        want = expect.copy()
+        if name.startswith("b"):
+            for b, passes in zcash_pass.items():
+                if passes != (got[b] == 0):
+                    fail(f"batch {name}: Zcash vector at lane {b} "
+                         f"gave status {got[b]}")
+                want[b] = got[b]
+        if not np.array_equal(got, want):
+            bad = np.nonzero(got != want)[0]
+            fail(f"batch {name}: {len(bad)} lanes differ from the "
+                 f"constructed statuses, first {bad[:8].tolist()}: "
+                 f"{got[bad[:8]].tolist()} vs {want[bad[:8]].tolist()}")
+        say(f"batch {name}: {B} lanes match (status counts "
+            f"{dict(zip(*np.unique(got, return_counts=True)))})")
+
+    a_args = inputs[0]
+    ms = time_ms(torch, lambda: entry.fn(*a_args), TIMED_BATCHES)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_BATCHES):
+        entry.fn(*a_args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TIMED_BATCHES
+    entry.note_service(int(wall * 1e9))
+    say(f"verify direct B={B} msg={MSG_LEN}: {ms:.3f} ms/batch (CUDA "
+        f"events), {B / (ms / 1e3):.0f} verifies/s; host clock "
+        f"{wall * 1e3:.3f} ms/batch, {B / wall:.0f} verifies/s "
+        f"[{card}]")
+    profile_batches(torch, lambda: entry.fn(*a_args), wall * 1e3)
+
+    # 5. Output.
+    say(card_line())
+    say(json.dumps({"kernels": list(rows.values())}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
