@@ -11,19 +11,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
    registers and spills.
-3. Kernel parity: each of the four kernels against its plain PyTorch
+3. Kernel parity: each of the eight kernels against its plain PyTorch
    version on the same CUDA tensors, at the main path's shapes; they must
-   agree exactly (canonical bytes, limbs and masks). Times with CUDA
+   agree exactly (canonical bytes, limbs and masks). The four MSM kernels
+   take their inputs staged from a clean 8192-lane batch: the three bucket
+   fills (z, 253-bit, torsion), the three aggregations, both Horners and
+   the K = 64 [L] ladder; then the signed plan s8l3's 253-bit fill (the
+   sign folded into the gather) and its pass's verdict. Times with CUDA
    events, warm, the kernel's mean over 20 launches beside the plain
    version's.
-4. Main path: registry().acquire(EngineSpec("direct", 8192)) answers
+4. Direct path: registry().acquire(EngineSpec("direct", 8192)) answers
    three 8192-lane batches (bench traffic; the same with salted,
    s >= L, undecodable-key lanes and the 396 Zcash vectors; MTU-sized
    messages). Statuses must equal the constructed ones and the plain
    path's on the card; every kernel's launch count must advance and every
    plain count stay 0. Then verifies/s over 10 timed batches, and the
    device time by kernel over 3 batches (torch.profiler).
-5. Output: the card line, one JSON line of per-kernel numbers, and the
+5. RLC path: registry().acquire(EngineSpec("rlc", 8192)) answers (a) the
+   bench batch (batch_ok True, no fallback, every status 0; the MSM
+   kernels launch 3, 3, 2, 1 times, K1 and K2 once, K3 and K4 not at
+   all), (b) the mixed batch and (c) a torsion batch (an order-2 pair and
+   four order-8-offset lanes): both fall back, with the direct path's
+   statuses. Then verifies/s on (a), the cost of (b), the device time
+   by kernel (torch.profiler) and the host clock of the pass's stages.
+6. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -45,6 +56,9 @@ MSG_LEN = 192            # FD_BENCH_MSG_LEN
 MTU_MSG = 1232
 REPS = 20
 TIMED_BATCHES = 10
+DIRECT_KERNELS = ("sha512_mod_l", "decompress_so", "double_scalarmult",
+                  "point_eq")
+MSM_KERNELS = ("msm_fill", "msm_aggregate", "msm_horner", "msm_order")
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -114,6 +128,51 @@ def bound_point_eq(n: int):
     return _bound(n * 2 * IMAD_PER_MUL, n * (5 * 40 + 1))
 
 
+# The MSM kernels: a mixed add (madd) is 7 multiplies, a unified add 9, a
+# doubling 4 squarings + 4 multiplies; a point crosses as 160 B of limbs.
+IMAD_PER_DBL = 4 * IMAD_PER_SQ + 4 * IMAD_PER_MUL
+PT_BYTES = 4 * 5 * 8
+
+
+def _sum_bounds(bounds):
+    """Bounds of one kernel's launches in a pass, summed (sequential
+    launches); bound_by is the kind that bounds most of the total."""
+    by_ops = sum(t for t, by in bounds if by == "operations")
+    return sum(t for t, _ in bounds), (
+        "operations" if 2 * by_ops >= sum(t for t, _ in bounds) else "bytes")
+
+
+def bound_fill(lanes: int, rounds: int, filled: int, n_points: int):
+    """A madd and 2d*t (8 multiplies) for each filled slot: the bucket
+    sums need no more. The kernel's identity adds on empty slots exist
+    only because it runs a static number of rounds, so they are not
+    counted. Reads the points once and the slot table, writes the
+    buckets."""
+    return _bound(filled * 8 * IMAD_PER_MUL,
+                  n_points * PT_BYTES + rounds * lanes * 4 + lanes * PT_BYTES)
+
+
+def bound_aggregate(ncols: int, nb: int):
+    """2 (nb - 2) unified adds per column."""
+    return _bound(ncols * 2 * (nb - 2) * 9 * IMAD_PER_MUL,
+                  ncols * (nb + 1) * PT_BYTES)
+
+
+def bound_horner(nw: int, w_bits: int):
+    """(nw - 1) x (w doublings + 1 unified add)."""
+    return _bound((nw - 1) * (w_bits * IMAD_PER_DBL + 9 * IMAD_PER_MUL),
+                  (nw + 1) * PT_BYTES)
+
+
+def bound_order(k: int, order: int):
+    """Per point a doubling for each bit of L below the leading one and a
+    unified add for each set bit among them."""
+    n_dbl = order.bit_length() - 1
+    n_add = bin(order).count("1") - 1
+    return _bound(k * (n_dbl * IMAD_PER_DBL + n_add * 9 * IMAD_PER_MUL),
+                  2 * k * PT_BYTES)
+
+
 # ------------------------------------------------------------- timing
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -173,6 +232,238 @@ def max_abs_err(torch, a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def rlc_path(torch, gpu, rows, card, batches, expects, direct_b, zcash_pass,
+             direct_entry) -> None:
+    """Phase 5: the RLC engine on the bench, mixed and torsion batches,
+    its launch counts, verifies/s and device time by kernel."""
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.ops import backend
+
+    t0 = time.perf_counter()
+    entry, warmed = registry().acquire(EngineSpec("rlc", B))
+    say(f"engine {entry.key} on {entry.device}: warmed={warmed} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    inputs = [tuple(gpu(a) for a in arrs) for arrs in batches]
+    torch.cuda.synchronize()
+
+    backend.reset_counts()
+    res_a = entry.fn(*inputs[0])
+    st_a = np.asarray(res_a)
+    counts_a, plain_a = dict(backend.launches), dict(backend.plain_calls)
+    res_b = entry.fn(*inputs[1])
+    st_b = np.asarray(res_b)
+    res_t = entry.fn(*inputs[2])
+    st_t = np.asarray(res_t)
+    torch.cuda.synchronize()
+    launches, plain = dict(backend.launches), dict(backend.plain_calls)
+    say(f"rlc path: batch (a) launches {counts_a}; all three batches "
+        f"launches {launches}, plain calls {plain}")
+    want_a = {"sha512_mod_l": 1, "decompress_so": 1, "msm_fill": 3,
+              "msm_aggregate": 3, "msm_horner": 2, "msm_order": 1}
+    if counts_a != want_a or plain_a:
+        fail(f"rlc batch (a): launches {counts_a}, plain {plain_a}; want "
+             f"{want_a} and no plain call")
+    if any(plain.values()):
+        fail(f"a plain version ran on the rlc path: {plain}")
+    for name in MSM_KERNELS:
+        rows[name]["launches"] = launches[name]
+
+    if res_a.used_fallback or not np.array_equal(st_a, expects[0]):
+        fail(f"rlc batch (a): fallback {res_a.used_fallback}, statuses "
+             f"{dict(zip(*np.unique(st_a, return_counts=True)))}")
+    say(f"rlc batch a bench: batch_ok True, no fallback, {B} lanes SUCCESS")
+    want_b = expects[1].copy()
+    for b in zcash_pass:
+        want_b[b] = direct_b[b]
+    if (not res_b.used_fallback or not np.array_equal(st_b, want_b)
+            or not np.array_equal(st_b, direct_b)):
+        fail(f"rlc batch (b): fallback {res_b.used_fallback}, "
+             f"{int((st_b != direct_b).sum())} lanes differ from direct")
+    say(f"rlc batch b mixed: fallback used, {B} lanes equal the direct "
+        f"path's and the constructed statuses")
+    direct_t = np.asarray(direct_entry.fn(*inputs[2]).cpu())
+    if (not res_t.used_fallback or not np.array_equal(st_t, direct_t)
+            or not (direct_t[4:10] != 0).all()):
+        fail(f"rlc batch (t): fallback {res_t.used_fallback}, statuses "
+             f"{st_t[:12].tolist()} vs direct {direct_t[:12].tolist()}")
+    say(f"rlc batch t torsion: fallback used, lanes 4-9 rejected "
+        f"{st_t[4:10].tolist()}, {B} lanes equal the direct path's")
+
+    a_args = inputs[0]
+    ms = time_ms(torch, lambda: entry.fn(*a_args), TIMED_BATCHES)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_BATCHES):
+        np.asarray(entry.fn(*a_args))
+    wall = (time.perf_counter() - t0) / TIMED_BATCHES
+    entry.note_service(int(wall * 1e9))
+    say(f"verify rlc B={B} msg={MSG_LEN}: {ms:.3f} ms/batch (CUDA "
+        f"events), {B / (ms / 1e3):.0f} verifies/s; host clock with the "
+        f"batch_ok read-back {wall * 1e3:.3f} ms/batch, {B / wall:.0f} "
+        f"verifies/s [{card}]")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        np.asarray(entry.fn(*inputs[1]))
+    wall_b = (time.perf_counter() - t0) / 3
+    say(f"verify rlc, batch (b) with its fallback: host clock "
+        f"{wall_b * 1e3:.3f} ms/batch, {B / wall_b:.0f} verifies/s")
+    profile_batches(torch, lambda: np.asarray(entry.fn(*a_args)), wall * 1e3)
+    rlc_stages(torch, a_args)
+
+
+def rlc_stages(torch, args, n: int = 5) -> None:
+    """Host clock of the stages of a clean RLC pass, each ended by a
+    synchronise, so a stage's time holds its host enqueue and its device
+    work: drawing z and u (os.urandom) with their copy to the card, the
+    front half (K1, K2, scalar glue), the local half after it (staging,
+    three fills and aggregations), the tails (two Horners, the ladder,
+    the verdict) and the batch_ok read-back: the functions the engine's
+    pass runs, in its order. Mean of n passes."""
+    from firedancer_tpu_torch.ops import verify_rlc as vr
+
+    dev = args[0].device
+    names = ("weights", "front half", "fills and aggregations", "tails",
+             "read-back")
+    spent = dict.fromkeys(names, 0.0)
+    for _ in range(n):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        z, u = vr.draw_weights(B, dev)
+        mark()
+        _, _, msm_in = vr.rlc_front(*args, z, u)
+        mark()
+        parts = vr.msm_partials(msm_in)
+        mark()
+        ok = vr.verify_rlc_combine(parts)
+        mark()
+        if not bool(ok):
+            fail("rlc stages: the clean batch's verdict is False")
+        mark()
+        for name, a, b in zip(names, marks, marks[1:]):
+            spent[name] += (b - a) / n
+    total = sum(spent.values())
+    say(f"rlc stages, host clock with a synchronise after each, mean of "
+        f"{n} clean passes: {total * 1e3:.3f} ms")
+    for name, t in spent.items():
+        say(f"  {t * 1e3:8.3f} ms {100 * t / total:5.1f}% {name}")
+
+
+def msm_parity(torch, gpu, parity, record, batch_a) -> None:
+    """Phase 3, the MSM kernels: each against its plain version at the
+    main path's shapes, staged from the clean batch (a) through the RLC
+    front half with seeded weights."""
+    from firedancer_tpu_torch import msm_plan
+    from firedancer_tpu_torch.ops import msm, msm_cuda
+    from firedancer_tpu_torch.ops import verify_rlc as vr
+    from firedancer_tpu_torch.ops.sc25519 import L
+
+    rng = np.random.default_rng(11)
+    z = gpu(vr.fresh_z(B, rng))
+    u = gpu(vr.fresh_u(vr.TORSION_K, 2 * B, rng))
+    args = tuple(gpu(a) for a in batch_a)
+    _, definite, msm_in = vr.rlc_front(*args, z, u)
+    if bool(definite.any()):
+        fail("msm parity: the clean batch has definite lanes")
+    grids = []
+    for name, (scalars, pts), nw in (("z", msm_in["r"], msm.WINDOWS_Z),
+                                     ("253", msm_in["m"], msm.WINDOWS_253)):
+        rounds = msm_plan.default_rounds(pts.shape[0])
+        grids.append((name, pts) + msm._staging_indices(
+            scalars, nw, pts.shape[0], rounds))
+    pts, u_live = msm_in["sub"]
+    nb_t = 1 << msm_plan.TORSION_BUCKET_BITS
+    grids.append(("torsion", pts) + msm._staging_from_digits(
+        u_live & (nb_t - 1), 2 * B, msm_plan.default_rounds(2 * B, nb_t),
+        nb_t))
+
+    def kernel_row(name, runs, replaces, source):
+        """runs: (label, kernel fn, plain fn, bound) per launch of a pass;
+        one JSON row with the pass's summed times and bounds."""
+        err = ms = plain_ms = 0.0
+        outs = {}
+        for label, kern, plain, bound in runs:
+            out = kern()
+            err = max(err, parity(f"{name} {label}", out, plain()))
+            k_ms, p_ms = time_ms(torch, kern, REPS), time_ms(torch, plain, 1)
+            say(f"  {name} {label}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            ms, plain_ms = ms + k_ms, plain_ms + p_ms
+            outs[label] = out
+        record(name, err, ms, plain_ms, _sum_bounds([r[3] for r in runs]),
+               replaces, source)
+        return outs
+
+    runs = []
+    for name, pts, idx, ok in grids:
+        if not bool(ok):
+            fail(f"msm_fill {name}: the clean batch overflowed a bucket")
+        nw, nb, rounds = idx.shape
+        idx_r = idx.permute(2, 0, 1).reshape(rounds, nw * nb).contiguous()
+        runs.append((f"{name} {nw}x{nb} lanes x {rounds} rounds",
+                     lambda p=pts, i=idx_r: msm_cuda.fill_buckets_cuda(p, i),
+                     lambda p=pts, i=idx: msm_cuda.fill_buckets_ref(p, i),
+                     bound_fill(nw * nb, rounds, int((idx >= 0).sum()),
+                                pts.shape[0])))
+    fills = kernel_row("msm_fill", runs,
+                       "firedancer_tpu/ops/msm_pallas.py:148",
+                       "firedancer_tpu_torch/ops/csrc/msm_fill.cu")
+    runs = []
+    for (name, _, idx, _), out in zip(grids, fills.values()):
+        buckets = out.reshape(idx.shape[0], idx.shape[1], 4, 5)
+        runs.append((f"{name} {idx.shape[0]} columns x {idx.shape[1]}",
+                     lambda b=buckets: msm_cuda.aggregate_buckets_cuda(b),
+                     lambda b=buckets: msm_cuda.aggregate_buckets_ref(b),
+                     bound_aggregate(idx.shape[0], idx.shape[1])))
+    aggs = list(kernel_row("msm_aggregate", runs,
+                           "firedancer_tpu/ops/msm_pallas.py:353",
+                           "firedancer_tpu_torch/ops/csrc/msm_aggregate.cu"
+                           ).values())
+    runs = [(f"{name} {w.shape[0]} windows",
+             lambda w=w: msm_cuda.window_horner_cuda(w, msm.W_BITS),
+             lambda w=w: msm_cuda.window_horner_ref(w, msm.W_BITS),
+             bound_horner(w.shape[0], msm.W_BITS))
+            for name, w in (("z", aggs[0]), ("253", aggs[1]))]
+    kernel_row("msm_horner", runs, "firedancer_tpu/ops/msm_pallas.py:295",
+               "firedancer_tpu_torch/ops/csrc/msm_horner.cu")
+    trials = aggs[2]
+    kernel_row("msm_order", [(
+        f"K = {trials.shape[0]} trials",
+        lambda: msm_cuda.mul_by_group_order_cuda(trials),
+        lambda: msm_cuda.mul_by_group_order_ref(trials),
+        bound_order(trials.shape[0], L))],
+        "firedancer_tpu/ops/msm_pallas.py:218",
+        "firedancer_tpu_torch/ops/csrc/msm_order.cu")
+    parts = {"w_r": aggs[0], "ok_r": grids[0][3], "w_m": aggs[1],
+             "ok_m": grids[1][3], "sub": trials, "sub_ok": grids[2][3]}
+    if not bool(vr.verify_rlc_combine(parts)):
+        fail("msm parity: the clean batch's RLC verdict is False")
+    say("msm parity: the clean batch's staged MSMs verify (batch_ok True)")
+
+    # The signed plans' branch of the fill (the sign folded into the
+    # gather), which EngineSpec(..., msm="s8l3") runs: its 253-bit grid
+    # against the plain version, then the whole pass's verdict.
+    plan = msm_plan.parse_plan("s8l3")
+    scalars, pts = msm_in["m"]
+    nw, nb, rounds = msm._plan_dims(msm.WINDOWS_253, pts.shape[0], plan)
+    planes = msm._top_tree_planes(msm.WINDOWS_253, nw, plan)
+    idx, neg, ok, _ = msm._plan_staging(scalars, pts.shape[0], rounds, nw,
+                                        nb, plan, planes)
+    if not bool(ok) or not bool(neg.any()):
+        fail(f"msm_fill s8l3: fill verdict {bool(ok)}, "
+             f"{int(neg.sum())} negated slots")
+    parity(f"msm_fill s8l3 {idx.shape[0]}x{nb} lanes x {rounds} rounds",
+           msm_cuda.fill_buckets(pts, idx, neg),
+           msm_cuda.fill_buckets_ref(pts, idx, neg))
+    if not bool(vr.verify_batch_rlc(*args, z, u, plan=plan)[2]):
+        fail("msm parity: the clean batch's RLC verdict at s8l3 is False")
+    say(f"msm parity: s8l3 fill ({int(neg.sum())} of "
+        f"{int((idx >= 0).sum())} slots negated) equals its plain version; "
+        f"the clean batch verifies at s8l3 (batch_ok True)")
 
 
 def main() -> int:
@@ -324,7 +615,7 @@ def main() -> int:
            "firedancer_tpu/ops/curve_pallas.py:296",
            "firedancer_tpu_torch/ops/csrc/point_eq.cu")
 
-    # 4. Main path. Traffic first (oracle signing on the host).
+    # Traffic (oracle signing on the host), for phases 3 to 5.
     t0 = time.perf_counter()
     bench_rng = np.random.RandomState(42)
     uniq = corpus.signed_items(64, [MSG_LEN], bench_rng)
@@ -366,8 +657,19 @@ def main() -> int:
     uniq_c = corpus.signed_items(64, mtu_lens, bench_rng)
     batch_c = corpus.to_arrays([uniq_c[b % 64] for b in range(B)], MTU_MSG)
     expect_c = np.zeros(B, np.int32)
+
+    # The RLC torsion batch: (a) with an order-2 pair (lanes 4, 5) and four
+    # order-8-offset lanes (6-9) of the RLC corpus; each fails per lane.
+    rlc_cases = corpus.rlc_corpus()
+    items_t = list(tiled)
+    items_t[4:6] = rlc_cases["order2"][4:6]
+    items_t[6:10] = rlc_cases["order8"][4:8]
+    batch_t = corpus.to_arrays(items_t, MSG_LEN)
     say(f"traffic: {time.perf_counter() - t0:.1f} s of oracle signing")
 
+    msm_parity(torch, gpu, parity, record, batch_a)
+
+    # 4. Direct path.
     t0 = time.perf_counter()
     entry, warmed = registry().acquire(EngineSpec("direct", B))
     say(f"engine {entry.key} on {entry.device}: warmed={warmed} "
@@ -382,13 +684,13 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(backend.launches)
     plain = dict(backend.plain_calls)
-    say(f"main path: launches {launches}, plain calls {plain}")
-    for name in rows:
+    say(f"direct path: launches {launches}, plain calls {plain}")
+    for name in DIRECT_KERNELS:
         if launches.get(name, 0) < 1:
-            fail(f"{name} was not launched on the main path")
+            fail(f"{name} was not launched on the direct path")
         rows[name]["launches"] = launches[name]
     if any(plain.values()):
-        fail(f"a plain version ran on the main path: {plain}")
+        fail(f"a plain version ran on the direct path: {plain}")
 
     for (name, _, expect), out, args in zip(batches, outs, inputs):
         got = out.cpu().numpy()
@@ -424,8 +726,11 @@ def main() -> int:
         f"{wall * 1e3:.3f} ms/batch, {B / wall:.0f} verifies/s "
         f"[{card}]")
     profile_batches(torch, lambda: entry.fn(*a_args), wall * 1e3)
+    direct_b = outs[1].cpu().numpy()
+    rlc_path(torch, gpu, rows, card, (batch_a, batch_b, batch_t),
+             (expect_a, expect_b), direct_b, zcash_pass, entry)
 
-    # 5. Output.
+    # 6. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

@@ -83,6 +83,80 @@ def signed_items(n: int, msg_lens, rng: np.random.RandomState):
     return items
 
 
+# -- RLC adversarial constructions ---------------------------------------
+# The RLC batch equation is sound only against prime-order defects; these
+# lanes carry defects that live in the 8-torsion, or weights that overload
+# one bucket, so each must force the per-lane fallback.
+
+ORDER2 = (0, P - 1)
+# The canonical order-8 torsion encoding of the small-order list.
+ORDER8_ENC = bytes.fromhex(
+    "26e8958fc2b227b045c3f489f2ef98f0d5dfac05d3c63339b13802886d53fc05")
+
+
+def rlc_items(n: int = 16, max_len: int = 64, seed: int = 5):
+    """n oracle-signed triples with keys from seeds bytes([i + 1]) * 32
+    and messages of random length in [1, max_len) (numpy RandomState)."""
+    rng = np.random.RandomState(seed)
+    items = []
+    for i in range(n):
+        key = bytes([i + 1]) * 32
+        _, _, pub = oracle.keypair_from_seed(key)
+        m = rng.randint(0, 256, rng.randint(1, max_len), dtype=np.uint8)
+        items.append((m.tobytes(), oracle.sign(m.tobytes(), key), pub))
+    return items
+
+
+def torsion_offset(items, t_point, lanes):
+    """Replace each lane's signature by R = r*B + T, s = r + h*a with T a
+    torsion point: the per-lane defect s*B - h*A - R is exactly -T, so the
+    lane fails per-lane verify while its defect is invisible to the bare
+    RLC equation whenever the weighted torsion sum cancels."""
+    out = list(items)
+    for i in lanes:
+        a, _, pub = oracle.keypair_from_seed(bytes([i + 1]) * 32)
+        m = out[i][0]
+        r = 987_654_321 + i
+        r_bytes = oracle.point_compress(
+            oracle.point_add(oracle.scalarmult(r, oracle.B), t_point))
+        h = oracle._sha512_mod_l(r_bytes, pub, m)
+        sig = r_bytes + ((r + h * a) % L).to_bytes(32, "little")
+        assert oracle.verify(m, sig, pub) != 0
+        out[i] = (m, sig, pub)
+    return out
+
+
+def rlc_corpus(n: int = 16, max_len: int = 64) -> dict:
+    """The RLC parity corpus: name -> (msg, sig, pub) triples. 'overflow'
+    is the clean batch; its overload comes from equal z weights."""
+    base = rlc_items(n, max_len)
+    out = {"clean": base, "overflow": base}
+    salted = list(base)                       # a decodable but wrong R
+    m, sig, pub = salted[7]
+    salted[7] = (m, sig[:2] + bytes([sig[2] ^ 0x40]) + sig[3:], pub)
+    out["salted"] = salted
+    definite = list(base)
+    m, sig, pub = definite[1]
+    definite[1] = (m, sig[:32] + b"\xff" * 32, pub)            # s >= L
+    bad_pub = next(e for e in (bytes([c]) + bytes(31) for c in range(2, 200))
+                   if oracle.point_decompress(e) is None)
+    definite[2] = definite[2][:2] + (bad_pub,)
+    out["definite"] = definite
+    noncanon = list(base)                     # y = 2^255 - 1 >= p
+    m, sig, pub = noncanon[3]
+    noncanon[3] = (m, b"\xff" * 31 + b"\x7f" + sig[32:], pub)
+    out["noncanon_r"] = noncanon
+    out["order2"] = torsion_offset(base, ORDER2, (4, 5))
+    out["order8"] = torsion_offset(base, oracle.point_decompress(ORDER8_ENC),
+                                   (4, 5, 6, 7))
+    small = list(base)
+    small[2] = small[2][:2] + (oracle.point_compress(ORDER2),)
+    m, sig, pub = small[9]
+    small[9] = (m, ORDER8_ENC + sig[32:], pub)
+    out["small_order"] = small
+    return out
+
+
 def to_arrays(items, max_len: int | None = None):
     """(msg, sig, pub) triples -> (msgs (B, max_len) uint8, lens (B,)
     int32, sigs (B, 64) uint8, pubs (B, 32) uint8)."""

@@ -1,10 +1,14 @@
 """Bit-exact pure-Python Ed25519 oracle (the port's own copy).
 
-A copy of ``firedancer_tpu/ballet/ed25519/oracle.py``: the port never
-imports the JAX package, so it keeps this module beside its kernels. It
-supplies the curve constants and ``point_add`` for the constant tables
-of the CUDA kernels, and ``sign``/``keypair_from_seed`` for test and
-smoke traffic.
+The port's own version of ``firedancer_tpu/ballet/ed25519/oracle.py``:
+the port never imports the JAX package, so it keeps this module beside
+its kernels. It supplies the curve constants and ``point_add`` for the
+constant tables of the CUDA kernels, and ``sign``/``keypair_from_seed``
+for test and smoke traffic. It differs from the JAX package's in one
+place: ``scalarmult`` runs its ladder in extended coordinates with one
+inversion at the end (the same affine result, made faster for signing
+the smoke traffic); ``tests/test_torch_verify.py`` holds it against
+RFC 8032 and against the JAX package's ladder.
 
 Semantics follow RFC 8032 with the reference verifier's choices:
 
@@ -113,15 +117,32 @@ def point_add(p1, p2):
     return (x3, y3)
 
 
+def _ext_add(p, q):
+    """Unified extended-coordinates addition (a = -1, complete)."""
+    x1, y1, z1, t1 = p
+    x2, y2, z2, t2 = q
+    a = (y1 - x1) * (y2 - x2) % P
+    b = (y1 + x1) * (y2 + x2) % P
+    c = 2 * D * t1 * t2 % P
+    d = 2 * z1 * z2 % P
+    e, f, g, h = b - a, d - c, d + c, b + a
+    return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+
 def scalarmult(k: int, pt):
-    """Double-and-add scalar multiplication (vartime, oracle only)."""
-    q = (0, 1)  # identity
+    """Double-and-add scalar multiplication (vartime, oracle only), in
+    extended coordinates with one inversion at the end; the same affine
+    result as repeated point_add."""
+    x, y = pt
+    p = (x, y, 1, x * y % P)
+    q = (0, 1, 1, 0)  # identity
     while k > 0:
         if k & 1:
-            q = point_add(q, pt)
-        pt = point_add(pt, pt)
+            q = _ext_add(q, p)
+        p = _ext_add(p, p)
         k >>= 1
-    return q
+    zi = pow(q[2], P - 2, P)
+    return (q[0] * zi % P, q[1] * zi % P)
 
 
 def _sha512_mod_l(*chunks: bytes) -> int:

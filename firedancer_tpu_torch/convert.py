@@ -69,14 +69,38 @@ def fe_to_canonical_bytes(x) -> np.ndarray:
                     np.uint8).reshape(-1, 32)
 
 
+def _coords(point, n: int) -> list[list[int]]:
+    """The first n coordinates of a port tensor (B, k, 5) or a JAX tuple
+    of (32, B) limb arrays, as canonical Python ints."""
+    if isinstance(point, torch.Tensor):
+        return [_port_limbs_to_ints(point[:, c]) for c in range(n)]
+    return [_jax_limbs_to_ints(c) for c in point[:n]]
+
+
+def point_to_projective_bytes(point) -> np.ndarray:
+    """Points -> (B, 4, 32) uint8: canonical little-endian X, Y, Z, T.
+    Two computations that ran the same formulas in the same order agree
+    here, not only as group elements."""
+    cols = _coords(point, 4)
+    return np.array([[list(v.to_bytes(32, "little")) for v in lane]
+                     for lane in zip(*cols)], np.uint8).reshape(-1, 4, 32)
+
+
+def point_digest(point) -> np.ndarray:
+    """(B, 8) uint8: the first 8 bytes of SHA-256 over each point's
+    canonical projective bytes (a compact exact fingerprint)."""
+    import hashlib
+
+    proj = point_to_projective_bytes(point)
+    return np.array([list(hashlib.sha256(p.tobytes()).digest()[:8])
+                     for p in proj], np.uint8).reshape(-1, 8)
+
+
 def point_to_affine_bytes(point) -> np.ndarray:
     """Points -> (B, 32) uint8 compressed encodings (canonical y, bit 255
     the parity of x). Takes a port tensor (B, k >= 3, 5) or a JAX tuple
     (X, Y, Z[, T]) of (32, B) limb arrays."""
-    if isinstance(point, torch.Tensor):
-        x, y, z = (_port_limbs_to_ints(point[:, c]) for c in range(3))
-    else:
-        x, y, z = (_jax_limbs_to_ints(c) for c in point[:3])
+    x, y, z = _coords(point, 3)
     out = []
     for xi, yi, zi in zip(x, y, z):
         zinv = pow(zi, P - 2, P)

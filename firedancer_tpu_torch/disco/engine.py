@@ -1,13 +1,16 @@
 """Verify engines, the counterpart of ``firedancer_tpu/disco/engine.py``
-(``EngineSpec``:83, ``EngineEntry``:273, ``EngineRegistry.acquire``:519),
-direct mode only.
+(``EngineSpec``:83, ``EngineEntry``:273, ``EngineRegistry.acquire``:519,
+the RLC build at :618-634).
 
-``registry().acquire(EngineSpec("direct", 8192))`` is the entry a user
-calls: it resolves the device (the Hopper card unless the caller passes
+``registry().acquire(EngineSpec(mode, 8192))`` is the entry a user calls:
+it resolves the device (the Hopper card unless the caller passes
 ``device="cpu"``; no card raises), builds the kernels, and warms the
 engine with one zero batch. ``entry.fn(msgs, lens, sigs, pubs)`` returns
-(B,) int32 statuses on the engine's device. RLC mode is the next slice
-of the port and raises here.
+(B,) int32 statuses on the engine's device in ``direct`` mode, and an
+``RlcAsyncResult`` in ``rlc`` mode: one RLC pass (MSM plan ``spec.msm``,
+the baseline ``u7`` by default) whose per-lane fallback, the direct path,
+runs only when the batch equation fails. ``np.asarray(result)`` gives the
+statuses.
 """
 
 from __future__ import annotations
@@ -16,10 +19,13 @@ import threading
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from ..msm_plan import parse_plan
 from ..ops import backend, build
 from ..ops.verify import verify_batch
+from ..ops.verify_rlc import make_async_verifier, verify_batch_rlc
 
 ENGINE_COLD = "cold"
 ENGINE_WARM = "warm"
@@ -28,14 +34,16 @@ ENGINE_FAILED = "failed"
 
 @dataclass(frozen=True)
 class EngineSpec:
-    """An engine's identity: verify mode and batch size."""
+    """An engine's identity: verify mode, batch size and the MSM plan
+    token of rlc mode (msm_plan.parse_plan; direct mode runs no MSM)."""
 
-    mode: str        # "direct"; "rlc" is not ported yet
+    mode: str        # "direct" | "rlc"
     batch: int
+    msm: str = "u7"
 
     @property
     def key(self) -> str:
-        return f"{self.mode}:B{self.batch}"
+        return f"{self.mode}:B{self.batch}:{self.msm}"
 
 
 class EngineEntry:
@@ -55,15 +63,22 @@ class EngineEntry:
         self.service_ns = 0        # EMA of dispatch -> complete wall ns
         self._warmed: set = set()  # max_msg_len values warmed
         self._lock = threading.Lock()
+        self._verify = verify_batch
+        if spec.mode == "rlc":
+            plan = parse_plan(spec.msm)
+            self._verify = make_async_verifier(
+                verify_batch, rlc_fn=lambda *a: verify_batch_rlc(
+                    *a, plan=plan))
 
-    def fn(self, msgs, lens, sigs, pubs) -> torch.Tensor:
+    def fn(self, msgs, lens, sigs, pubs):
         """Verify one batch. Inputs are tensors or arrays; they are moved
-        to the engine's device. Returns without waiting for the device."""
+        to the engine's device. Returns without waiting for the device:
+        statuses (direct) or an RlcAsyncResult (rlc)."""
         dev = self.device
         args = [torch.as_tensor(a).to(dev, non_blocking=True)
                 for a in (msgs, lens, sigs, pubs)]
         self.note_dispatch(args[0].shape[0])
-        return verify_batch(*args)
+        return self._verify(*args)
 
     def note_dispatch(self, lanes: int) -> None:
         self.dispatches += 1
@@ -76,7 +91,8 @@ class EngineEntry:
 
     def warm(self, max_msg_len: int = 1232) -> bool:
         """Build the kernels (on CUDA) and run one zero batch at
-        (batch, max_msg_len). Returns True when this call warmed."""
+        (batch, max_msg_len): in rlc mode through the RLC pass and its
+        direct fallback both. Returns True when this call warmed."""
         with self._lock:
             if max_msg_len in self._warmed:
                 return False
@@ -85,13 +101,15 @@ class EngineEntry:
             try:
                 if self.device.type == "cuda":
                     build.build_all()
-                out = verify_batch(
+                zeros = (
                     torch.zeros(b, max_msg_len, dtype=torch.uint8,
                                 device=self.device),
                     torch.zeros(b, dtype=torch.int32, device=self.device),
                     torch.zeros(b, 64, dtype=torch.uint8, device=self.device),
                     torch.zeros(b, 32, dtype=torch.uint8, device=self.device))
-                out.cpu()
+                verify_batch(*zeros).cpu()
+                if self.spec.mode == "rlc":
+                    np.asarray(self._verify(*zeros))
             except Exception as exc:
                 self.state = ENGINE_FAILED
                 self.err = repr(exc)[:200]
@@ -104,7 +122,8 @@ class EngineEntry:
 
     def snapshot(self) -> dict:
         return {"key": self.key, "mode": self.spec.mode,
-                "batch": self.spec.batch, "device": str(self.device),
+                "batch": self.spec.batch, "msm": self.spec.msm,
+                "device": str(self.device),
                 "state": self.state, "warm_s": round(self.warm_s, 3),
                 "dispatches": self.dispatches, "lanes": self.lanes,
                 "service_ns": self.service_ns, "err": self.err}
@@ -122,14 +141,10 @@ class EngineRegistry:
         """Resolve an engine for dispatch: (entry, warmed_now). device
         'cuda' needs a card of compute capability 9.x and raises
         RuntimeError without one; the CPU runs only when asked for."""
-        if spec.mode == "rlc":
-            raise NotImplementedError(
-                "RLC verify is not ported yet: it is the next slice of the "
-                "port (ROADMAP.md, queue 1 item 4 and queue 2 items 1-6); "
-                "use EngineSpec('direct', batch)")
-        if spec.mode != "direct":
+        if spec.mode not in ("direct", "rlc"):
             raise ValueError(f"unknown verify mode {spec.mode!r} "
-                             "(want direct)")
+                             "(want direct|rlc)")
+        parse_plan(spec.msm)
         dev = backend.resolve_device(device)
         with self._lock:
             e = self._entries.get((spec, dev))

@@ -10,6 +10,8 @@ it. Batch-uniform control flow: failures become masks.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ballet.ed25519 import oracle as _oracle
@@ -21,38 +23,65 @@ def identity(batch_shape, device="cpu"):
             fe.fe_one(batch_shape, device), fe.fe_zero(batch_shape, device))
 
 
+def _muls(xs, ys):
+    """The elementwise products xs[i] * ys[i] as one fe_mul over the
+    stacked operands: the same values, a fraction of the PyTorch ops
+    (what bounds the plain version on small batches)."""
+    ts = list(xs) + list(ys)
+    if any(t.shape != ts[0].shape for t in ts):
+        ts = torch.broadcast_tensors(*ts)
+    n = len(xs)
+    return fe.fe_mul(torch.stack(ts[:n]), torch.stack(ts[n:])).unbind(0)
+
+
+@functools.lru_cache(maxsize=None)
+def _coeffs(rows: tuple, ndim: int, device: torch.device) -> torch.Tensor:
+    c = torch.tensor(rows, dtype=torch.int64, device=device)
+    return c.reshape(c.shape + (1,) * ndim)
+
+
+def _lin(rows: tuple, xs):
+    """Small integer combinations sum_j rows[i][j] * xs[j] of field
+    elements, one carry for all of them (the formulas' adds and subs:
+    the same values as chaining fe_add and fe_sub)."""
+    ts = torch.broadcast_tensors(*xs)
+    c = _coeffs(rows, ts[0].dim(), ts[0].device)
+    return fe.fe_carry((c * torch.stack(ts)).sum(dim=1)).unbind(0)
+
+
+# [a, b, c, d] -> [b - a, 2d - c, 2d + c, b + a]: e, f, g, h of the adds.
+_EFGH = ((-1, 1, 0, 0), (0, 0, -1, 2), (0, 0, 1, 2), (1, 1, 0, 0))
+# [x1, y1, x2, y2] -> [y1 - x1, y1 + x1, y2 - x2, y2 + x2].
+_SUMS = ((-1, 1, 0, 0), (1, 1, 0, 0), (0, 0, -1, 1), (0, 0, 1, 1))
+# [x^2, y^2, z^2, (x + y)^2] -> e, f, g, h of the doubling (a = -1):
+# e = (x + y)^2 - x^2 - y^2, g = y^2 - x^2, f = g - 2 z^2, h = -x^2 - y^2.
+_DBL = ((-1, -1, 0, 1), (-1, 1, -2, 0), (-1, 1, 0, 0), (-1, -1, 0, 0))
+
+
+def _outputs(e, f, g, h, need_t: bool):
+    """(e f, g h, f g[, e h]): the shared last step of the formulas."""
+    if need_t:
+        return _muls([e, g, f, e], [f, h, g, h])
+    return _muls([e, g, f], [f, h, g]) + (None,)
+
+
 def point_add(p, q, need_t: bool = True):
     """add-2008-hwcd-3, a = -1 (complete)."""
     x1, y1, z1, t1 = p
     x2, y2, z2, t2 = q
     d2 = fe.fe_const(fe.D2_INT, device=x1.device)
-    a = fe.fe_mul(fe.fe_sub(y1, x1), fe.fe_sub(y2, x2))
-    b = fe.fe_mul(fe.fe_add(y1, x1), fe.fe_add(y2, x2))
-    c = fe.fe_mul(fe.fe_mul(t1, t2), d2)
-    zz = fe.fe_mul(z1, z2)
-    d_ = fe.fe_add(zz, zz)
-    e = fe.fe_sub(b, a)
-    f = fe.fe_sub(d_, c)
-    g = fe.fe_add(d_, c)
-    h = fe.fe_add(b, a)
-    t = fe.fe_mul(e, h) if need_t else None
-    return fe.fe_mul(e, f), fe.fe_mul(g, h), fe.fe_mul(f, g), t
+    ym1, yp1, ym2, yp2 = _lin(_SUMS, (x1, y1, x2, y2))
+    a, b, tt, zz = _muls([ym1, yp1, t1, z1], [ym2, yp2, t2, z2])
+    c = fe.fe_mul(tt, d2)
+    return _outputs(*_lin(_EFGH, (a, b, c, zz)), need_t)
 
 
 def point_double(p, need_t: bool = True):
     """dbl-2008-hwcd, a = -1. The input T is never read."""
     x1, y1, z1, _ = p
-    a = fe.fe_sq(x1)
-    b = fe.fe_sq(y1)
-    zz = fe.fe_sq(z1)
-    c = fe.fe_add(zz, zz)
-    d_ = fe.fe_neg(a)
-    e = fe.fe_sub(fe.fe_sub(fe.fe_sq(fe.fe_add(x1, y1)), a), b)
-    g = fe.fe_add(d_, b)
-    f = fe.fe_sub(g, c)
-    h = fe.fe_sub(d_, b)
-    t = fe.fe_mul(e, h) if need_t else None
-    return fe.fe_mul(e, f), fe.fe_mul(g, h), fe.fe_mul(f, g), t
+    xy = fe.fe_add(x1, y1)
+    sq = _muls([x1, y1, z1, xy], [x1, y1, z1, xy])
+    return _outputs(*_lin(_DBL, sq), need_t)
 
 
 def point_neg(p):
@@ -62,6 +91,69 @@ def point_neg(p):
 
 def point_select(mask, p, q):
     return tuple(fe.fe_select(mask, a, b) for a, b in zip(p, q))
+
+
+def madd_niels(p, q):
+    """Unified mixed add, p extended + q = (yp, ym, t2d) in niels form of
+    a Z = 1 point: msm_pallas.py:52 _madd_niels, 7 multiplies, in its
+    order. The identity niels (1, 1, 0) scales p projectively."""
+    x1, y1, z1, t1 = p
+    yp2, ym2, t2d2 = q
+    ym1, yp1, _, _ = _lin(_SUMS, (x1, y1, x1, y1))
+    a, b, c = _muls([ym1, yp1, t1], [ym2, yp2, t2d2])
+    return _outputs(*_lin(_EFGH, (a, b, c, z1)), True)
+
+
+def niels(p):
+    """Niels form (y + x, y - x, 2d t) of Z = 1 points."""
+    x, y, _, t = p
+    return (fe.fe_add(y, x), fe.fe_sub(y, x),
+            fe.fe_mul(t, fe.fe_const(fe.D2_INT, device=x.device)))
+
+
+# 2p in radix-2^51 limbs: 2p - x is -x with every limb in (0, 2^52) for a
+# canonical x, which is what the kernels take.
+_TWO_P51 = [(1 << 52) - 38] + [(1 << 52) - 2] * 4
+
+
+def point_neg_limbs(pt: torch.Tensor) -> torch.Tensor:
+    """-P for (B, 4, 5) canonical limbs: X and T become 2p - X, 2p - T
+    (limbs in (0, 2^52), the same field elements as fe_neg gives)."""
+    two_p = _two_p51(pt.device)
+    return torch.stack([two_p - pt[:, 0], pt[:, 1], pt[:, 2],
+                        two_p - pt[:, 3]], dim=1)
+
+
+def is_identity_limbs(pt: torch.Tensor) -> torch.Tensor:
+    """(n, >= 3, 5) canonical limbs -> (n,) bool X == 0 and Y == Z, the
+    projective identity test (verify_rlc.py:468-471)."""
+    return ((pt[:, 0] == 0).all(dim=-1)
+            & (pt[:, 1] == pt[:, 2]).all(dim=-1))
+
+
+def sum_is_identity(p, q) -> torch.Tensor:
+    """P + Q is the identity, i.e. P == -Q: X1 Z2 + X2 Z1 == 0 and
+    Y1 Z2 - Y2 Z1 == 0 (the same verdict as adding and testing X == 0,
+    Y == Z, in four multiplies instead of nine)."""
+    x1z2, x2z1, y1z2, y2z1 = _muls([p[0], q[0], p[1], q[1]],
+                                   [q[2], p[2], q[2], p[2]])
+    zero = fe.fe_is_zero(torch.stack([fe.fe_add(x1z2, x2z1),
+                                      fe.fe_sub(y1z2, y2z1)]))
+    return zero[0] & zero[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _two_p51(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_TWO_P51, dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def base_point_limbs(device: torch.device) -> torch.Tensor:
+    """The base point B as a (1, 4, 5) Z = 1 extended point (sign.py:29
+    _b_point), made once per device; callers must not write to it."""
+    x, y = _oracle.B
+    return to_limbs51(tuple(fe.fe_const(v, (1,), device)
+                            for v in (x, y, 1, x * y % fe.P)))
 
 
 def decompress(y_bytes: torch.Tensor):

@@ -19,10 +19,12 @@ Two layouts meet here:
 
 Limb bounds: after any public op every limb has magnitude < 2^26 + 2^20,
 so a product term a_i * b_j * 38 stays < 2^58.4 and a 10-term row sum
-< 2^61.8.
+< 2^61.8. Two carry passes bring such a sum back under 2^26 + 2^15.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -51,38 +53,45 @@ def _const(values, device):
     return torch.tensor(values, dtype=torch.int64, device=device)
 
 
-def _shifts(device):
-    return _const(_WIDTHS, device)
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device):
+    """Per-device constants, made once (a tensor made per op would cost
+    more than the op on small batches, and a copy to the card per op
+    would stall the host): limb widths, their masks, the carry-in
+    weights (19 for the wrap into limb 0), the product schedule."""
+    return (_const(_WIDTHS, device),
+            _const([(1 << w) - 1 for w in _WIDTHS], device),
+            _const([19] + [1] * (NLIMBS - 1), device),
+            _const(_IDX, device).flatten(), _const(_W, device))
 
 
-def _carry(x: torch.Tensor) -> torch.Tensor:
-    """One parallel carry pass: each limb keeps its low bits and hands
-    the rest (arithmetic shift: exact for signed limbs) to the next,
-    the top limb's carry wrapping into limb 0 times 19."""
-    sh = _shifts(x.device)
-    c = x >> sh
-    lo = x & ((1 << sh) - 1)
-    return lo + torch.cat([19 * c[..., 9:], c[..., :9]], dim=-1)
+def fe_carry(x: torch.Tensor) -> torch.Tensor:
+    """One parallel carry pass over uncarried limbs (each < 2^62 in
+    magnitude, e.g. a small integer combination of field elements): each
+    limb keeps its low bits and hands the rest (arithmetic shift: exact
+    for signed limbs) to the next, the top limb's carry wrapping into
+    limb 0 times 19."""
+    sh, mask, wrap, _, _ = _tables(x.device)
+    return (x & mask) + (x >> sh).roll(1, -1) * wrap
 
 
 def fe_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _carry(a + b)
+    return fe_carry(a + b)
 
 
 def fe_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _carry(a - b)
+    return fe_carry(a - b)
 
 
 def fe_neg(a: torch.Tensor) -> torch.Tensor:
-    return _carry(-a)
+    return fe_carry(-a)
 
 
 def fe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    idx = _const(_IDX, a.device)
-    w = _const(_W, a.device)
-    g = b[..., idx]                                   # (..., 10 i, 10 k)
+    _, _, _, idx, w = _tables(a.device)
+    g = b.index_select(-1, idx).unflatten(-1, (NLIMBS, NLIMBS))  # (.., i, k)
     c = (a.unsqueeze(-1) * w * g).sum(dim=-2)
-    return _carry(_carry(_carry(c)))
+    return fe_carry(fe_carry(c))
 
 
 def fe_sq(a: torch.Tensor) -> torch.Tensor:
@@ -158,7 +167,7 @@ def fe_from_bytes(b: torch.Tensor, mask_high_bit: bool = True) -> torch.Tensor:
     limbs = [_bits(x, _OFFSETS[i], _WIDTHS[i]) for i in range(NLIMBS - 1)]
     top = _bits(x, _OFFSETS[9], 256 - _OFFSETS[9])    # bit 255 folds in
     limbs.append(top)
-    return _carry(torch.stack(limbs, dim=-1))
+    return fe_carry(torch.stack(limbs, dim=-1))
 
 
 def fe_to_bytes(x: torch.Tensor) -> torch.Tensor:
@@ -182,7 +191,7 @@ def fe_from_limbs51(x: torch.Tensor) -> torch.Tensor:
     """(..., 5) int64 radix-2^51 limbs (each in [0, 2^52)) -> fe."""
     lo = x & M26
     hi = x >> 26
-    return _carry(torch.stack([lo, hi], dim=-1).flatten(-2))
+    return fe_carry(torch.stack([lo, hi], dim=-1).flatten(-2))
 
 
 def fe_to_limbs51(x: torch.Tensor) -> torch.Tensor:
@@ -208,8 +217,13 @@ def fe_to_int(x: torch.Tensor) -> list[int]:
             for r in rows]
 
 
+@functools.lru_cache(maxsize=None)
+def _const_row(value: int, device: torch.device) -> torch.Tensor:
+    return fe_from_int([value], device)[0]
+
+
 def fe_const(value: int, batch_shape=(), device="cpu") -> torch.Tensor:
-    c = fe_from_int([value], device)[0]
+    c = _const_row(value, torch.device(device))
     return c.expand(*batch_shape, NLIMBS).contiguous()
 
 

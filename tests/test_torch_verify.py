@@ -9,7 +9,8 @@
   ``JAX_PLATFORMS=cpu python -m tests.test_torch_verify`` from the
   repository root.
 * All 396 Zcash malleability vectors in one batch, and the RFC 8032
-  vectors.
+  vectors. The port's oracle against RFC 8032 and the JAX package's
+  scalar multiplication.
 * The port's rules: no JAX import, an entry point that refuses to run
   on the CPU unless asked, a kernel build that fails loudly.
 """
@@ -186,6 +187,42 @@ def test_rfc8032_vector(rfc_statuses, i):
     assert tampered[i] == oracle.FD_ED25519_ERR_MSG
 
 
+# -- the port's oracle against the JAX package's --------------------------
+# The port's oracle ladder runs in extended coordinates; the tests above
+# and test_torch_curve.py take it as their reference, so it is held here
+# against RFC 8032 and against the JAX package's affine ladder.
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_oracle_keypair_and_sign_match_rfc8032(i):
+    from tests.test_oracle import RFC8032_VECTORS, _msg_bytes
+
+    seed, pub, msg, sig = RFC8032_VECTORS[i]
+    seed_b = bytes.fromhex(seed)
+    assert oracle.keypair_from_seed(seed_b)[2] == bytes.fromhex(pub)
+    assert oracle.sign(_msg_bytes(msg), seed_b) == bytes.fromhex(sig)
+
+
+_LADDER_KS = [0, 1, 2, 7, 8, 9, oracle.L - 1, oracle.L, oracle.L + 1,
+              (1 << 255) - 1, 0x1d3a5f9c2b4e6d8071e2c3b4a5968778]
+
+
+@pytest.mark.parametrize("point", ["base", "order8", "mixed"])
+@pytest.mark.parametrize("k", _LADDER_KS,
+                         ids=[f"k{i}" for i in range(len(_LADDER_KS))])
+def test_oracle_scalarmult_matches_jax_oracle(point, k):
+    """Full-order, order-8 and mixed-order points: the identity and the
+    torsion cancel at k = 0, 8 and L."""
+    from firedancer_tpu.ballet.ed25519 import oracle as joracle
+
+    t8 = next(p for p in map(oracle.point_decompress,
+                             corpus.torsion_encodings())
+              if joracle.scalarmult(4, p) != (0, 1))
+    pt = {"base": oracle.B, "order8": t8,
+          "mixed": oracle.point_add(oracle.B, t8)}[point]
+    assert oracle.scalarmult(k, pt) == joracle.scalarmult(k, pt)
+
+
 # -- rules of the port --------------------------------------------------
 
 
@@ -220,10 +257,15 @@ def test_acquire_refuses_to_run_without_a_card(monkeypatch):
 
 
 def test_acquire_rejects_rlc_and_unknown_modes():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry().acquire(EngineSpec("rlc", 8), device="cpu")
+    """RLC mode is served (tests/test_torch_rlc.py drives it); an rlc spec
+    with an unknown MSM plan and an unknown mode are refused."""
+    with pytest.raises(ValueError, match="msm plan"):
+        registry().acquire(EngineSpec("rlc", 8, msm="x7"), device="cpu")
     with pytest.raises(ValueError, match="verify mode"):
         registry().acquire(EngineSpec("cpu", 8), device="cpu")
+    entry, warmed = registry().acquire(EngineSpec("rlc", 8), device="cpu",
+                                       warm=False)
+    assert (entry.key, warmed, entry.state) == ("rlc:B8:u7", False, "cold")
 
 
 def test_cpu_engine_runs_the_plain_path(mix):
