@@ -11,15 +11,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
    registers and spills.
-3. Kernel parity: each of the eight kernels against its plain PyTorch
+3. Kernel parity: each of the eleven kernels against its plain PyTorch
    version on the same CUDA tensors, at the main path's shapes; they must
-   agree exactly (canonical bytes, limbs and masks). The four MSM kernels
-   take their inputs staged from a clean 8192-lane batch: the three bucket
-   fills (z, 253-bit, torsion), the three aggregations, both Horners and
-   the K = 64 [L] ladder; then the signed plan s8l3's 253-bit fill (the
-   sign folded into the gather) and its pass's verdict. Times with CUDA
-   events, warm, the kernel's mean over 20 launches beside the plain
-   version's.
+   agree exactly (canonical bytes, limbs and masks). The RLC front half's
+   three: frontend_rlc and sha512_batch on 8192 hash rows (and on rows
+   of every length 0-1296), decompress_niels on 2 x 8192 encodings with
+   y = +-1, non-square, non-canonical and small-order lanes planted (and
+   on a batch that is not a multiple of its 32-lane group). The four MSM
+   kernels take their inputs staged from a clean 8192-lane batch through
+   the RLC front half: the three bucket fills (z, 253-bit, torsion) on
+   the decompress kernel's niels forms, the three aggregations, both
+   Horners and the K = 64 [L] ladder; then the signed plan s8l3's 253-bit
+   fill (the sign folded into the gather) and its pass's verdict. Times
+   with CUDA events, warm, the kernel's mean over 20 launches beside the
+   plain version's.
 4. Direct path: registry().acquire(EngineSpec("direct", 8192)) answers
    three 8192-lane batches (bench traffic; the same with salted,
    s >= L, undecodable-key lanes and the 396 Zcash vectors; MTU-sized
@@ -27,13 +32,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
    path's on the card; every kernel's launch count must advance and every
    plain count stay 0. Then verifies/s over 10 timed batches, and the
    device time by kernel over 3 batches (torch.profiler).
-5. RLC path: registry().acquire(EngineSpec("rlc", 8192)) answers (a) the
-   bench batch (batch_ok True, no fallback, every status 0; the MSM
-   kernels launch 3, 3, 2, 1 times, K1 and K2 once, K3 and K4 not at
-   all), (b) the mixed batch and (c) a torsion batch (an order-2 pair and
-   four order-8-offset lanes): both fall back, with the direct path's
-   statuses. Then verifies/s on (a), the cost of (b), the device time
-   by kernel (torch.profiler) and the host clock of the pass's stages.
+5. RLC path, in both front halves: registry().acquire(EngineSpec("rlc",
+   8192, frontend=f)) for f = "fused" and "staged" answers (a) the bench
+   batch (batch_ok True, no fallback, every status 0; decompress_niels
+   launches once, frontend_rlc (fused) or sha512_batch (staged) once,
+   the MSM kernels 3, 3, 2, 1 times, and no direct-path kernel), (b) the
+   mixed batch and (t) a torsion batch (an order-2 pair and four
+   order-8-offset lanes): both fall back, with the direct path's
+   statuses. Then verifies/s on (a), the cost of (b), the device time by
+   kernel (torch.profiler) and the host clock of the pass's stages.
 6. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
@@ -58,7 +65,10 @@ REPS = 20
 TIMED_BATCHES = 10
 DIRECT_KERNELS = ("sha512_mod_l", "decompress_so", "double_scalarmult",
                   "point_eq")
-MSM_KERNELS = ("msm_fill", "msm_aggregate", "msm_horner", "msm_order")
+FRONT_KERNELS = {"fused": "frontend_rlc", "staged": "sha512_batch"}
+# Launches of one clean RLC pass, by front half.
+RLC_PASS = {"decompress_niels": 1, "msm_fill": 3, "msm_aggregate": 3,
+            "msm_horner": 2, "msm_order": 1}
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -98,14 +108,38 @@ def _bound(int_ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bound_sha512_mod_l(lens: np.ndarray, row_bytes: int):
+def _sha512_ops(lens: np.ndarray, row_bytes: int) -> int:
     """Per block: 80 rounds x 34 int32 ops (three 64-bit rotates = 6
     funnel shifts per Sigma, 3-input logic ops, 64-bit adds as 2 ops)
-    + 64 schedule words x 22 ops + 16 for the state; per lane ~39
-    products for the Barrett reduction."""
+    + 64 schedule words x 22 ops + 16 for the state."""
     nblocks = (np.clip(lens, 0, row_bytes).astype(np.int64) + 17 + 127) // 128
-    ops = nblocks.sum() * (80 * 34 + 64 * 22 + 16) + len(lens) * 39 * 4
-    return _bound(ops, len(lens) * (row_bytes + 4 + 32))
+    return int(nblocks.sum()) * (80 * 34 + 64 * 22 + 16)
+
+
+# A Barrett reduction mod L of a 512-bit value: 5 x 5 + 14 64-bit
+# products (sha512.cuh sc_reduce512); a 256 x 256-bit product: 16.
+BARRETT_PRODUCTS, MUL256_PRODUCTS = 39, 16
+
+
+def bound_sha512_mod_l(lens: np.ndarray, row_bytes: int):
+    """The rounds (_sha512_ops), then one Barrett reduction per lane."""
+    return _bound(_sha512_ops(lens, row_bytes)
+                  + len(lens) * BARRETT_PRODUCTS * 4,
+                  len(lens) * (row_bytes + 4 + 32))
+
+
+def bound_sha512_batch(lens: np.ndarray, row_bytes: int):
+    """The rounds alone; reads the rows, writes 64-byte digests."""
+    return _bound(_sha512_ops(lens, row_bytes),
+                  len(lens) * (row_bytes + 4 + 64))
+
+
+def bound_frontend_rlc(lens: np.ndarray, row_bytes: int):
+    """The rounds, then per lane three Barrett reductions (h, z h, z s)
+    and two 256-bit products; reads rows, z and s, writes h, m, zs."""
+    per_lane = 3 * BARRETT_PRODUCTS + 2 * MUL256_PRODUCTS
+    return _bound(_sha512_ops(lens, row_bytes) + len(lens) * per_lane * 4,
+                  len(lens) * (row_bytes + 4 + 2 * 32 + 3 * 32))
 
 
 def bound_decompress_so(n: int):
@@ -114,6 +148,19 @@ def bound_decompress_so(n: int):
     small-order doublings (12 S + 9 M)."""
     return _bound(n * (267 * IMAD_PER_SQ + 28 * IMAD_PER_MUL),
                   n * (32 + 4 * 40 + 2))
+
+
+def bound_decompress_niels(n: int, group: int):
+    """Per lane 267 squarings and 19 multiplies: the curve equation, the
+    252-squaring ladder, the root checks, T, 2d T and the three
+    small-order doublings (12 S + 9 M), with Montgomery's trick at its
+    least, 3 multiplies a lane; per group of `group` lanes one inversion
+    (254 S + 11 M). Reads 32 B a lane; writes the point, both niels forms
+    and two masks."""
+    groups = -(-n // group)
+    ops = (n * (267 * IMAD_PER_SQ + 19 * IMAD_PER_MUL)
+           + groups * (254 * IMAD_PER_SQ + 11 * IMAD_PER_MUL))
+    return _bound(ops, n * (32 + 4 * 40 + 2 * 3 * 40 + 2))
 
 
 def bound_double_scalarmult(n: int):
@@ -143,13 +190,13 @@ def _sum_bounds(bounds):
 
 
 def bound_fill(lanes: int, rounds: int, filled: int, n_points: int):
-    """A madd and 2d*t (8 multiplies) for each filled slot: the bucket
-    sums need no more. The kernel's identity adds on empty slots exist
-    only because it runs a static number of rounds, so they are not
-    counted. Reads the points once and the slot table, writes the
-    buckets."""
-    return _bound(filled * 8 * IMAD_PER_MUL,
-                  n_points * PT_BYTES + rounds * lanes * 4 + lanes * PT_BYTES)
+    """A madd (7 multiplies) for each filled slot: the bucket sums need
+    no more. The kernel's identity adds on empty slots exist only
+    because it runs a static number of rounds, so they are not counted.
+    Reads the niels forms (120 B a point) once and the slot table,
+    writes the buckets."""
+    return _bound(filled * 7 * IMAD_PER_MUL,
+                  n_points * 3 * 40 + rounds * lanes * 4 + lanes * PT_BYTES)
 
 
 def bound_aggregate(ncols: int, nb: int):
@@ -214,7 +261,8 @@ def profile_batches(torch, fn, batch_ms: float, n: int = 3) -> None:
         return
     busy = sum(k[0] for k in kernels)
     share = busy / (batch_ms * 1e3)
-    say(f"profile over {n} batches: device busy {busy:.1f} us/batch = "
+    say(f"profile over {n} batches: {sum(k[2] for k in kernels)} device "
+        f"operations per batch, device busy {busy:.1f} us/batch = "
         f"{100 * share:.1f}% of the {batch_ms:.3f} ms batch, idle "
         f"{100 - 100 * share:.1f}%")
     for dev_us, key, count in sorted(kernels, reverse=True):
@@ -236,16 +284,32 @@ def max_abs_err(torch, a, b) -> float:
 
 def rlc_path(torch, gpu, rows, card, batches, expects, direct_b, zcash_pass,
              direct_entry) -> None:
-    """Phase 5: the RLC engine on the bench, mixed and torsion batches,
-    its launch counts, verifies/s and device time by kernel."""
+    """Phase 5: the RLC engine in both front halves on the bench, mixed
+    and torsion batches."""
+    inputs = [tuple(gpu(a) for a in arrs) for arrs in batches]
+    torch.cuda.synchronize()
+    want_b = expects[1].copy()
+    for b in zcash_pass:
+        want_b[b] = direct_b[b]
+    direct_t = np.asarray(direct_entry.fn(*inputs[2]).cpu())
+    for frontend in FRONT_KERNELS:
+        rlc_front_half(torch, rows, card, inputs, frontend,
+                       (expects[0], want_b, direct_b, direct_t))
+
+
+def rlc_front_half(torch, rows, card, inputs, frontend, wants) -> None:
+    """One front half's engine: its launch counts on the three batches
+    (reset just before, read just after), statuses, verifies/s, device
+    time by kernel and the host clock of the pass's stages."""
     from firedancer_tpu_torch.disco.engine import EngineSpec, registry
     from firedancer_tpu_torch.ops import backend
 
+    want_a_st, want_b, direct_b, direct_t = wants
     t0 = time.perf_counter()
-    entry, warmed = registry().acquire(EngineSpec("rlc", B))
+    entry, warmed = registry().acquire(EngineSpec("rlc", B,
+                                                  frontend=frontend))
     say(f"engine {entry.key} on {entry.device}: warmed={warmed} "
         f"in {time.perf_counter() - t0:.2f} s")
-    inputs = [tuple(gpu(a) for a in arrs) for arrs in batches]
     torch.cuda.synchronize()
 
     backend.reset_counts()
@@ -258,38 +322,38 @@ def rlc_path(torch, gpu, rows, card, batches, expects, direct_b, zcash_pass,
     st_t = np.asarray(res_t)
     torch.cuda.synchronize()
     launches, plain = dict(backend.launches), dict(backend.plain_calls)
-    say(f"rlc path: batch (a) launches {counts_a}; all three batches "
-        f"launches {launches}, plain calls {plain}")
-    want_a = {"sha512_mod_l": 1, "decompress_so": 1, "msm_fill": 3,
-              "msm_aggregate": 3, "msm_horner": 2, "msm_order": 1}
+    say(f"rlc path ({frontend}): batch (a) launches {counts_a}; all three "
+        f"batches launches {launches}, plain calls {plain}")
+    want_a = {FRONT_KERNELS[frontend]: 1, **RLC_PASS}
     if counts_a != want_a or plain_a:
-        fail(f"rlc batch (a): launches {counts_a}, plain {plain_a}; want "
-             f"{want_a} and no plain call")
+        fail(f"rlc batch (a), {frontend}: launches {counts_a}, plain "
+             f"{plain_a}; want {want_a} and no plain call")
     if any(plain.values()):
-        fail(f"a plain version ran on the rlc path: {plain}")
-    for name in MSM_KERNELS:
+        fail(f"a plain version ran on the rlc path ({frontend}): {plain}")
+    own = ((FRONT_KERNELS[frontend],) if frontend == "staged" else
+           (FRONT_KERNELS[frontend], *RLC_PASS))
+    for name in own:
         rows[name]["launches"] = launches[name]
 
-    if res_a.used_fallback or not np.array_equal(st_a, expects[0]):
-        fail(f"rlc batch (a): fallback {res_a.used_fallback}, statuses "
-             f"{dict(zip(*np.unique(st_a, return_counts=True)))}")
-    say(f"rlc batch a bench: batch_ok True, no fallback, {B} lanes SUCCESS")
-    want_b = expects[1].copy()
-    for b in zcash_pass:
-        want_b[b] = direct_b[b]
+    if res_a.used_fallback or not np.array_equal(st_a, want_a_st):
+        fail(f"rlc batch (a), {frontend}: fallback {res_a.used_fallback}, "
+             f"statuses {dict(zip(*np.unique(st_a, return_counts=True)))}")
+    say(f"rlc batch a bench ({frontend}): batch_ok True, no fallback, {B} "
+        f"lanes SUCCESS")
     if (not res_b.used_fallback or not np.array_equal(st_b, want_b)
             or not np.array_equal(st_b, direct_b)):
-        fail(f"rlc batch (b): fallback {res_b.used_fallback}, "
+        fail(f"rlc batch (b), {frontend}: fallback {res_b.used_fallback}, "
              f"{int((st_b != direct_b).sum())} lanes differ from direct")
-    say(f"rlc batch b mixed: fallback used, {B} lanes equal the direct "
-        f"path's and the constructed statuses")
-    direct_t = np.asarray(direct_entry.fn(*inputs[2]).cpu())
+    say(f"rlc batch b mixed ({frontend}): fallback used, {B} lanes equal "
+        f"the direct path's and the constructed statuses")
     if (not res_t.used_fallback or not np.array_equal(st_t, direct_t)
             or not (direct_t[4:10] != 0).all()):
-        fail(f"rlc batch (t): fallback {res_t.used_fallback}, statuses "
-             f"{st_t[:12].tolist()} vs direct {direct_t[:12].tolist()}")
-    say(f"rlc batch t torsion: fallback used, lanes 4-9 rejected "
-        f"{st_t[4:10].tolist()}, {B} lanes equal the direct path's")
+        fail(f"rlc batch (t), {frontend}: fallback {res_t.used_fallback}, "
+             f"statuses {st_t[:12].tolist()} vs direct "
+             f"{direct_t[:12].tolist()}")
+    say(f"rlc batch t torsion ({frontend}): fallback used, lanes 4-9 "
+        f"rejected {st_t[4:10].tolist()}, {B} lanes equal the direct "
+        f"path's")
 
     a_args = inputs[0]
     ms = time_ms(torch, lambda: entry.fn(*a_args), TIMED_BATCHES)
@@ -298,28 +362,28 @@ def rlc_path(torch, gpu, rows, card, batches, expects, direct_b, zcash_pass,
         np.asarray(entry.fn(*a_args))
     wall = (time.perf_counter() - t0) / TIMED_BATCHES
     entry.note_service(int(wall * 1e9))
-    say(f"verify rlc B={B} msg={MSG_LEN}: {ms:.3f} ms/batch (CUDA "
-        f"events), {B / (ms / 1e3):.0f} verifies/s; host clock with the "
-        f"batch_ok read-back {wall * 1e3:.3f} ms/batch, {B / wall:.0f} "
-        f"verifies/s [{card}]")
+    say(f"verify rlc ({frontend}) B={B} msg={MSG_LEN}: {ms:.3f} ms/batch "
+        f"(CUDA events), {B / (ms / 1e3):.0f} verifies/s; host clock with "
+        f"the batch_ok read-back {wall * 1e3:.3f} ms/batch, "
+        f"{B / wall:.0f} verifies/s [{card}]")
     t0 = time.perf_counter()
     for _ in range(3):
         np.asarray(entry.fn(*inputs[1]))
     wall_b = (time.perf_counter() - t0) / 3
-    say(f"verify rlc, batch (b) with its fallback: host clock "
+    say(f"verify rlc ({frontend}), batch (b) with its fallback: host clock "
         f"{wall_b * 1e3:.3f} ms/batch, {B / wall_b:.0f} verifies/s")
     profile_batches(torch, lambda: np.asarray(entry.fn(*a_args)), wall * 1e3)
-    rlc_stages(torch, a_args)
+    rlc_stages(torch, a_args, frontend)
 
 
-def rlc_stages(torch, args, n: int = 5) -> None:
+def rlc_stages(torch, args, frontend: str, n: int = 5) -> None:
     """Host clock of the stages of a clean RLC pass, each ended by a
     synchronise, so a stage's time holds its host enqueue and its device
     work: drawing z and u (os.urandom) with their copy to the card, the
-    front half (K1, K2, scalar glue), the local half after it (staging,
-    three fills and aggregations), the tails (two Horners, the ladder,
-    the verdict) and the batch_ok read-back: the functions the engine's
-    pass runs, in its order. Mean of n passes."""
+    front half (decompress_niels, the scalars, glue), the local half
+    after it (staging, three fills and aggregations), the tails (two
+    Horners, the ladder, the verdict) and the batch_ok read-back: the
+    functions the engine's pass runs, in its order. Mean of n passes."""
     from firedancer_tpu_torch.ops import verify_rlc as vr
 
     dev = args[0].device
@@ -335,20 +399,21 @@ def rlc_stages(torch, args, n: int = 5) -> None:
 
         z, u = vr.draw_weights(B, dev)
         mark()
-        _, _, msm_in = vr.rlc_front(*args, z, u)
+        _, _, msm_in = vr.rlc_front(*args, z, u, frontend=frontend)
         mark()
         parts = vr.msm_partials(msm_in)
         mark()
         ok = vr.verify_rlc_combine(parts)
         mark()
         if not bool(ok):
-            fail("rlc stages: the clean batch's verdict is False")
+            fail(f"rlc stages ({frontend}): the clean batch's verdict is "
+                 f"False")
         mark()
         for name, a, b in zip(names, marks, marks[1:]):
             spent[name] += (b - a) / n
     total = sum(spent.values())
-    say(f"rlc stages, host clock with a synchronise after each, mean of "
-        f"{n} clean passes: {total * 1e3:.3f} ms")
+    say(f"rlc stages ({frontend}), host clock with a synchronise after "
+        f"each, mean of {n} clean passes: {total * 1e3:.3f} ms")
     for name, t in spent.items():
         say(f"  {t * 1e3:8.3f} ms {100 * t / total:5.1f}% {name}")
 
@@ -356,8 +421,10 @@ def rlc_stages(torch, args, n: int = 5) -> None:
 def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     """Phase 3, the MSM kernels: each against its plain version at the
     main path's shapes, staged from the clean batch (a) through the RLC
-    front half with seeded weights."""
+    front half with seeded weights; the fills read the niels forms the
+    decompress kernel wrote."""
     from firedancer_tpu_torch import msm_plan
+    from firedancer_tpu_torch.ops import curve25519 as ge
     from firedancer_tpu_torch.ops import msm, msm_cuda
     from firedancer_tpu_torch.ops import verify_rlc as vr
     from firedancer_tpu_torch.ops.sc25519 import L
@@ -369,15 +436,19 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     _, definite, msm_in = vr.rlc_front(*args, z, u)
     if bool(definite.any()):
         fail("msm parity: the clean batch has definite lanes")
+    for name, (_, pts, niels) in msm_in.items():
+        parity(f"niels forms of the {name} MSM (kernel vs formed in "
+               f"PyTorch)", niels, ge.niels_limbs(pts))
     grids = []
-    for name, (scalars, pts), nw in (("z", msm_in["r"], msm.WINDOWS_Z),
-                                     ("253", msm_in["m"], msm.WINDOWS_253)):
-        rounds = msm_plan.default_rounds(pts.shape[0])
-        grids.append((name, pts) + msm._staging_indices(
-            scalars, nw, pts.shape[0], rounds))
-    pts, u_live = msm_in["sub"]
+    for name, (scalars, _, niels), nw in (
+            ("z", msm_in["r"], msm.WINDOWS_Z),
+            ("253", msm_in["m"], msm.WINDOWS_253)):
+        rounds = msm_plan.default_rounds(niels.shape[0])
+        grids.append((name, niels) + msm._staging_indices(
+            scalars, nw, niels.shape[0], rounds))
+    u_live, _, niels = msm_in["sub"]
     nb_t = 1 << msm_plan.TORSION_BUCKET_BITS
-    grids.append(("torsion", pts) + msm._staging_from_digits(
+    grids.append(("torsion", niels) + msm._staging_from_digits(
         u_live & (nb_t - 1), 2 * B, msm_plan.default_rounds(2 * B, nb_t),
         nb_t))
 
@@ -448,17 +519,17 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     # gather), which EngineSpec(..., msm="s8l3") runs: its 253-bit grid
     # against the plain version, then the whole pass's verdict.
     plan = msm_plan.parse_plan("s8l3")
-    scalars, pts = msm_in["m"]
-    nw, nb, rounds = msm._plan_dims(msm.WINDOWS_253, pts.shape[0], plan)
+    scalars, _, niels = msm_in["m"]
+    nw, nb, rounds = msm._plan_dims(msm.WINDOWS_253, niels.shape[0], plan)
     planes = msm._top_tree_planes(msm.WINDOWS_253, nw, plan)
-    idx, neg, ok, _ = msm._plan_staging(scalars, pts.shape[0], rounds, nw,
+    idx, neg, ok, _ = msm._plan_staging(scalars, niels.shape[0], rounds, nw,
                                         nb, plan, planes)
     if not bool(ok) or not bool(neg.any()):
         fail(f"msm_fill s8l3: fill verdict {bool(ok)}, "
              f"{int(neg.sum())} negated slots")
     parity(f"msm_fill s8l3 {idx.shape[0]}x{nb} lanes x {rounds} rounds",
-           msm_cuda.fill_buckets(pts, idx, neg),
-           msm_cuda.fill_buckets_ref(pts, idx, neg))
+           msm_cuda.fill_buckets(niels, idx, neg),
+           msm_cuda.fill_buckets_ref(niels, idx, neg))
     if not bool(vr.verify_batch_rlc(*args, z, u, plan=plan)[2]):
         fail("msm parity: the clean batch's RLC verdict at s8l3 is False")
     say(f"msm parity: s8l3 fill ({int(neg.sum())} of "
@@ -614,6 +685,83 @@ def main() -> int:
            bound_point_eq(B),
            "firedancer_tpu/ops/curve_pallas.py:296",
            "firedancer_tpu_torch/ops/csrc/point_eq.cu")
+
+    # The RLC front half's kernels. frontend_rlc and sha512_batch on the
+    # main path's hash rows and on rows of every length; z < 2^126 as
+    # fresh_z draws it, zero on dead lanes, and s of any 32 bytes.
+    z_np = rng.randint(0, 256, (B, 32), dtype=np.uint8)
+    z_np[:, 16:] = 0
+    z_np[:, 15] &= 0x3F
+    z_np[::97] = 0
+    fz, fs = gpu(z_np), gpu(rng.randint(0, 256, (B, 32), dtype=np.uint8))
+    err = parity("frontend_rlc",
+                 frontend_cuda.frontend_rlc_cuda(k1_msgs, k1_lens, fz, fs),
+                 frontend_cuda.frontend_rlc_ref(k1_msgs, k1_lens, fz, fs))
+    err = max(err, parity(
+        "frontend_rlc (lengths 0-1296)",
+        frontend_cuda.frontend_rlc_cuda(s_msgs, s_lens, fz, fs),
+        frontend_cuda.frontend_rlc_ref(s_msgs, s_lens, fz, fs)))
+    record("frontend_rlc", err,
+           time_ms(torch, lambda: frontend_cuda.frontend_rlc_cuda(
+               k1_msgs, k1_lens, fz, fs), REPS),
+           time_ms(torch, lambda: frontend_cuda.frontend_rlc_ref(
+               k1_msgs, k1_lens, fz, fs), 2),
+           bound_frontend_rlc(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),
+           "firedancer_tpu/ops/frontend_pallas.py:319",
+           "firedancer_tpu_torch/ops/csrc/frontend_rlc.cu")
+    err = parity("sha512_batch",
+                 frontend_cuda.sha512_batch_cuda(k1_msgs, k1_lens),
+                 frontend_cuda.sha512_batch_ref(k1_msgs, k1_lens))
+    err = max(err, parity("sha512_batch (lengths 0-1296)",
+                          frontend_cuda.sha512_batch_cuda(s_msgs, s_lens),
+                          frontend_cuda.sha512_batch_ref(s_msgs, s_lens)))
+    record("sha512_batch", err,
+           time_ms(torch, lambda: frontend_cuda.sha512_batch_cuda(
+               k1_msgs, k1_lens), REPS),
+           time_ms(torch, lambda: frontend_cuda.sha512_batch_ref(
+               k1_msgs, k1_lens), 2),
+           bound_sha512_batch(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),
+           "firedancer_tpu/ops/sha512_pallas.py:220",
+           "firedancer_tpu_torch/ops/csrc/sha512_batch.cu")
+
+    # decompress_niels on 2B encodings: random bytes (about half decode,
+    # so every 32-lane group mixes failing and valid lanes), the edge
+    # corpus spread over the first B lanes (y = +-1, non-square,
+    # non-canonical and small-order lanes among valid group mates) and
+    # one whole group of undecodable encodings at lane B; then the batch
+    # cut to 2B - 3 lanes, off the group.
+    dn_np = rng.randint(0, 256, (2 * B, 32), dtype=np.uint8)
+    spots = np.linspace(5, B - 1, len(edge)).astype(np.int64)
+    dn_np[spots] = np.frombuffer(b"".join(edge), np.uint8).reshape(-1, 32)
+    dn_np[B:B + 32] = np.frombuffer(b"".join(
+        corpus.undecodable_encodings(32, rng)), np.uint8).reshape(-1, 32)
+    dn_enc = gpu(dn_np)
+    dn = curve_cuda.decompress_niels_cuda(dn_enc)
+    err = parity("decompress_niels", dn,
+                 curve_cuda.decompress_niels_ref(dn_enc))
+    err = max(err, parity(
+        f"decompress_niels ({2 * B - 3} lanes)",
+        curve_cuda.decompress_niels_cuda(dn_enc[:2 * B - 3].contiguous()),
+        curve_cuda.decompress_niels_ref(dn_enc[:2 * B - 3])))
+    err = max(err, parity("decompress_niels points vs decompress_so",
+                          dn[:3], curve_cuda.decompress_so_cuda(dn_enc)))
+    t_spots = gpu(spots[:torsion])
+    if not (bool(dn[2][t_spots].all()) and bool(dn[1][t_spots].all())
+            and not bool(dn[1][B:B + 32].any())):
+        fail("decompress_niels: a torsion encoding is not decoded "
+             "small-order, or an undecodable lane decoded")
+    say(f"decompress_niels: {int(dn[1].sum())}/{2 * B} lanes decode, "
+        f"{len(edge)} edge encodings spread, one failing group")
+    from firedancer_tpu_torch.ops import decompress as dec_mod
+
+    record("decompress_niels", err,
+           time_ms(torch, lambda: curve_cuda.decompress_niels_cuda(dn_enc),
+                   REPS),
+           time_ms(torch, lambda: curve_cuda.decompress_niels_ref(dn_enc),
+                   2),
+           bound_decompress_niels(2 * B, dec_mod.GROUP),
+           "firedancer_tpu/ops/curve_pallas.py:234",
+           "firedancer_tpu_torch/ops/csrc/decompress_niels.cu")
 
     # Traffic (oracle signing on the host), for phases 3 to 5.
     t0 = time.perf_counter()

@@ -62,6 +62,23 @@ def point_from_jax(point, device="cpu") -> torch.Tensor:
                        dim=1)
 
 
+def niels_from_jax(niels, device="cpu") -> torch.Tensor:
+    """JAX niels forms (yp, ym, t2d[, t2dn]) of (32, B) limbs, as the
+    decompress kernel writes them -> canonical (B, 3, 5) port limbs of
+    (y + x, y - x, 2d t), what the port's bucket fill reads."""
+    return torch.stack([_ints_to_limbs51(_jax_limbs_to_ints(c), device)
+                        for c in niels[:3]], dim=1)
+
+
+def niels_to_canonical_bytes(niels) -> np.ndarray:
+    """Niels forms -> (B, 3, 32) uint8 canonical little-endian (y + x,
+    y - x, 2d t). Takes a port tensor (B, 3, 5) or a JAX tuple of (32, B)
+    limb arrays."""
+    cols = _coords(niels, 3)
+    return np.array([[list(v.to_bytes(32, "little")) for v in lane]
+                     for lane in zip(*cols)], np.uint8).reshape(-1, 3, 32)
+
+
 def fe_to_canonical_bytes(x) -> np.ndarray:
     """Field elements -> (B, 32) uint8 canonical little-endian. Takes a
     port tensor (B, 5) or a JAX (32, B) limb array."""

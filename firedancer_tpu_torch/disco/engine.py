@@ -8,9 +8,11 @@ it resolves the device (the Hopper card unless the caller passes
 engine with one zero batch. ``entry.fn(msgs, lens, sigs, pubs)`` returns
 (B,) int32 statuses on the engine's device in ``direct`` mode, and an
 ``RlcAsyncResult`` in ``rlc`` mode: one RLC pass (MSM plan ``spec.msm``,
-the baseline ``u7`` by default) whose per-lane fallback, the direct path,
-runs only when the batch equation fails. ``np.asarray(result)`` gives the
-statuses.
+the baseline ``u7`` by default; front half ``spec.frontend``, "fused" by
+default or "staged", the JAX package's ``FD_FRONTEND_IMPL`` auto and xla
+on its accelerator, ``current_frontend``:77) whose per-lane fallback, the
+direct path, runs only when the batch equation fails.
+``np.asarray(result)`` gives the statuses.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ import torch
 
 from ..msm_plan import parse_plan
 from ..ops import backend, build
+from ..ops.frontend_cuda import DEFAULT_FRONTEND, FRONTENDS
 from ..ops.verify import verify_batch
-from ..ops.verify_rlc import make_async_verifier, verify_batch_rlc
+from ..ops.verify_rlc import make_async_verifier
 
 ENGINE_COLD = "cold"
 ENGINE_WARM = "warm"
@@ -34,16 +37,19 @@ ENGINE_FAILED = "failed"
 
 @dataclass(frozen=True)
 class EngineSpec:
-    """An engine's identity: verify mode, batch size and the MSM plan
-    token of rlc mode (msm_plan.parse_plan; direct mode runs no MSM)."""
+    """An engine's identity: verify mode, batch size, the MSM plan token
+    of rlc mode (msm_plan.parse_plan; direct mode runs no MSM) and the
+    front half of rlc mode (frontend_cuda.FRONTENDS; the direct path has
+    one front half)."""
 
     mode: str        # "direct" | "rlc"
     batch: int
     msm: str = "u7"
+    frontend: str = DEFAULT_FRONTEND
 
     @property
     def key(self) -> str:
-        return f"{self.mode}:B{self.batch}:{self.msm}"
+        return f"{self.mode}:B{self.batch}:fe{self.frontend}:{self.msm}"
 
 
 class EngineEntry:
@@ -65,10 +71,9 @@ class EngineEntry:
         self._lock = threading.Lock()
         self._verify = verify_batch
         if spec.mode == "rlc":
-            plan = parse_plan(spec.msm)
             self._verify = make_async_verifier(
-                verify_batch, rlc_fn=lambda *a: verify_batch_rlc(
-                    *a, plan=plan))
+                verify_batch, plan=parse_plan(spec.msm),
+                frontend=spec.frontend)
 
     def fn(self, msgs, lens, sigs, pubs):
         """Verify one batch. Inputs are tensors or arrays; they are moved
@@ -91,8 +96,9 @@ class EngineEntry:
 
     def warm(self, max_msg_len: int = 1232) -> bool:
         """Build the kernels (on CUDA) and run one zero batch at
-        (batch, max_msg_len): in rlc mode through the RLC pass and its
-        direct fallback both. Returns True when this call warmed."""
+        (batch, max_msg_len): in rlc mode through the RLC pass (its
+        front half in spec.frontend) and its direct fallback both.
+        Returns True when this call warmed."""
         with self._lock:
             if max_msg_len in self._warmed:
                 return False
@@ -123,6 +129,7 @@ class EngineEntry:
     def snapshot(self) -> dict:
         return {"key": self.key, "mode": self.spec.mode,
                 "batch": self.spec.batch, "msm": self.spec.msm,
+                "frontend": self.spec.frontend,
                 "device": str(self.device),
                 "state": self.state, "warm_s": round(self.warm_s, 3),
                 "dispatches": self.dispatches, "lanes": self.lanes,
@@ -145,6 +152,9 @@ class EngineRegistry:
             raise ValueError(f"unknown verify mode {spec.mode!r} "
                              "(want direct|rlc)")
         parse_plan(spec.msm)
+        if spec.frontend not in FRONTENDS:
+            raise ValueError(f"unknown frontend {spec.frontend!r} (want "
+                             f"{'|'.join(FRONTENDS)})")
         dev = backend.resolve_device(device)
         with self._lock:
             e = self._entries.get((spec, dev))

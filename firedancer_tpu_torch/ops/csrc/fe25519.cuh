@@ -217,6 +217,13 @@ __device__ __forceinline__ fe fe_pow22523(const fe &z) {
   return fe_mul(fe_sqn(z250, 2), z);
 }
 
+// z^(p-2) = z^(2^255 - 21), the inverse of a nonzero z.
+__device__ __forceinline__ fe fe_invert(const fe &z) {
+  fe z250, z11;
+  fe_pow_ladder(z, &z250, &z11);
+  return fe_mul(fe_sqn(z250, 5), z11);
+}
+
 // ------------------------------------------------------------------ points
 // Extended twisted Edwards coordinates (X:Y:Z:T), a = -1.
 struct ge {

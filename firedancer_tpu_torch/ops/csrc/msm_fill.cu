@@ -9,43 +9,41 @@
 // rounds with the lane tile resident in VMEM, and XLA first gathers every
 // round's niels operands into (R, 32, lanes) int16 buffers in HBM
 // (msm.py:618 _stage_niels). Here the round axis is a loop inside one
-// thread per lane, and the thread gathers its point itself through the
-// slot table: at the main path's shapes the staged buffers would be some
+// thread per lane, and the thread gathers its point's niels form (y + x,
+// y - x, 2d t), as the decompress kernel wrote it, through the slot
+// table: at the main path's shapes the staged buffers would be some
 // 450 MB written and read per pass.
 //
 // Bound on this card: latency of one dependent chain per thread. A round
-// is 8 multiplies (the 7 of the madd, plus forming 2d*t from the Z = 1
-// point at load until the decompress kernel hands niels forms over), each
-// 25 64x64->128-bit products; the bytes (120 B gathered per round, mostly
-// from L2) do not bound it. At B = 8192 the torsion grid is 2048 lanes x
-// 698 rounds: 2048 threads fill 64 warps, under one per SM, so no latency
-// is hidden. Design: 32 threads a block, so the warps spread over the
-// SMs; the slot table and sign bits are round-major, so a warp reads
-// neighbouring words each round. Splitting rounds over threads would
-// change the order of the adds; that is work for a later PR.
+// is the 7 multiplies of the madd, each 25 64x64->128-bit products; the
+// bytes (120 B gathered per round, mostly from L2) do not bound it. At
+// B = 8192 the torsion grid is 2048 lanes x 698 rounds: 2048 threads fill
+// 64 warps, under one per SM, so no latency is hidden. Design: 32
+// threads a block, so the warps spread over the SMs; the slot table and
+// sign bits are round-major, so a warp reads neighbouring words each
+// round. Splitting rounds over threads would change the order of the
+// adds; that is work for a later PR.
 #include "msm.cuh"
 
 #define FILL_THREADS 32
 
-__global__ void msm_fill_kernel(const int64_t *__restrict__ pts,
+__global__ void msm_fill_kernel(const int64_t *__restrict__ niels,
                                 const int32_t *__restrict__ idx,
                                 const uint8_t *__restrict__ neg,
                                 int64_t *__restrict__ out, long long lanes,
                                 int rounds) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= lanes) return;
-  const fe d2 = fe_load_const(FE_D2);
   ge acc = ge_identity();
   for (int r = 0; r < rounds; r++) {
     const long long slot = (long long)r * lanes + l;
     const int sel = idx[slot];
     msm_niels q;
     if (sel >= 0) {
-      const int64_t *p = pts + 20LL * sel;
-      const fe x = fe_load(p), y = fe_load(p + 5), t = fe_load(p + 15);
-      q.YpX = fe_add(y, x);
-      q.YmX = fe_sub(y, x);
-      q.T2d = fe_mul(t, d2);
+      const int64_t *p = niels + 15LL * sel;
+      q.YpX = fe_load(p);
+      q.YmX = fe_load(p + 5);
+      q.T2d = fe_load(p + 10);
       if (neg != nullptr && neg[slot]) {  // -P = (y - x, y + x, -2dt)
         const fe tmp = q.YpX;
         q.YpX = q.YmX;
@@ -62,15 +60,16 @@ __global__ void msm_fill_kernel(const int64_t *__restrict__ pts,
   ge_store_canonical(out + 20 * l, acc);
 }
 
-// pts: (n, 4, 5) int64, Z = 1; idx: (rounds, lanes) int32 point index
-// or -1; neg: (rounds, lanes) uint8 or null; out: (lanes, 4, 5) int64.
-extern "C" int fd_msm_fill(const void *pts, const void *idx, const void *neg,
+// niels: (n, 3, 5) int64, (y + x, y - x, 2d t) of Z = 1 points; idx:
+// (rounds, lanes) int32 point index or -1; neg: (rounds, lanes) uint8 or
+// null; out: (lanes, 4, 5) int64.
+extern "C" int fd_msm_fill(const void *niels, const void *idx, const void *neg,
                            void *out, long long lanes, int rounds,
                            void *stream) {
   if (lanes <= 0) return 0;
   const unsigned blocks = (unsigned)((lanes + FILL_THREADS - 1) / FILL_THREADS);
   msm_fill_kernel<<<blocks, FILL_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t *)pts, (const int32_t *)idx, (const uint8_t *)neg,
+      (const int64_t *)niels, (const int32_t *)idx, (const uint8_t *)neg,
       (int64_t *)out, lanes, rounds);
   return (int)cudaGetLastError();
 }

@@ -156,6 +156,20 @@ def base_point_limbs(device: torch.device) -> torch.Tensor:
                             for v in (x, y, 1, x * y % fe.P)))
 
 
+def niels_limbs(pt: torch.Tensor) -> torch.Tensor:
+    """(n, 4, 5) limbs of Z = 1 points -> canonical (n, 3, 5) limbs of
+    their niels forms (y + x, y - x, 2d t), what the bucket fill reads."""
+    x, y, _, t = from_limbs51(pt)
+    return to_limbs51(niels((x, y, None, t)))
+
+
+@functools.lru_cache(maxsize=None)
+def base_niels_limbs(device: torch.device) -> torch.Tensor:
+    """B's niels form as (1, 3, 5) limbs, made once per device; callers
+    must not write to it."""
+    return niels_limbs(base_point_limbs(device))
+
+
 def decompress(y_bytes: torch.Tensor):
     """(B, 32) uint8 encodings -> ((X, Y, Z, T), ok), donna semantics.
 

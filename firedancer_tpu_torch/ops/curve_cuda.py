@@ -1,10 +1,12 @@
-"""Point decompression with the small-order mask, and the affine point
-compare: the counterpart of ``firedancer_tpu/ops/curve_pallas.py``
-(``decompress_pallas(want_small_order=True)``:180 and
-``point_eq_affine_pallas``:275).
+"""Point decompression with the small-order mask, the RLC pass's
+batched decompress with niels forms, and the affine point compare: the
+counterpart of ``firedancer_tpu/ops/curve_pallas.py``
+(``decompress_pallas(want_small_order=True)`` and
+``decompress_pallas(want_niels=True)``:180, ``point_eq_affine_pallas``:275).
 
 Points cross as canonical int64 ``(B, k, 5)`` radix-2^51 limbs (X, Y,
-Z, T). Each op launches its CUDA kernel (``csrc/decompress_so.cu``,
+Z, T), niels forms as ``(B, 3, 5)``. Each op launches its CUDA kernel
+(``csrc/decompress_so.cu``, ``csrc/decompress_niels.cu``,
 ``csrc/point_eq.cu``) for CUDA tensors and runs its plain version for
 CPU tensors.
 """
@@ -17,6 +19,8 @@ import torch
 
 from . import backend, build
 from . import curve25519 as ge
+from . import decompress as dec
+from . import fe25519 as fe
 
 _V = ctypes.c_void_p
 
@@ -54,6 +58,51 @@ def decompress_so(enc: torch.Tensor):
     if backend.use_kernel(enc):
         return decompress_so_cuda(enc.contiguous())
     return decompress_so_ref(enc)
+
+
+def decompress_niels_ref(enc: torch.Tensor):
+    """Plain version: (B, 32) uint8 -> (point (B, 4, 5), ok, small_order,
+    niels (B, 3, 5), niels_neg (B, 3, 5)). niels is (y + x, y - x, 2d t),
+    niels_neg the form of -P, (y - x, y + x, -2d t). Failed lanes carry
+    the identity, whose forms are (1, 1, 0), and read small_order True."""
+    backend.count_plain("decompress_niels")
+    pt, ok, so = dec.decompress_batched(enc)
+    x, y, _, t = ge.from_limbs51(pt)
+    yp, ym, t2d = ge.niels((x, y, None, t))
+    return (pt, ok, so, ge.to_limbs51((yp, ym, t2d)),
+            ge.to_limbs51((ym, yp, fe.fe_neg(t2d))))
+
+
+def decompress_niels_cuda(enc: torch.Tensor):
+    """The kernel: same contract as decompress_niels_ref."""
+    backend.check_tensor("enc", enc, torch.uint8, (None, 32))
+    n = enc.shape[0]
+    dev = enc.device
+    pt = torch.empty(n, 4, 5, dtype=torch.int64, device=dev)
+    niels = torch.empty(n, 3, 5, dtype=torch.int64, device=dev)
+    neg = torch.empty(n, 3, 5, dtype=torch.int64, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    so = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return pt, ok, so, niels, neg
+    fn = build.bind("decompress_niels", "fd_decompress_niels",
+                    [_V, _V, _V, _V, _V, _V, ctypes.c_longlong, _V])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check_rc("fd_decompress_niels",
+                   fn(enc.data_ptr(), pt.data_ptr(), niels.data_ptr(),
+                      neg.data_ptr(), ok.data_ptr(), so.data_ptr(), n,
+                      stream))
+    backend.count_launch("decompress_niels")
+    return pt, ok, so, niels, neg
+
+
+def decompress_niels(enc: torch.Tensor):
+    """Batched decompress of (B, 32) encodings -> (point, ok, small_order,
+    niels, niels_neg): the RLC pass's front half (one inversion per
+    decompress.GROUP lanes)."""
+    if backend.use_kernel(enc):
+        return decompress_niels_cuda(enc.contiguous())
+    return decompress_niels_ref(enc)
 
 
 def point_eq_affine_ref(aff: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:

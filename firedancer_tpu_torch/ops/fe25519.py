@@ -261,3 +261,29 @@ def fe_pow22523(z: torch.Tensor) -> torch.Tensor:
     """z^((p-5)/8) = z^(2^252 - 3)."""
     z_250_0, _ = _pow_ladder(z)
     return fe_mul(fe_sqn(z_250_0, 2), z)
+
+
+def fe_invert_batch(z: torch.Tensor, group_log2: int = 6) -> torch.Tensor:
+    """Per-lane inverses of (B, 10) field elements by a grouped Montgomery
+    product tree (firedancer_tpu/ops/fe25519.py:924): adjacent lanes are
+    multiplied pairwise group_log2 times, one fe_invert runs on the
+    B / 2^g group roots, and the inverses come back down (inv_a = inv_ab
+    * b). The group shrinks until it divides B. A lane that is 0 mod p
+    poisons its whole group (callers mask such lanes to 1)."""
+    bsz = z.shape[0]
+    if bsz == 0:
+        return z
+    g = group_log2
+    while g > 0 and bsz % (1 << g):
+        g -= 1
+    pairs = []
+    cur = z
+    for _ in range(g):
+        a, b = cur[0::2], cur[1::2]
+        pairs.append((a, b))
+        cur = fe_mul(a, b)
+    inv = fe_invert(cur)
+    for a, b in reversed(pairs):
+        both = fe_mul(torch.stack([inv, inv]), torch.stack([b, a]))
+        inv = both.transpose(0, 1).reshape(-1, NLIMBS)   # inv_a, inv_b
+    return inv

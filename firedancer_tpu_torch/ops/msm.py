@@ -17,10 +17,13 @@ doubling chain shared by the whole batch:
    kernels of ``msm_cuda`` (CUDA on the card, their plain versions on the
    CPU).
 
-Points cross as canonical int64 (n, 4, 5) radix-2^51 limbs (X, Y, Z, T).
-The halves keep the JAX package's return contracts: a partial is a
-(nw, 4, 5) point per window (or per trial) plus its fill verdict, so a
-multi-card combine can gather partials before the tails.
+Points cross as canonical int64 (n, 4, 5) radix-2^51 limbs (X, Y, Z, T),
+and the fill reads their niels forms, (n, 3, 5) limbs: the RLC pass hands
+over the ones its decompress kernel wrote (``niels=``), other callers get
+them formed here in plain PyTorch. The halves keep the JAX package's
+return contracts: a partial is a (nw, 4, 5) point per window (or per
+trial) plus its fill verdict, so a multi-card combine can gather partials
+before the tails.
 """
 
 from __future__ import annotations
@@ -173,12 +176,14 @@ def _top_window_sum(top_digits: torch.Tensor, points: torch.Tensor,
 
 def msm_fast_partial(scalars_bytes: torch.Tensor, points: torch.Tensor,
                      n_windows: int, max_rounds: int | None = None,
-                     plan: MsmPlan = BASELINE_PLAN):
+                     plan: MsmPlan = BASELINE_PLAN,
+                     niels: torch.Tensor | None = None):
     """Local half of the MSM: staging, the bucket fill and the per-window
     aggregation. scalars_bytes (B, 32) uint8 (windows past n_windows
     zero); points (B, 4, 5) limbs with Z = 1 (the niels mixed add needs
-    it). Returns (w_res, ok): w_res (nw, 4, 5), W_t = sum_b b * S_{t,b}
-    (nw is the plan's window count), ok the fill verdict (0-dim bool)."""
+    it); niels their (B, 3, 5) niels forms (None: formed from points).
+    Returns (w_res, ok): w_res (nw, 4, 5), W_t = sum_b b * S_{t,b} (nw is
+    the plan's window count), ok the fill verdict (0-dim bool)."""
     bsz = points.shape[0]
     if plan == BASELINE_PLAN:
         if max_rounds is None:
@@ -194,7 +199,9 @@ def msm_fast_partial(scalars_bytes: torch.Tensor, points: torch.Tensor,
         idx, neg, ok, top = _plan_staging(scalars_bytes, bsz, max_rounds,
                                           nw, nb, plan, tree_planes=planes)
     nw_grid = nw - 1 if planes else nw
-    buckets = msm_cuda.fill_buckets(points, idx, neg)
+    if niels is None:
+        niels = ge.niels_limbs(points)
+    buckets = msm_cuda.fill_buckets(niels, idx, neg)
     w_res = msm_cuda.aggregate_buckets(buckets.reshape(nw_grid, nb, 4, 5))
     if planes:
         w_res = torch.cat([w_res, _top_window_sum(top, points, planes)])
@@ -208,22 +215,22 @@ def msm_fast_combine(w_res: torch.Tensor, ok: torch.Tensor,
     return msm_cuda.window_horner(w_res, plan.w), ok
 
 
-def subgroup_fast_partial(points: torch.Tensor, u_digits: torch.Tensor,
+def subgroup_fast_partial(niels: torch.Tensor, u_digits: torch.Tensor,
                           bucket_bits: int = msm_plan.TORSION_BUCKET_BITS,
                           max_rounds: int | None = None):
     """Local half of the torsion certification: K random weightings of
-    the points (trial j's digits u[j] masked to bucket_bits), filled and
-    aggregated as K windows. Returns (agg (K, 4, 5), ok_fill). Masked
-    digits keep the catch probability, which rests on the digits mod 8
-    (msm.py:805-812)."""
-    bsz = points.shape[0]
+    the (B, 3, 5) niels forms' points (trial j's digits u[j] masked to
+    bucket_bits), filled and aggregated as K windows. Returns (agg (K, 4,
+    5), ok_fill). Masked digits keep the catch probability, which rests
+    on the digits mod 8 (msm.py:805-812)."""
+    bsz = niels.shape[0]
     n_buckets = 1 << bucket_bits
     if max_rounds is None:
         max_rounds = msm_plan.default_rounds(bsz, n_buckets)
     d = u_digits.to(torch.int64) & (n_buckets - 1)
     k = d.shape[0]
     idx, ok_fill = _staging_from_digits(d, bsz, max_rounds, n_buckets)
-    buckets = msm_cuda.fill_buckets(points, idx, None)
+    buckets = msm_cuda.fill_buckets(niels, idx, None)
     return (msm_cuda.aggregate_buckets(buckets.reshape(k, n_buckets, 4, 5)),
             ok_fill)
 

@@ -3,7 +3,7 @@
 
 * ``fill_buckets`` (``fill_buckets_pallas``:93): per (window, bucket)
   lane, the sum of the points its slot table names, by unified mixed adds
-  from the identity; ``csrc/msm_fill.cu``.
+  from the identity, reading the points' niels forms; ``csrc/msm_fill.cu``.
 * ``aggregate_buckets`` (``aggregate_buckets_pallas``:305): sum_b b * S_b
   per window by two running sums, bucket 0 never read;
   ``csrc/msm_aggregate.cu``.
@@ -19,6 +19,8 @@ reference's order (``_madd_niels``:52, ``_point_add_ext``:69,
 JAX kernels, and their canonical coordinates compare exactly. Points are
 canonical int64 (n, 4, 5) radix-2^51 limbs (X, Y, Z, T); inputs may carry
 limbs up to 2^52 (negated points from ``curve25519.point_neg_limbs``).
+Niels forms are canonical (n, 3, 5) limbs (y + x, y - x, 2d t), as
+``curve_cuda.decompress_niels`` writes them.
 """
 
 from __future__ import annotations
@@ -47,15 +49,15 @@ def _points(t: torch.Tensor):
 # --------------------------------------------------------------- fill
 
 
-def fill_buckets_ref(points: torch.Tensor, idx: torch.Tensor,
+def fill_buckets_ref(niels: torch.Tensor, idx: torch.Tensor,
                      neg: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version. points (N, 4, 5) limbs with Z = 1; idx (nw, nb, R)
-    int32 slot table (-1 = empty); neg (nw, nb, R) bool or None, True
+    """Plain version. niels (N, 3, 5) limbs of Z = 1 points; idx (nw, nb,
+    R) int32 slot table (-1 = empty); neg (nw, nb, R) bool or None, True
     where the slot's point enters negated. Returns the (nw * nb, 4, 5)
     bucket points, lane t * nb + b."""
     backend.count_plain("msm_fill")
     nw, nb, rounds = idx.shape
-    dev = points.device
+    dev = niels.device
     # A lane whose slots are all empty adds the identity niels every
     # round, (0, y, y, 0) -> (0, 4y^2, 4y^2, 0): from the identity it ends
     # at y = 4^(2^R - 1). Only the lanes with a point run the rounds.
@@ -64,14 +66,14 @@ def fill_buckets_ref(points: torch.Tensor, idx: torch.Tensor,
                               for v in (0, y_empty, y_empty, 0)))
     active = torch.nonzero(idx[:, :, 0].reshape(-1) >= 0).flatten()
     lanes = active.numel()
-    yp, ym, t2d = ge.niels(_points(points))
+    yp, ym, t2d = ge.from_limbs51(niels, 3)
     one, zero = fe.fe_one((lanes,), dev), fe.fe_zero((lanes,), dev)
     sel_r = idx.reshape(nw * nb, rounds)[active].T.to(torch.int64)
     neg_r = None if neg is None else neg.reshape(nw * nb, rounds)[active].T
     acc = ge.identity((lanes,), dev)
     for r in range(rounds):
         m = sel_r[r] >= 0
-        safe = sel_r[r].clamp(0, points.shape[0] - 1)
+        safe = sel_r[r].clamp(0, niels.shape[0] - 1)
         gyp = fe.fe_select(m, yp[safe], one)
         gym = fe.fe_select(m, ym[safe], one)
         gtd = fe.fe_select(m, t2d[safe], zero)
@@ -84,39 +86,40 @@ def fill_buckets_ref(points: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def fill_buckets_cuda(points: torch.Tensor, idx_r: torch.Tensor,
+def fill_buckets_cuda(niels: torch.Tensor, idx_r: torch.Tensor,
                       neg_r: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel. idx_r (R, lanes) int32 and neg_r (R, lanes) uint8 (or
     None) are the slot table and sign bits round-major, so that the
     lanes of a warp read neighbouring words. Returns (lanes, 4, 5)."""
-    backend.check_tensor("points", points, torch.int64, (None, 4, 5))
+    backend.check_tensor("niels", niels, torch.int64, (None, 3, 5))
     backend.check_tensor("idx_r", idx_r, torch.int32, (None, None))
     rounds, lanes = idx_r.shape
     if neg_r is not None:
         backend.check_tensor("neg_r", neg_r, torch.uint8, (rounds, lanes))
-    out = torch.empty(lanes, 4, 5, dtype=torch.int64, device=points.device)
+    out = torch.empty(lanes, 4, 5, dtype=torch.int64, device=niels.device)
     if lanes == 0:
         return out
     fn = build.bind("msm_fill", "fd_msm_fill",
                     [_V, _V, _V, _V, _LL, ctypes.c_int, _V])
     build.check_rc("fd_msm_fill", fn(
-        points.data_ptr(), idx_r.data_ptr(),
+        niels.data_ptr(), idx_r.data_ptr(),
         None if neg_r is None else neg_r.data_ptr(), out.data_ptr(),
-        lanes, rounds, _stream(points)))
+        lanes, rounds, _stream(niels)))
     backend.count_launch("msm_fill")
     return out
 
 
-def fill_buckets(points: torch.Tensor, idx: torch.Tensor,
+def fill_buckets(niels: torch.Tensor, idx: torch.Tensor,
                  neg: torch.Tensor | None = None) -> torch.Tensor:
-    """Bucket fill over the (nw, nb, R) slot table -> (nw * nb, 4, 5)."""
-    if backend.use_kernel(points, idx):
+    """Bucket fill of (N, 3, 5) niels forms over the (nw, nb, R) slot
+    table -> (nw * nb, 4, 5)."""
+    if backend.use_kernel(niels, idx):
         nw, nb, rounds = idx.shape
         idx_r = idx.permute(2, 0, 1).reshape(rounds, nw * nb).contiguous()
         neg_r = (None if neg is None else neg.permute(2, 0, 1).reshape(
             rounds, nw * nb).to(torch.uint8).contiguous())
-        return fill_buckets_cuda(points.contiguous(), idx_r, neg_r)
-    return fill_buckets_ref(points, idx, neg)
+        return fill_buckets_cuda(niels.contiguous(), idx_r, neg_r)
+    return fill_buckets_ref(niels, idx, neg)
 
 
 # ---------------------------------------------------------- aggregate

@@ -160,17 +160,3 @@ def sc_sum(s_bytes: torch.Tensor) -> torch.Tensor:
     carry is a 64-byte integer < B * L, reduced by Barrett."""
     x = _bytes_to_limbs(s_bytes).sum(dim=0, keepdim=True)   # (1, 16)
     return _reduce_columns(torch.nn.functional.pad(x, (0, _K)))
-
-
-def rlc_scalars(z: torch.Tensor, h: torch.Tensor, s: torch.Tensor):
-    """The RLC pass's scalars from (B, 32) uint8 weights z < 2^126 and
-    scalars h, s: m = z h mod L per lane, (B, 32), and u = sum_i z_i s_i
-    mod L, (1, 32) -- the values of sc_muladd(z, h, 0) and
-    sc_sum(sc_muladd(z, s, 0)). u is reduced once from the summed
-    products (sum z s < B 2^382 < 2^512; columns < B 2^37 < 2^62 for
-    B < 2^25), so both come out of one Barrett pass over B + 1 rows."""
-    cols = _mul_columns(z.repeat(2, 1), torch.cat([h, s]))
-    bsz = z.shape[0]
-    out = _reduce_columns(torch.cat([cols[:bsz],
-                                     cols[bsz:].sum(dim=0, keepdim=True)]))
-    return out[:bsz], out[bsz:]

@@ -17,13 +17,16 @@ group order and must give the identity (soundness per accepted batch:
 an overflowing bucket fill only routes the batch to the exact per-lane
 path (``ops.verify.verify_batch``).
 
-The front half runs the direct path's kernels: K1 ``sha512_mod_l`` for
-h = SHA-512(r || A || msg) mod L, K2 ``decompress_so`` for A || R and
-their small-order mask. m = z h mod L and u = sum z s mod L are PyTorch
-scalar glue (``sc25519.rlc_scalars``: the values of ``sc_muladd`` and
-``sc_sum`` in one reduction), and u B rides the 253-bit MSM as one extra
-lane. The three MSMs run on ``msm``'s kernel
-path: the bucket fill, aggregation, window Horner and [L] ladder kernels.
+The front half decompresses A || R once with the Montgomery-batched
+kernel (``curve_cuda.decompress_niels``), which also writes the small-order
+mask and the niels forms the three bucket fills read, and computes the
+scalars h = SHA-512(r || A || msg) mod L, m = z h mod L and zs = z s mod
+L in one of the JAX package's two accelerator configurations
+(``frontend``): "fused", one ``frontend_rlc`` launch, or "staged",
+``sha512_batch`` with the reduction and products in PyTorch. u = sum zs
+mod L, and u B rides the 253-bit MSM as one extra lane. The three MSMs
+run on ``msm``'s kernel path: the bucket fill, aggregation, window
+Horner and [L] ladder kernels.
 
 Semantics are the reference's default 2-point verify, as the direct
 path: s >= L is ERR_SIG; A or R failing to decode, or a small-order A,
@@ -41,6 +44,7 @@ import torch
 from ..msm_plan import BASELINE_PLAN, MsmPlan
 from . import curve25519 as ge
 from . import curve_cuda, frontend_cuda
+from .frontend_cuda import DEFAULT_FRONTEND
 from . import msm as msm_mod
 from . import sc25519 as sc
 from .verify import (FD_ED25519_ERR_PUBKEY, FD_ED25519_ERR_SIG,
@@ -94,22 +98,23 @@ def draw_weights(bsz: int, device, torsion_k: int = TORSION_K,
     return z, u
 
 
-def rlc_front(msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits):
+def rlc_front(msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits,
+              frontend: str = DEFAULT_FRONTEND):
     """The front half of one RLC pass: the s-range check, the stacked
-    A || R decompress, the status ladder, the hash and the MSM weights.
+    A || R decompress, the status ladder, the scalars and the MSM inputs.
     Returns (status, definite, msm_in): status (B,) int32, final where
     definite is True and provisionally SUCCESS elsewhere; msm_in the
-    three MSMs' inputs --
+    three MSMs' (scalars, points, niels forms) --
     "r":   (z_live, -R)           the z weights of the live lanes,
     "m":   (m || u, -A || B)      m = z h mod L, u = sum z s mod L,
-    "sub": (A || R, u_live)       the trial weights of the live lanes."""
+    "sub": (u_live, A || R)       the trial weights of the live lanes."""
     _check_inputs(msgs, msg_lengths, sigs, pubkeys)
     bsz = pubkeys.shape[0]
     r_bytes = sigs[:, :32]
     s_bytes = sigs[:, 32:].contiguous()
     s_ok = sc.sc_check_range(s_bytes)
 
-    both, both_ok, both_so = curve_cuda.decompress_so(
+    both, both_ok, both_so, niels, niels_neg = curve_cuda.decompress_niels(
         torch.cat([pubkeys, r_bytes], dim=0))
     a_point, r_point = both[:bsz], both[bsz:]
     pub_ok, r_dec_ok = both_ok[:bsz], both_ok[bsz:]
@@ -124,44 +129,50 @@ def rlc_front(msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits):
     live = ~definite
     z_live = torch.where(live[:, None], z_bytes, 0).to(torch.uint8)
 
-    h_bytes = frontend_cuda.sha512_mod_l(
-        torch.cat([r_bytes, pubkeys, msgs], dim=1),
-        msg_lengths.to(torch.int32) + 64)
-    m_bytes, u_bytes = sc.rlc_scalars(z_live, h_bytes, s_bytes)
+    _, m_bytes, zs = frontend_cuda.rlc_scalars(
+        frontend, torch.cat([r_bytes, pubkeys, msgs], dim=1),
+        msg_lengths.to(torch.int32) + 64, z_live, s_bytes)
+    u_bytes = sc.sc_sum(zs)
 
     # u B rides the 253-bit MSM as one extra lane (point B, scalar u).
-    m_all = torch.cat([m_bytes, u_bytes], dim=0)
-    pts_all = torch.cat([ge.point_neg_limbs(a_point),
-                         ge.base_point_limbs(both.device)], dim=0)
+    dev = both.device
+    m_in = (torch.cat([m_bytes, u_bytes], dim=0),
+            torch.cat([ge.point_neg_limbs(a_point), ge.base_point_limbs(dev)]),
+            torch.cat([niels_neg[:bsz], ge.base_niels_limbs(dev)]))
     # Torsion trials weigh the live lanes' A and R; dead lanes weigh 0.
     u_live = torch.where(torch.cat([live, live])[None, :],
                          u_digits.to(torch.int64), 0)
-    msm_in = {"r": (z_live, ge.point_neg_limbs(r_point)),
-              "m": (m_all, pts_all), "sub": (both, u_live)}
+    msm_in = {"r": (z_live, ge.point_neg_limbs(r_point), niels_neg[bsz:]),
+              "m": m_in, "sub": (u_live, both, niels)}
     return status, definite, msm_in
 
 
 def verify_rlc_local(msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits,
-                     plan: MsmPlan = BASELINE_PLAN):
-    """The local half of one RLC pass: rlc_front and the three bucket
-    fills with their aggregations. Returns (status, definite, parts),
-    parts the partials verify_rlc_combine takes --
+                     plan: MsmPlan = BASELINE_PLAN,
+                     frontend: str = DEFAULT_FRONTEND):
+    """The local half of one RLC pass: rlc_front (in the configuration
+    ``frontend``) and the three bucket fills with their aggregations.
+    Returns (status, definite, parts), parts the partials
+    verify_rlc_combine takes --
     w_r / ok_r  window sums and fill verdict of the z (-R) MSM,
     w_m / ok_m  the same for the [m (-A), u B] 253-bit MSM,
     sub / sub_ok  the K trial aggregates and their fill verdict."""
     status, definite, msm_in = rlc_front(msgs, msg_lengths, sigs, pubkeys,
-                                         z_bytes, u_digits)
+                                         z_bytes, u_digits, frontend)
     return status, definite, msm_partials(msm_in, plan)
 
 
 def msm_partials(msm_in, plan: MsmPlan = BASELINE_PLAN):
     """The three bucket fills with their aggregations over rlc_front's
     msm_in: the parts dict of verify_rlc_local."""
-    w_r, ok_r = msm_mod.msm_fast_partial(*msm_in["r"], msm_mod.WINDOWS_Z,
-                                         plan=plan)
-    w_m, ok_m = msm_mod.msm_fast_partial(*msm_in["m"], msm_mod.WINDOWS_253,
-                                         plan=plan)
-    sub, sub_ok = msm_mod.subgroup_fast_partial(*msm_in["sub"])
+    z, neg_r, niels_r = msm_in["r"]
+    w_r, ok_r = msm_mod.msm_fast_partial(z, neg_r, msm_mod.WINDOWS_Z,
+                                         plan=plan, niels=niels_r)
+    m, pts_m, niels_m = msm_in["m"]
+    w_m, ok_m = msm_mod.msm_fast_partial(m, pts_m, msm_mod.WINDOWS_253,
+                                         plan=plan, niels=niels_m)
+    u_live, _, niels = msm_in["sub"]
+    sub, sub_ok = msm_mod.subgroup_fast_partial(niels, u_live)
     return {"w_r": w_r, "ok_r": ok_r, "w_m": w_m, "ok_m": ok_m,
             "sub": sub, "sub_ok": sub_ok}
 
@@ -194,13 +205,16 @@ def verify_rlc_combine(parts, plan: MsmPlan = BASELINE_PLAN) -> torch.Tensor:
 
 
 def verify_batch_rlc(msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits,
-                     plan: MsmPlan = BASELINE_PLAN):
+                     plan: MsmPlan = BASELINE_PLAN,
+                     frontend: str = DEFAULT_FRONTEND):
     """One RLC pass: (status, definite, batch_ok). z_bytes (B, 32) uint8
-    from fresh_z, u_digits (K, 2B) from fresh_u, on the inputs' device.
-    batch_ok True means every non-definite lane is SUCCESS; on False the
-    caller runs the per-lane path."""
+    from fresh_z, u_digits (K, 2B) from fresh_u, on the inputs' device;
+    frontend "fused" or "staged" (frontend_cuda.FRONTENDS). batch_ok True
+    means every non-definite lane is SUCCESS; on False the caller runs
+    the per-lane path."""
     status, definite, parts = verify_rlc_local(
-        msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits, plan=plan)
+        msgs, msg_lengths, sigs, pubkeys, z_bytes, u_digits, plan=plan,
+        frontend=frontend)
     return status, definite, verify_rlc_combine(parts, plan=plan)
 
 
@@ -264,13 +278,19 @@ class RlcAsyncResult:
 
 
 def make_async_verifier(fallback_fn, rng: np.random.Generator | None = None,
-                        rlc_fn=None, torsion_k: int = TORSION_K):
+                        rlc_fn=None, torsion_k: int = TORSION_K,
+                        plan: MsmPlan = BASELINE_PLAN,
+                        frontend: str = DEFAULT_FRONTEND):
     """fn(msgs, lens, sigs, pubs) -> RlcAsyncResult, with fresh z and u
     weights per call (os.urandom unless a test passes rng), made on the
     host and copied to the inputs' device. fallback_fn is the per-lane
     verifier run when the batch equation fails; rlc_fn the RLC pass
-    (verify_batch_rlc by default)."""
-    rlc = rlc_fn if rlc_fn is not None else verify_batch_rlc
+    (verify_batch_rlc at plan and frontend by default)."""
+    if rlc_fn is not None:
+        rlc = rlc_fn
+    else:
+        def rlc(*args):
+            return verify_batch_rlc(*args, plan=plan, frontend=frontend)
 
     def fn(msgs, lens, sigs, pubs):
         z, u = draw_weights(msgs.shape[0], msgs.device, torsion_k, rng)

@@ -182,7 +182,7 @@ def test_kernel_field_constants(name, value):
     ("SC_MU", [((1 << 512) // sc25519.L >> (64 * i)) & (2**64 - 1)
                for i in range(5)])])
 def test_kernel_sha512_constants(name, want):
-    assert _c_array(CSRC / "sha512_mod_l.cu", name) == want
+    assert _c_array(CSRC / "sha512.cuh", name) == want
 
 
 def test_sha512_constants_match_hashlib():

@@ -241,24 +241,6 @@ def test_parallel_carry_is_exact_on_long_chains():
 
 
 @pytest.mark.parametrize("n", [1, 16, 300])
-def test_rlc_scalars_equal_muladd_and_sum(n):
-    """m and u from one reduction equal sc_muladd and sc_sum of the
-    per-lane products (and Python ints), up to the widest operands."""
-    z, h, s = (torch.from_numpy(np.tile(_sc_inputs(n + k), (-(-n // B), 1))
-                                [:n]) for k in (0, 1, 2))
-    z[:, 16:] = 0                 # RLC weights are < 2^126 (fresh_z)
-    z[:, 15] &= 0x3F
-    m, u = sc.rlc_scalars(z, h, s)
-    zero = torch.zeros_like(z)
-    assert torch.equal(m, sc.sc_muladd(z, h, zero))
-    assert torch.equal(u, sc.sc_sum(sc.sc_muladd(z, s, zero)))
-    ints = [[int.from_bytes(r.tobytes(), "little") for r in t.numpy()]
-            for t in (z, s)]
-    want = sum(a * b for a, b in zip(*ints)) % sc.L
-    assert int.from_bytes(u.numpy()[0].tobytes(), "little") == want
-
-
-@pytest.mark.parametrize("n", [1, 16, 300])
 def test_sc_sum_matches_jax(n):
     s = np.tile(_sc_inputs(n), (-(-n // B), 1))[:n]
     got = sc.sc_sum(torch.from_numpy(s)).numpy()
@@ -299,7 +281,8 @@ def torsion_buckets(golden, clean_points):
     u = torch.from_numpy(golden["clean/u"].astype(np.int64)) & (nb - 1)
     rounds = msm_plan.default_rounds(2 * B, nb)
     idx, ok = msm._staging_from_digits(u, 2 * B, rounds, nb)
-    return idx, ok, msm_cuda.fill_buckets_ref(clean_points, idx)
+    return idx, ok, msm_cuda.fill_buckets_ref(ge.niels_limbs(clean_points),
+                                              idx)
 
 
 def test_fill_plain_matches_jax_kernel(golden, torsion_buckets):
@@ -340,7 +323,7 @@ def test_plain_versions_count_and_launch_nothing_on_the_cpu(clean_points):
     backend.reset_counts()
     idx, _ = msm._staging_from_digits(
         torch.zeros(2, 2 * B, dtype=torch.int64) + 3, 2 * B, 40, 32)
-    buckets = msm_cuda.fill_buckets(clean_points, idx)
+    buckets = msm_cuda.fill_buckets(ge.niels_limbs(clean_points), idx)
     agg = msm_cuda.aggregate_buckets(buckets.reshape(2, 32, 4, 5))
     msm_cuda.window_horner(agg, 7)
     msm_cuda.mul_by_group_order(agg)
@@ -355,7 +338,7 @@ def test_empty_fill_lanes_match_the_rounds_of_identity_adds():
     pts = ge.base_point_limbs(torch.device("cpu"))
     idx = torch.full((1, 4, 3), -1, dtype=torch.int32)
     idx[0, 2, 0] = 0
-    got = msm_cuda.fill_buckets_ref(pts, idx)
+    got = msm_cuda.fill_buckets_ref(ge.niels_limbs(pts), idx)
     one, zero = fe.fe_one((1,)), fe.fe_zero((1,))
     acc = ge.identity((1,))
     for _ in range(3):

@@ -4,9 +4,10 @@ The corpus (ballet/ed25519/corpus.rlc_corpus: clean, one salted lane,
 definite lanes, a non-canonical R, the order-2 pair, the order-8
 forgery, small-order A and R, and an overflow batch whose z weights are
 all equal) runs at B = 16, MAX_LEN = 64 and K = 8 trials, at plans u7
-and s8l3, through the port's verify_rlc_local and verify_rlc_combine on
-the CPU. Compiling the JAX package's kernel path (its Pallas kernels in
-interpret mode) costs minutes, so tier-1 compares against goldens in
+and s8l3, in both front halves (frontend "fused" and "staged"), through
+the port's RLC pass (rlc_front, msm_partials, the tails) on the CPU.
+Compiling the JAX package's kernel path (its Pallas kernels in interpret
+mode) costs minutes, so tier-1 compares against goldens in
 tests/fixtures/torch_port/rlc_goldens.npz, and the live comparison is a
 slow test. Rewrite the goldens with
 ``JAX_PLATFORMS=cpu python -m tests.test_torch_rlc`` from the
@@ -43,6 +44,7 @@ N = 16
 MAX_LEN = 64
 K = 8
 PLANS = ("u7", "s8l3")
+FRONTENDS = ("fused", "staged")
 CASES = ("clean", "salted", "definite", "noncanon_r", "order2", "order8",
          "small_order", "overflow")
 
@@ -81,11 +83,19 @@ def golden():
     return dict(np.load(GOLDEN))
 
 
-def port_case(token: str, arrays, z, u) -> dict:
-    """One corpus case through the port's RLC halves (plain versions)."""
-    plan = parse_plan(token)
+def port_front(arrays, z, u, frontend: str):
+    """One corpus case through the port's RLC front half (plain
+    versions): (status, definite, msm_in)."""
     args = [torch.from_numpy(a) for a in arrays + (z, u)]
-    status, definite, parts = vr.verify_rlc_local(*args, plan=plan)
+    return vr.rlc_front(*args, frontend=frontend)
+
+
+def port_case(token: str, front) -> dict:
+    """A case's front half through the rest of the port's RLC pass, the
+    MSM partials and the tails at plan `token`, into golden records."""
+    plan = parse_plan(token)
+    status, definite, msm_in = front
+    parts = vr.msm_partials(msm_in, plan)
     t1, t2, cert, fills_ok = vr.combine_points(parts, plan)
     rec = {"status": status.numpy(), "definite": definite.numpy(),
            "batch_ok": vr.batch_verdict(t1, t2, cert, fills_ok).numpy(),
@@ -142,52 +152,69 @@ class _Recorder:
     """An rlc_fn for make_async_verifier that runs the case's own weights
     through the port's halves and keeps every partial for the checks."""
 
-    def __init__(self, z, u):
-        self.z, self.u, self.rec = z, u, None
+    def __init__(self, z, u, frontend, fronts):
+        self.z, self.u, self.frontend, self.rec = z, u, frontend, None
+        self.fronts = fronts
 
     def __call__(self, msgs, lens, sigs, pubs, _z, _u):
-        self.rec = port_case("u7", (msgs.numpy(), lens.numpy(),
-                                    sigs.numpy(), pubs.numpy()),
-                             self.z, self.u)
+        front = port_front((msgs.numpy(), lens.numpy(), sigs.numpy(),
+                            pubs.numpy()), self.z, self.u, self.frontend)
+        self.fronts.append(front)
+        self.rec = port_case("u7", front)
         return (torch.from_numpy(self.rec["status"]),
                 torch.from_numpy(self.rec["definite"]),
                 torch.from_numpy(np.asarray(self.rec["batch_ok"])))
 
 
 @pytest.fixture(scope="module")
-def u7_runs(golden):
-    """Every case at u7 through the port's async verifier (the RLC pass
-    on the case's weights, the direct fallback when it fails), with the
-    direct statuses beside it."""
+def direct_statuses(golden):
+    """Every case's per-lane statuses from the direct path."""
+    return {case: verify_batch(*map(torch.from_numpy,
+                                    _golden_inputs(golden, case)[0])).numpy()
+            for case in CASES}
+
+
+@pytest.fixture(scope="module")
+def u7_runs(golden, direct_statuses):
+    """Every case at u7, in both front halves, through the port's async
+    verifier (the RLC pass on the case's weights; when it fails, the
+    fallback returns the case's direct statuses): (frontend, case) ->
+    (partials, result, statuses, front half). The s8l3 runs reuse the
+    front half: the plans differ only after it."""
     out = {}
-    for case in CASES:
-        arrays, z, u = _golden_inputs(golden, case)
-        rec = _Recorder(z, u)
-        fallback = []
-        fn = vr.make_async_verifier(
-            lambda *a: fallback.append(verify_batch(*a)) or fallback[0],
-            rng=np.random.default_rng(0), rlc_fn=rec, torsion_k=K)
-        res = fn(*map(torch.from_numpy, arrays))
-        statuses = np.asarray(res)
-        direct = (fallback or [verify_batch(*map(torch.from_numpy, arrays))])
-        out[case] = (rec.rec, res, statuses, direct[0].numpy())
+    for frontend in FRONTENDS:
+        for case in CASES:
+            arrays, z, u = _golden_inputs(golden, case)
+            fronts = []
+            rec = _Recorder(z, u, frontend, fronts)
+            direct = torch.from_numpy(direct_statuses[case])
+            fn = vr.make_async_verifier(lambda *a, d=direct: d,
+                                        rng=np.random.default_rng(0),
+                                        rlc_fn=rec, torsion_k=K)
+            res = fn(*map(torch.from_numpy, arrays))
+            out[frontend, case] = (rec.rec, res, np.asarray(res), fronts[0])
     return out
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("case", CASES)
-def test_rlc_u7_matches_jax_golden(golden, u7_runs, case):
-    _assert_case(u7_runs[case][0], golden, f"u7/{case}")
+def test_rlc_u7_matches_jax_golden(golden, u7_runs, case, frontend):
+    _assert_case(u7_runs[frontend, case][0], golden, f"u7/{case}")
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("case", CASES)
-def test_rlc_s8l3_matches_jax_golden(golden, case):
-    arrays, z, u = _golden_inputs(golden, case)
-    _assert_case(port_case("s8l3", arrays, z, u), golden, f"s8l3/{case}")
+def test_rlc_s8l3_matches_jax_golden(golden, u7_runs, case, frontend):
+    _assert_case(port_case("s8l3", u7_runs[frontend, case][3]), golden,
+                 f"s8l3/{case}")
 
 
+@pytest.mark.parametrize("frontend", FRONTENDS)
 @pytest.mark.parametrize("case", CASES)
-def test_async_verifier_gives_the_direct_statuses(u7_runs, case):
-    rec, res, statuses, direct = u7_runs[case]
+def test_async_verifier_gives_the_direct_statuses(u7_runs, direct_statuses,
+                                                  case, frontend):
+    rec, res, statuses, _ = u7_runs[frontend, case]
+    direct = direct_statuses[case]
     np.testing.assert_array_equal(statuses, direct)
     assert res.is_ready()
     assert res.used_fallback == (not bool(rec["batch_ok"]))
@@ -258,13 +285,27 @@ def test_acquire_rlc_refuses_to_run_without_a_card(monkeypatch):
         registry().acquire(EngineSpec("rlc", N))
     with pytest.raises(ValueError, match="msm plan"):
         registry().acquire(EngineSpec("rlc", N, msm="u9"), device="cpu")
+    with pytest.raises(ValueError, match="unknown frontend"):
+        registry().acquire(EngineSpec("rlc", N, frontend="xla"),
+                           device="cpu")
 
 
-def test_cpu_rlc_engine_runs_the_plain_path(golden, u7_runs):
-    entry, warmed = registry().acquire(EngineSpec("rlc", N, msm="u7"),
-                                       device="cpu", max_msg_len=MAX_LEN)
+# The plain versions one RLC pass and its direct fallback run on the CPU,
+# by front half.
+_PASS_PLAIN = {"fused": {"frontend_rlc": 1}, "staged": {"sha512_batch": 1}}
+_FALLBACK_PLAIN = {"sha512_mod_l": 1, "decompress_so": 1,
+                   "double_scalarmult": 1, "point_eq": 1}
+
+
+@pytest.mark.parametrize("frontend", FRONTENDS)
+def test_cpu_rlc_engine_runs_the_plain_path(golden, direct_statuses,
+                                            frontend):
+    entry, warmed = registry().acquire(
+        EngineSpec("rlc", N, msm="u7", frontend=frontend), device="cpu",
+        max_msg_len=MAX_LEN)
     assert warmed and entry.state == "warm"
-    assert entry.key == f"rlc:B{N}:u7"
+    assert entry.key == f"rlc:B{N}:fe{frontend}:u7"
+    assert entry.snapshot()["frontend"] == frontend
     arrays, _, _ = _golden_inputs(golden, "order2")
     backend.reset_counts()
     res = entry.fn(*arrays)
@@ -272,10 +313,10 @@ def test_cpu_rlc_engine_runs_the_plain_path(golden, u7_runs):
     assert res.used_fallback and res.is_ready()
     assert backend.launches == {}
     assert backend.plain_calls == {
-        "sha512_mod_l": 2, "decompress_so": 2, "msm_fill": 3,
+        **_PASS_PLAIN[frontend], "decompress_niels": 1, "msm_fill": 3,
         "msm_aggregate": 3, "msm_horner": 2, "msm_order": 1,
-        "double_scalarmult": 1, "point_eq": 1}
-    np.testing.assert_array_equal(st, u7_runs["order2"][3])
+        **_FALLBACK_PLAIN}
+    np.testing.assert_array_equal(st, direct_statuses["order2"])
 
 
 # -- the JAX side (goldens and the slow live test) -----------------------

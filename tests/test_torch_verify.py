@@ -265,7 +265,8 @@ def test_acquire_rejects_rlc_and_unknown_modes():
         registry().acquire(EngineSpec("cpu", 8), device="cpu")
     entry, warmed = registry().acquire(EngineSpec("rlc", 8), device="cpu",
                                        warm=False)
-    assert (entry.key, warmed, entry.state) == ("rlc:B8:u7", False, "cold")
+    assert (entry.key, warmed, entry.state) == ("rlc:B8:fefused:u7", False,
+                                                "cold")
 
 
 def test_cpu_engine_runs_the_plain_path(mix):
