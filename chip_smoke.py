@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (firedancer_tpu_torch) on one Hopper
-card: the quickest proof that the port builds and verifies on the GPU.
+card: the quickest proof that the port builds, verifies and signs on the
+GPU.
 
     python3 chip_smoke.py
 
@@ -11,20 +12,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
    registers and spills.
-3. Kernel parity: each of the eleven kernels against its plain PyTorch
-   version on the same CUDA tensors, at the main path's shapes; they must
+3. Kernel parity: each of the fifteen kernels against its plain PyTorch
+   version on the same CUDA tensors, at the main paths' shapes; they must
    agree exactly (canonical bytes, limbs and masks). The RLC front half's
    three: frontend_rlc and sha512_batch on 8192 hash rows (and on rows
-   of every length 0-1296), decompress_niels on 2 x 8192 encodings with
+   of every length 0-1296; sha512_batch also on signing's 1344-byte rows
+   of the 1280-byte bucket), decompress_niels on 2 x 8192 encodings with
    y = +-1, non-square, non-canonical and small-order lanes planted (and
    on a batch that is not a multiple of its 32-lane group). The four MSM
    kernels take their inputs staged from a clean 8192-lane batch through
    the RLC front half: the three bucket fills (z, 253-bit, torsion) on
    the decompress kernel's niels forms, the three aggregations, both
    Horners and the K = 64 [L] ladder; then the signed plan s8l3's 253-bit
-   fill (the sign folded into the gather) and its pass's verdict. Times
-   with CUDA events, warm, the kernel's mean over 20 launches beside the
-   plain version's.
+   fill (the sign folded into the gather) and its pass's verdict. The
+   signing path's four: sc_reduce64 on 8192 64-byte values with the edges
+   0, L - 1, L, 2^255 - 1 and 2^512 - 1 planted; sc_muladd with c != 0
+   (signing's h a + r, a clamped) and c = 0 (the staged pass's stacked
+   z || z times h || s); fe_pow, both chains, on 8192 lanes; compress on
+   K3's outputs with the edge points planted (the identity, the torsion
+   points and y within 19 of p, at Z = 1 and Z != 1); and K3 itself with
+   h = 0 and clamped scalars, as signing calls it. Times with CUDA
+   events, warm, the kernel's mean over 20 launches beside the plain
+   version's, summed over the launches of one pass (one signing call for
+   the signing kernels).
 4. Direct path: registry().acquire(EngineSpec("direct", 8192)) answers
    three 8192-lane batches (bench traffic; the same with salted,
    s >= L, undecodable-key lanes and the 396 Zcash vectors; MTU-sized
@@ -40,8 +50,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
    mixed batch and (t) a torsion batch (an order-2 pair and four
    order-8-offset lanes): both fall back, with the direct path's
    statuses. Then verifies/s on (a), the cost of (b), the device time by
-   kernel (torch.profiler) and the host clock of the pass's stages.
-6. Output: the card line, one JSON line of per-kernel numbers, and the
+   kernel (torch.profiler) and the host clock of the pass's stages. The
+   staged pass launches sha512_batch, sc_reduce64 and sc_muladd once
+   each and no plain version.
+6. Signing path: disco.corpus.sign_jobs at two shapes, B = 8192 with
+   192-byte messages and B = 4096 with 100-1232-byte messages (rows of
+   the 1280-byte bucket). Each signing call must launch sha512_batch 3,
+   sc_reduce64 2, double_scalarmult 2, compress 2 and sc_muladd 1 times
+   and no plain version; its bytes must equal the plain composition's on
+   the same CUDA tensors and the oracle's on 64 lanes; the signed batch
+   must verify through EngineSpec("direct") (every status 0) and
+   EngineSpec("rlc") (batch_ok True, no fallback). Then signatures/s by
+   CUDA events and by the host clock, and the device time by kernel.
+7. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -65,7 +86,14 @@ REPS = 20
 TIMED_BATCHES = 10
 DIRECT_KERNELS = ("sha512_mod_l", "decompress_so", "double_scalarmult",
                   "point_eq")
-FRONT_KERNELS = {"fused": "frontend_rlc", "staged": "sha512_batch"}
+# The front half's launches in one clean RLC pass, by front half.
+FRONT_LAUNCHES = {"fused": {"frontend_rlc": 1},
+                  "staged": {"sha512_batch": 1, "sc_reduce64": 1,
+                             "sc_muladd": 1}}
+# Launches of one signing call (ops/sign.py sign_batch).
+SIGN_LAUNCHES = {"sha512_batch": 3, "sc_reduce64": 2, "double_scalarmult": 2,
+                 "compress": 2, "sc_muladd": 1}
+SIGN_SHAPES = ((8192, "192-byte messages"), (4096, "100-1232-byte messages"))
 # Launches of one clean RLC pass, by front half.
 RLC_PASS = {"decompress_niels": 1, "msm_fill": 3, "msm_aggregate": 3,
             "msm_horner": 2, "msm_order": 1}
@@ -170,9 +198,42 @@ def bound_double_scalarmult(n: int):
                   n * (64 + 4 * 40 + 3 * 40))
 
 
+def bound_scalarmult_base(n: int):
+    """K3 with h = 0, as signing calls it: the A table and the A adds
+    are not needed, so 64 windows of 4 doublings (16 S + 13 M) and the
+    B add (6 M): 1024 S + 1216 M a lane."""
+    return _bound(n * (1024 * IMAD_PER_SQ + 1216 * IMAD_PER_MUL),
+                  n * (64 + 4 * 40 + 3 * 40))
+
+
 def bound_point_eq(n: int):
     """Per lane two multiplies; reads five field elements, writes 1 B."""
     return _bound(n * 2 * IMAD_PER_MUL, n * (5 * 40 + 1))
+
+
+def bound_sc_reduce64(n: int):
+    """A Barrett reduction a lane; reads 64 B, writes 32 B."""
+    return _bound(n * BARRETT_PRODUCTS * 4, n * (64 + 32))
+
+
+def bound_sc_muladd(n: int, addend: bool):
+    """A 256-bit product and a Barrett reduction a lane; reads a, b (and
+    c), writes 32 B."""
+    return _bound(n * (MUL256_PRODUCTS + BARRETT_PRODUCTS) * 4,
+                  n * (64 + 32 * addend + 32))
+
+
+def bound_fe_pow(n: int, invert: bool):
+    """The chain a lane: 254 squarings and 11 multiplies (z^(p - 2)) or
+    251 and 11 (z^((p - 5)/8)); reads and writes 40 B."""
+    return _bound(n * ((254 if invert else 251) * IMAD_PER_SQ
+                       + 11 * IMAD_PER_MUL), n * 80)
+
+
+def bound_compress(n: int):
+    """The inversion chain (254 S + 11 M) and two multiplies a lane; reads
+    X, Y, Z (120 B), writes 32 B."""
+    return _bound(n * (254 * IMAD_PER_SQ + 13 * IMAD_PER_MUL), n * (120 + 32))
 
 
 # The MSM kernels: a mixed add (madd) is 7 multiplies, a unified add 9, a
@@ -282,6 +343,268 @@ def max_abs_err(torch, a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
+def kernel_pass(torch, parity, record, name, runs, replaces, source):
+    """runs: (label, kernel fn, plain fn, bound) per launch of a pass;
+    each launch held against its plain version and timed; one JSON row
+    with the pass's summed times and bounds. Returns the kernel outputs
+    by label."""
+    err = ms = plain_ms = 0.0
+    outs = {}
+    for label, kern, plain, bound in runs:
+        out = kern()
+        err = max(err, parity(f"{name} {label}", out, plain()))
+        k_ms, p_ms = time_ms(torch, kern, REPS), time_ms(torch, plain, 1)
+        say(f"  {name} {label}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        outs[label] = out
+    record(name, err, ms, plain_ms, _sum_bounds([r[3] for r in runs]),
+           replaces, source)
+    return outs
+
+
+def _le(values, width: int) -> np.ndarray:
+    return np.array([list(v.to_bytes(width, "little")) for v in values],
+                    np.uint8).reshape(len(values), width)
+
+
+def _limbs51(torch, values, dev):
+    """Python ints -> (n, 5) int64 radix-2^51 limbs on dev."""
+    return torch.tensor([[(v >> (51 * i)) & ((1 << 51) - 1)
+                          for i in range(5)] for v in values],
+                        dtype=torch.int64, device=dev).reshape(-1, 5)
+
+
+def _edge_points(torch, rng, dev):
+    """(n, 3, 5) limbs of compress's edge points: the identity (0:1:1)
+    and (0:lambda:lambda), the torsion points and the points with y
+    within 19 of p, each at Z = 1 and at a random Z."""
+    from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
+
+    p = oracle.P
+    aff = [(0, 1)] + list(dict.fromkeys(
+        oracle.point_decompress(e) for e in corpus.torsion_encodings()))
+    for k in range(1, 20):
+        x = oracle._recover_x(p - k, 0)
+        if x:
+            aff += [(x, p - k), (p - x, p - k)]
+    pts = []
+    for x, y in aff:
+        lam = int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
+        pts += [(x, y, 1), (x * lam % p, y * lam % p, lam)]
+    return torch.stack([_limbs51(torch, [q[c] for q in pts], dev)
+                        for c in range(3)], dim=1)
+
+
+def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
+    """Phase 3, the signing path's kernels at a signing call's shapes
+    (B = 8192): sc_reduce64 (two launches), sc_muladd (one, c = r), fe_pow
+    (both chains, off the paths), compress (two, on K3's outputs); K3 with
+    h = 0 and clamped scalars; sha512_batch on 1344-byte rows; and
+    sc_muladd at the staged pass's shape (2B lanes, c = 0)."""
+    from firedancer_tpu_torch import convert
+    from firedancer_tpu_torch.ballet.ed25519 import oracle
+    from firedancer_tpu_torch.ops import (curve_cuda, dsm_cuda, frontend_cuda,
+                                          pow_cuda, sc_cuda, sign)
+
+    L, P = oracle.L, oracle.P
+
+    def timed(label, kern, plain, bound=None):
+        """A launch outside a pass row: parity and time, printed."""
+        parity(label, kern(), plain())
+        extra = f", bound {bound[0]:.4f} ms ({bound[1]})" if bound else ""
+        say(f"  {label}: kernel {time_ms(torch, kern, REPS):.4f} ms, plain "
+            f"{time_ms(torch, plain, 1):.1f} ms{extra}")
+
+    # sc_reduce64: the digests of r and h; edges planted in r's.
+    edges = [0, 1, L - 1, L, L + 1, 2 * L, 2**255 - 1, 2**256 - 1, 2**511,
+             2**512 - 1]
+    x_np = rng.randint(0, 256, (2, B, 64), dtype=np.uint8)
+    x_np[0, :len(edges)] = _le(edges, 64)
+    xs = [gpu(x_np[0]), gpu(x_np[1])]
+    dev = xs[0].device
+    red = kernel_pass(torch, parity, record, "sc_reduce64", [
+        (f"{name} {B} x 64 B", lambda v=v: sc_cuda.sc_reduce64_cuda(v),
+         lambda v=v: sc_cuda.sc_reduce64_ref(v), bound_sc_reduce64(B))
+        for name, v in (("r", xs[0]), ("h", xs[1]))],
+        "firedancer_tpu/ops/sc_pallas.py:141",
+        "firedancer_tpu_torch/ops/csrc/sc_reduce.cu")
+    got = red[f"r {B} x 64 B"][:len(edges)].cpu().numpy()
+    if [int.from_bytes(r.tobytes(), "little") for r in got] != \
+            [v % L for v in edges]:
+        fail("sc_reduce64: an edge lane is not x mod L")
+
+    # sc_muladd: s = h a + r with a clamped, h and r < L (edges planted:
+    # a, b, c of 0, L - 1, L, 2^255 - 1, 2^256 - 1); c = 0 at the staged
+    # pass's 2B stacked lanes.
+    a_np = rng.randint(0, 256, (B, 32), dtype=np.uint8)
+    a_np[:, 0] &= 248
+    a_np[:, 31] = (a_np[:, 31] & 63) | 64
+    h_t, r_t = (sc_cuda.sc_reduce64_ref(v) for v in xs)
+    a_t = gpu(a_np)
+    mx = [0, L - 1, L, 2**255 - 1, 2**256 - 1]
+    for t, pick in ((h_t, lambda i: mx[i // 5]), (a_t, lambda i: mx[i % 5]),
+                    (r_t, lambda i: mx[3 * i % 5])):
+        t[:25] = gpu(_le([pick(i) for i in range(25)], 32))
+    ma_out = kernel_pass(torch, parity, record, "sc_muladd", [(
+        f"s = h a + r, {B} lanes",
+        lambda: sc_cuda.sc_muladd_cuda(h_t, a_t, r_t),
+        lambda: sc_cuda.sc_muladd_ref(h_t, a_t, r_t),
+        bound_sc_muladd(B, True))],
+        "firedancer_tpu/ops/sc_pallas.py:111",
+        "firedancer_tpu_torch/ops/csrc/sc_reduce.cu")
+    ints = [[int.from_bytes(r.tobytes(), "little") for r in
+             t[:25].cpu().numpy()] for t in (h_t, a_t, r_t,
+                                             *ma_out.values())]
+    if ints[3] != [(h * a + r) % L for h, a, r in zip(*ints[:3])]:
+        fail("sc_muladd: an edge lane is not (h a + r) mod L")
+    z_np = rng.randint(0, 256, (B, 32), dtype=np.uint8)
+    z_np[:, 16:] = 0
+    zz, hs = gpu(np.concatenate([z_np, z_np])), torch.cat([h_t, xs[1][:, :32]])
+    timed(f"sc_muladd c = 0, staged z||z h||s, {2 * B} lanes",
+          lambda: sc_cuda.sc_muladd_cuda(zz, hs),
+          lambda: sc_cuda.sc_muladd_ref(zz, hs), bound_sc_muladd(2 * B, False))
+
+    # fe_pow: both chains on 8192 lanes of values < 2^255 (edges planted).
+    pe = [0, 1, 2, P - 1, P, P + 1, 2**255 - 1]
+    zv = [int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(B)]
+    zv[:len(pe)] = pe
+    zl = _limbs51(torch, zv, dev)
+    kernel_pass(torch, parity, record, "fe_pow", [
+        (f"{name} {B} lanes", lambda f=f: f[0](zl), lambda f=f: f[1](zl),
+         bound_fe_pow(B, name == "invert"))
+        for name, f in (("invert", (pow_cuda.fe_invert_cuda,
+                                    pow_cuda.fe_invert_ref)),
+                        ("pow22523", (pow_cuda.fe_pow22523_cuda,
+                                      pow_cuda.fe_pow22523_ref)))],
+        "firedancer_tpu/ops/pow_pallas.py:148",
+        "firedancer_tpu_torch/ops/csrc/fe_pow.cu")
+
+    # K3 as signing calls it (h = 0, the base point, clamped a and r < L),
+    # then compress on its outputs with the edge points planted.
+    zero = torch.zeros_like(a_t)
+    base = sign._b_rows(dev, B)
+    k3 = {}
+    for name, sc_t in (("pub = a B", a_t), ("R = r B", r_t)):
+        timed(f"double_scalarmult h = 0, {name}, {B} lanes",
+              lambda v=sc_t: dsm_cuda.double_scalarmult_cuda(zero, base, v),
+              lambda v=sc_t: dsm_cuda.double_scalarmult_ref(zero, base, v),
+              bound_scalarmult_base(B))
+        k3[name] = dsm_cuda.double_scalarmult_cuda(zero, base, sc_t)
+    edge_pts = _edge_points(torch, rng, dev)
+    k3["pub = a B"][:edge_pts.shape[0]] = edge_pts
+    enc = kernel_pass(torch, parity, record, "compress", [
+        (f"{name} {B} lanes", lambda p=p: curve_cuda.compress_cuda(p),
+         lambda p=p: curve_cuda.compress_ref(p), bound_compress(B))
+        for name, p in k3.items()],
+        "firedancer_tpu/ops/curve_pallas.py:340",
+        "firedancer_tpu_torch/ops/csrc/compress.cu")
+    parity("compress vs the affine encoding (512 lanes)",
+           enc[f"pub = a B {B} lanes"][:512].cpu().numpy(),
+           convert.point_to_affine_bytes(k3["pub = a B"][:512]))
+    r_enc = enc[f"R = r B {B} lanes"].cpu().numpy()
+    for i in range(16):
+        r_int = int.from_bytes(r_t[i].cpu().numpy().tobytes(), "little")
+        if r_enc[i].tobytes() != oracle.point_compress(
+                oracle.scalarmult(r_int, oracle.B)):
+            fail(f"compress(K3 r B): lane {i} differs from the oracle")
+
+    # sha512_batch on signing's longest rows: R || pub || msg in the
+    # 1280-byte bucket, 1344 bytes, every block count 1-11.
+    row = 64 + 1280
+    sl = rng.randint(0, row + 1, B).astype(np.int32)
+    sl[:8] = [0, 111, 112, 239, 240, 1231, row - 1, row]
+    s_rows, s_lens = gpu(rng.randint(0, 256, (B, row), dtype=np.uint8)), gpu(sl)
+    timed(f"sha512_batch, rows of {row} bytes",
+          lambda: frontend_cuda.sha512_batch_cuda(s_rows, s_lens),
+          lambda: frontend_cuda.sha512_batch_ref(s_rows, s_lens),
+          bound_sha512_batch(sl, row))
+    say("signing kernels: sc_reduce64, sc_muladd, fe_pow, compress and K3 "
+        "with h = 0 equal their plain versions; the edge lanes equal "
+        "Python's integers and the oracle")
+
+
+def signing_path(torch, gpu, rows, card) -> None:
+    """Phase 6: sign_jobs at the two shapes, each call's launch counts
+    (reset just before, read just after), its bytes against the plain
+    composition and the oracle, the signed batch through the direct and
+    rlc engines, signatures/s and the device time by kernel."""
+    from firedancer_tpu_torch.ballet.ed25519 import oracle
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.ops import backend, sign
+
+    rng = np.random.RandomState(9)
+    for bsz, desc in SIGN_SHAPES:
+        if bsz == B:
+            lens = np.full(bsz, MSG_LEN, np.int32)
+        else:
+            lens = rng.randint(100, MTU_MSG + 1, bsz).astype(np.int32)
+            lens[:2] = [100, MTU_MSG]
+        row = -(-int(lens.max()) // dcorpus.LEN_BUCKET) * dcorpus.LEN_BUCKET
+        msgs = rng.randint(0, 256, (bsz, row), dtype=np.uint8)
+        msgs[np.arange(row)[None, :] >= lens[:, None]] = 0
+        seeds = rng.randint(0, 256, (bsz, 32), dtype=np.uint8)
+        jobs = [(msgs[i, :lens[i]].tobytes(), seeds[i].tobytes())
+                for i in range(bsz)]
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        t0 = time.perf_counter()
+        sigs = dcorpus.sign_jobs(jobs, batch=bsz)
+        jobs_s = time.perf_counter() - t0
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+        say(f"sign_jobs B={bsz} ({desc}, rows of {row} bytes): launches "
+            f"{launches}, plain calls {plain}, {jobs_s:.3f} s with the "
+            f"host's packing")
+        if launches != SIGN_LAUNCHES or plain:
+            fail(f"signing B={bsz}: launches {launches}, plain {plain}; "
+                 f"want {SIGN_LAUNCHES} and no plain call")
+        if bsz == B:
+            for name in ("sc_reduce64", "sc_muladd", "compress"):
+                rows[name]["launches"] = launches[name]
+
+        args = (gpu(msgs), gpu(lens), gpu(seeds))
+        k_sigs, k_pubs = sign.sign_batch(*args)
+        p_sigs, p_pubs = sign.sign_batch_ref(*args)
+        if not (torch.equal(k_sigs, p_sigs) and torch.equal(k_pubs, p_pubs)):
+            fail(f"signing B={bsz}: the kernels' bytes differ from the plain "
+                 f"composition on {int((k_sigs != p_sigs).any(1).sum())} "
+                 f"lanes")
+        got = k_sigs.cpu().numpy()
+        if [got[i].tobytes() for i in range(bsz)] != sigs:
+            fail(f"signing B={bsz}: sign_jobs differs from sign_batch")
+        for i in np.linspace(0, bsz - 1, 64).astype(int):
+            if sigs[i] != oracle.sign(*jobs[i]):
+                fail(f"signing B={bsz}: lane {i} differs from the oracle")
+        say(f"signing B={bsz}: {bsz} signatures equal the plain "
+            f"composition's, 64 lanes equal the oracle's")
+
+        vargs = (args[0], args[1], k_sigs, k_pubs)
+        entry, _ = registry().acquire(EngineSpec("direct", bsz))
+        st = entry.fn(*vargs).cpu().numpy()
+        rlc, _ = registry().acquire(EngineSpec("rlc", bsz))
+        res = rlc.fn(*vargs)
+        st_rlc = np.asarray(res)
+        if st.any() or st_rlc.any() or res.used_fallback:
+            fail(f"signing B={bsz}: direct statuses "
+                 f"{dict(zip(*np.unique(st, return_counts=True)))}, rlc "
+                 f"fallback {res.used_fallback}")
+        say(f"signing B={bsz}: the signed batch verifies, direct every "
+            f"status 0, rlc batch_ok True without fallback")
+
+        ms = time_ms(torch, lambda: sign.sign_batch(*args), TIMED_BATCHES)
+        t0 = time.perf_counter()
+        for _ in range(TIMED_BATCHES):
+            sign.sign_batch(*args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TIMED_BATCHES
+        say(f"sign B={bsz} ({desc}): {ms:.3f} ms/call (CUDA events), "
+            f"{bsz / (ms / 1e3):.0f} signatures/s; host clock "
+            f"{wall * 1e3:.3f} ms/call, {bsz / wall:.0f} signatures/s "
+            f"[{card}]")
+        profile_batches(torch, lambda: sign.sign_batch(*args), wall * 1e3)
+
+
 def rlc_path(torch, gpu, rows, card, batches, expects, direct_b, zcash_pass,
              direct_entry) -> None:
     """Phase 5: the RLC engine in both front halves on the bench, mixed
@@ -292,7 +615,7 @@ def rlc_path(torch, gpu, rows, card, batches, expects, direct_b, zcash_pass,
     for b in zcash_pass:
         want_b[b] = direct_b[b]
     direct_t = np.asarray(direct_entry.fn(*inputs[2]).cpu())
-    for frontend in FRONT_KERNELS:
+    for frontend in FRONT_LAUNCHES:
         rlc_front_half(torch, rows, card, inputs, frontend,
                        (expects[0], want_b, direct_b, direct_t))
 
@@ -324,14 +647,15 @@ def rlc_front_half(torch, rows, card, inputs, frontend, wants) -> None:
     launches, plain = dict(backend.launches), dict(backend.plain_calls)
     say(f"rlc path ({frontend}): batch (a) launches {counts_a}; all three "
         f"batches launches {launches}, plain calls {plain}")
-    want_a = {FRONT_KERNELS[frontend]: 1, **RLC_PASS}
+    want_a = {**FRONT_LAUNCHES[frontend], **RLC_PASS}
     if counts_a != want_a or plain_a:
         fail(f"rlc batch (a), {frontend}: launches {counts_a}, plain "
              f"{plain_a}; want {want_a} and no plain call")
     if any(plain.values()):
         fail(f"a plain version ran on the rlc path ({frontend}): {plain}")
-    own = ((FRONT_KERNELS[frontend],) if frontend == "staged" else
-           (FRONT_KERNELS[frontend], *RLC_PASS))
+    # Rows 12 and 13 take their launches from the signing path.
+    own = (("sha512_batch",) if frontend == "staged" else
+           ("frontend_rlc", *RLC_PASS))
     for name in own:
         rows[name]["launches"] = launches[name]
 
@@ -453,21 +777,8 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
         nb_t))
 
     def kernel_row(name, runs, replaces, source):
-        """runs: (label, kernel fn, plain fn, bound) per launch of a pass;
-        one JSON row with the pass's summed times and bounds."""
-        err = ms = plain_ms = 0.0
-        outs = {}
-        for label, kern, plain, bound in runs:
-            out = kern()
-            err = max(err, parity(f"{name} {label}", out, plain()))
-            k_ms, p_ms = time_ms(torch, kern, REPS), time_ms(torch, plain, 1)
-            say(f"  {name} {label}: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-            ms, plain_ms = ms + k_ms, plain_ms + p_ms
-            outs[label] = out
-        record(name, err, ms, plain_ms, _sum_bounds([r[3] for r in runs]),
-               replaces, source)
-        return outs
+        return kernel_pass(torch, parity, record, name, runs, replaces,
+                           source)
 
     runs = []
     for name, pts, idx, ok in grids:
@@ -763,6 +1074,8 @@ def main() -> int:
            "firedancer_tpu/ops/curve_pallas.py:234",
            "firedancer_tpu_torch/ops/csrc/decompress_niels.cu")
 
+    sign_kernel_parity(torch, gpu, parity, record, rng)
+
     # Traffic (oracle signing on the host), for phases 3 to 5.
     t0 = time.perf_counter()
     bench_rng = np.random.RandomState(42)
@@ -877,8 +1190,9 @@ def main() -> int:
     direct_b = outs[1].cpu().numpy()
     rlc_path(torch, gpu, rows, card, (batch_a, batch_b, batch_t),
              (expect_a, expect_b), direct_b, zcash_pass, entry)
+    signing_path(torch, gpu, rows, card)
 
-    # 6. Output.
+    # 7. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("sha512_mod_l", "decompress_so", "double_scalarmult", "point_eq",
            "msm_fill", "msm_aggregate", "msm_horner", "msm_order",
-           "frontend_rlc", "decompress_niels", "sha512_batch")
+           "frontend_rlc", "decompress_niels", "sha512_batch", "sc_reduce",
+           "fe_pow", "compress")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

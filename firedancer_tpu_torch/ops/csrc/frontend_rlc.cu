@@ -8,9 +8,9 @@
 // The TPU kernel keeps the digest and the scalars in VMEM in a folded
 // (8, B/8) byte-limb layout so that its Barrett and 32x32 schoolbook
 // convolutions are full-width vector ops; here each lane is one thread
-// and the whole chain stays in registers: sha512_row, sc_reduce512 (both
-// sha512.cuh), then z h and z s as 4x4 64-bit-limb products (HAC 14.12)
-// reduced by the same Barrett. z carries the caller's live-lane masking:
+// and the whole chain stays in registers: sha512_row and sc_reduce512,
+// then z h and z s as 4x4 64-bit-limb products (mul256, HAC 14.12)
+// reduced by the same Barrett (all three in sha512.cuh). z carries the caller's live-lane masking:
 // a dead lane has z = 0, so m = zs = 0, as in the JAX kernel
 // (frontend_pallas.py:304-306).
 //
@@ -19,24 +19,6 @@
 // tenth of a 3-block row's rounds); bytes are read once. Design: one
 // thread per lane, as K1, which this kernel extends by the two products.
 #include "sha512.cuh"
-
-// a * b for 256-bit a, b: eight 64-bit limbs.
-__device__ __forceinline__ void mul256(const u64 a[4], const u64 b[4],
-                                       u64 p[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; k++) p[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 4; i++) {
-    u128 carry = 0;
-#pragma unroll
-    for (int j = 0; j < 4; j++) {
-      u128 t = (u128)a[i] * b[j] + p[i + j] + carry;
-      p[i + j] = (u64)t;
-      carry = t >> 64;
-    }
-    p[i + 4] = (u64)carry;
-  }
-}
 
 __global__ void frontend_rlc_kernel(const uint8_t *__restrict__ msgs,
                                     long long stride,

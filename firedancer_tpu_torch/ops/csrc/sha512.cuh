@@ -1,6 +1,7 @@
-// SHA-512 (FIPS 180-4) and the Barrett reduction mod L shared by the
-// front-half kernels: K1 sha512_mod_l.cu, frontend_rlc.cu and
-// sha512_batch.cu, one copy of the rounds for all three.
+// SHA-512 (FIPS 180-4) and the scalar arithmetic mod L shared by the
+// front-half kernels (K1 sha512_mod_l.cu, frontend_rlc.cu and
+// sha512_batch.cu, one copy of the rounds for all three) and by
+// sc_reduce.cu (the Barrett reduction and the 256-bit product).
 //
 // sha512_row hashes one lane's row m[0:len], building the padding (0x80,
 // zeros, the 128-bit big-endian bit length) in the kernel, so no
@@ -153,6 +154,24 @@ __device__ __forceinline__ void sc_reduce512(const u64 x[8], u64 r_out[4]) {
   }
 #pragma unroll
   for (int k = 0; k < 4; k++) r_out[k] = r[k];
+}
+
+// a * b for 256-bit a, b: eight 64-bit limbs.
+__device__ __forceinline__ void mul256(const u64 a[4], const u64 b[4],
+                                       u64 p[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) p[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    u128 carry = 0;
+#pragma unroll
+    for (int j = 0; j < 4; j++) {
+      u128 t = (u128)a[i] * b[j] + p[i + j] + carry;
+      p[i + j] = (u64)t;
+      carry = t >> 64;
+    }
+    p[i + 4] = (u64)carry;
+  }
 }
 
 // The state words of SHA-512(m[0:len]); len is clamped to [0, stride].

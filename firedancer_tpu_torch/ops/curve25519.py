@@ -198,6 +198,19 @@ def decompress(y_bytes: torch.Tensor):
     return point_select(ok, pt, identity(batch, dev)), ok
 
 
+def compress(pt: torch.Tensor) -> torch.Tensor:
+    """(B, >= 3, 5) limbs of projective X, Y, Z (limbs in [0, 2^52)) ->
+    (B, 32) uint8 canonical encodings: y = Y/Z little-endian, the parity
+    of x = X/Z in bit 255 (curve25519.py:229 compress, one inversion per
+    lane; Z = 0 encodes as zero bytes)."""
+    x, y, z = from_limbs51(pt, 3)
+    zinv = fe.fe_invert(z)
+    ax, ay = _muls([x, y], [zinv, zinv])
+    out = fe.fe_to_bytes(ay)
+    sign = fe.fe_is_negative(ax).to(torch.uint8) << 7
+    return torch.cat([out[:, :31], (out[:, 31] | sign)[:, None]], dim=1)
+
+
 def small_order_mask(p) -> torch.Tensor:
     """8*P == identity: three doublings and a projective identity test."""
     t = p

@@ -1,14 +1,15 @@
 """Point decompression with the small-order mask, the RLC pass's
-batched decompress with niels forms, and the affine point compare: the
-counterpart of ``firedancer_tpu/ops/curve_pallas.py``
+batched decompress with niels forms, the affine point compare and point
+compression: the counterpart of ``firedancer_tpu/ops/curve_pallas.py``
 (``decompress_pallas(want_small_order=True)`` and
-``decompress_pallas(want_niels=True)``:180, ``point_eq_affine_pallas``:275).
+``decompress_pallas(want_niels=True)``:180, ``point_eq_affine_pallas``:275,
+``compress_pallas``:318).
 
 Points cross as canonical int64 ``(B, k, 5)`` radix-2^51 limbs (X, Y,
 Z, T), niels forms as ``(B, 3, 5)``. Each op launches its CUDA kernel
 (``csrc/decompress_so.cu``, ``csrc/decompress_niels.cu``,
-``csrc/point_eq.cu``) for CUDA tensors and runs its plain version for
-CPU tensors.
+``csrc/point_eq.cu``, ``csrc/compress.cu``) for CUDA tensors and runs its
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -139,3 +140,35 @@ def point_eq_affine(aff: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     if backend.use_kernel(aff, proj):
         return point_eq_affine_cuda(aff.contiguous(), proj.contiguous())
     return point_eq_affine_ref(aff, proj)
+
+
+def compress_ref(pt: torch.Tensor) -> torch.Tensor:
+    """Plain version: (B, >= 3, 5) limbs of X, Y, Z -> (B, 32) uint8
+    canonical encodings (curve25519.compress)."""
+    backend.count_plain("compress")
+    return ge.compress(pt)
+
+
+def compress_cuda(pt: torch.Tensor) -> torch.Tensor:
+    """The kernel: same contract as compress_ref."""
+    backend.check_tensor("pt", pt, torch.int64, (None, None, 5))
+    if pt.shape[1] < 3:
+        raise ValueError("pt needs X, Y, Z")
+    n = pt.shape[0]
+    out = torch.empty(n, 32, dtype=torch.uint8, device=pt.device)
+    if n == 0:
+        return out
+    fn = build.bind("compress", "fd_compress",
+                    [_V, ctypes.c_int, _V, ctypes.c_longlong, _V])
+    stream = torch.cuda.current_stream(pt.device).cuda_stream
+    build.check_rc("fd_compress", fn(pt.data_ptr(), pt.shape[1],
+                                     out.data_ptr(), n, stream))
+    backend.count_launch("compress")
+    return out
+
+
+def compress(pt: torch.Tensor) -> torch.Tensor:
+    """Canonical 32-byte encodings of projective points (B, >= 3, 5)."""
+    if backend.use_kernel(pt):
+        return compress_cuda(pt.contiguous())
+    return compress_ref(pt)

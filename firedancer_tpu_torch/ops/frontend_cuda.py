@@ -13,7 +13,8 @@ Each launches its CUDA kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors. ``frontend_direct`` is the direct path's
 whole front half (``frontend_direct_auto``:403); ``rlc_scalars`` selects
 the RLC pass's scalar front half by ``frontend`` (``frontend_rlc_auto``:375
-with ``staged_coeff_muls``:349).
+with ``staged_coeff_muls``:349, whose reduction and products run the
+scalar kernels of ``sc_cuda``, as JAX's ``FD_SC_IMPL=pallas`` does).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import ctypes
 import torch
 
 from . import backend, build
-from . import curve_cuda
+from . import curve_cuda, sc_cuda
 from . import sha512 as sha
 from .sc25519 import sc_muladd, sc_reduce64
 
@@ -31,8 +32,9 @@ _V = ctypes.c_void_p
 _LL = ctypes.c_longlong
 # The RLC pass's front halves (the JAX package's accelerator
 # configurations): "fused" is FD_FRONTEND_IMPL=auto, one frontend_rlc
-# launch; "staged" is FD_FRONTEND_IMPL=xla, sha512_batch then the scalar
-# reduction and products in PyTorch.
+# launch; "staged" is FD_FRONTEND_IMPL=xla with FD_SC_IMPL=pallas,
+# sha512_batch, then sc_reduce64, then one sc_muladd on the stacked
+# products.
 FRONTENDS = ("fused", "staged")
 DEFAULT_FRONTEND = "fused"
 
@@ -108,19 +110,22 @@ def sha512_batch(msgs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 
 def staged_coeff_muls(z: torch.Tensor, h: torch.Tensor, s: torch.Tensor):
-    """(m, zs) = (z h mod L, z s mod L) in PyTorch (the staged path's
-    coefficient products, frontend_pallas.py:386-388)."""
-    zero = torch.zeros_like(h)
-    return sc_muladd(z, h, zero), sc_muladd(z, s, zero)
+    """(m, zs) = (z h mod L, z s mod L) as one sc_muladd on the stacked
+    (z || z, h || s), c = 0: the staged path's coefficient products,
+    frontend_pallas.py:362-370 (one stacked sc_mul_pallas launch)."""
+    out = sc_cuda.sc_muladd(torch.cat([z, z]), torch.cat([h, s]))
+    return out[:z.shape[0]], out[z.shape[0]:]
 
 
 def frontend_rlc_ref(msgs: torch.Tensor, lens: torch.Tensor,
                      z: torch.Tensor, s: torch.Tensor):
-    """Plain version: h = sc_reduce64(sha512(msgs)), then
-    staged_coeff_muls -> (h, m, zs), each (B, 32) uint8."""
+    """Plain version: h = sc_reduce64(sha512(msgs)), m = z h mod L and
+    zs = z s mod L, the plain staged composition -> (h, m, zs), each
+    (B, 32) uint8."""
     backend.count_plain("frontend_rlc")
     h = sc_reduce64(sha.sha512_batch(msgs, lens))
-    return (h,) + staged_coeff_muls(z, h, s)
+    zero = torch.zeros_like(h)
+    return h, sc_muladd(z, h, zero), sc_muladd(z, s, zero)
 
 
 def frontend_rlc_cuda(msgs: torch.Tensor, lens: torch.Tensor,
@@ -158,12 +163,12 @@ def frontend_rlc(msgs: torch.Tensor, lens: torch.Tensor, z: torch.Tensor,
 def rlc_scalars(frontend: str, msgs: torch.Tensor, lens: torch.Tensor,
                 z: torch.Tensor, s: torch.Tensor):
     """The RLC pass's scalar front half, (h, m, zs), by configuration:
-    "fused" launches frontend_rlc; "staged" launches sha512_batch and
-    reduces and multiplies in PyTorch. Both give the same bytes."""
+    "fused" launches frontend_rlc; "staged" launches sha512_batch,
+    sc_reduce64 and one stacked sc_muladd. Both give the same bytes."""
     if frontend == "fused":
         return frontend_rlc(msgs, lens, z, s)
     if frontend == "staged":
-        h = sc_reduce64(sha512_batch(msgs, lens))
+        h = sc_cuda.sc_reduce64(sha512_batch(msgs, lens))
         return (h,) + staged_coeff_muls(z, h, s)
     raise ValueError(f"unknown frontend {frontend!r} (want "
                      f"{'|'.join(FRONTENDS)})")

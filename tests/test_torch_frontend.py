@@ -137,6 +137,21 @@ def test_fused_and_staged_scalars_agree(n):
     assert _int(u.numpy()[0]) == want
 
 
+@pytest.mark.parametrize("frontend,calls", [
+    ("fused", {"frontend_rlc": 1}),
+    ("staged", {"sha512_batch": 1, "sc_reduce64": 1, "sc_muladd": 1})])
+def test_rlc_scalars_dispatch(frontend, calls):
+    """Each front half's ops, one call each: the staged half reduces and
+    multiplies through sc_cuda (one sc_muladd on the stacked products),
+    which on the CPU runs the plain versions and launches nothing."""
+    t = torch.zeros(3, 32, dtype=torch.uint8)
+    backend.reset_counts()
+    frontend_cuda.rlc_scalars(frontend, torch.zeros(3, 8, dtype=torch.uint8),
+                              torch.zeros(3, dtype=torch.int32), t, t)
+    assert backend.plain_calls == calls
+    assert backend.launches == {}
+
+
 def test_unknown_frontend_raises():
     t = torch.zeros(1, 32, dtype=torch.uint8)
     with pytest.raises(ValueError, match="unknown frontend"):

@@ -292,7 +292,9 @@ def test_acquire_rlc_refuses_to_run_without_a_card(monkeypatch):
 
 # The plain versions one RLC pass and its direct fallback run on the CPU,
 # by front half.
-_PASS_PLAIN = {"fused": {"frontend_rlc": 1}, "staged": {"sha512_batch": 1}}
+_PASS_PLAIN = {"fused": {"frontend_rlc": 1},
+               "staged": {"sha512_batch": 1, "sc_reduce64": 1,
+                          "sc_muladd": 1}}
 _FALLBACK_PLAIN = {"sha512_mod_l": 1, "decompress_so": 1,
                    "double_scalarmult": 1, "point_eq": 1}
 
