@@ -14,8 +14,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    registers and spills.
 3. Kernel parity: each of the fifteen kernels against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
-   agree exactly (canonical bytes, limbs and masks). The RLC front half's
-   three: frontend_rlc and sha512_batch on 8192 hash rows (and on rows
+   agree exactly (canonical bytes, limbs and masks). The bucket fill and
+   aggregation split a lane's slots and a column's buckets over a warp:
+   their plain versions are the split mirrors (*_split_ref), and each
+   launch must also give the same points as the JAX-order version
+   (cross-multiplied on every lane, affine bytes on 512). The RLC front
+   half's three: frontend_rlc and sha512_batch on 8192 hash rows (and on rows
    of every length 0-1296; sha512_batch also on signing's 1344-byte rows
    of the 1280-byte bucket), decompress_niels on 2 x 8192 encodings with
    y = +-1, non-square, non-canonical and small-order lanes planted (and
@@ -24,7 +28,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the RLC front half: the three bucket fills (z, 253-bit, torsion) on
    the decompress kernel's niels forms, the three aggregations, both
    Horners and the K = 64 [L] ladder; then the signed plan s8l3's 253-bit
-   fill (the sign folded into the gather) and its pass's verdict. The
+   fill (the sign folded into the gather) and aggregation (nb = 129) and
+   its pass's verdict. Each fill and aggregation launch prints its
+   thread mapping and its longest dependent chain before and after, and
+   each fill is also timed at C = 4, 8, 16 and 32 threads a lane, and
+   each aggregation right after its fill, as the pass runs it. The
    signing path's four: sc_reduce64 on 8192 64-byte values with the edges
    0, L - 1, L, 2^255 - 1 and 2^512 - 1 planted; sc_muladd with c != 0
    (signing's h a + r, a clamped) and c = 0 (the staged pass's stacked
@@ -97,6 +105,8 @@ SIGN_SHAPES = ((8192, "192-byte messages"), (4096, "100-1232-byte messages"))
 # Launches of one clean RLC pass, by front half.
 RLC_PASS = {"decompress_niels": 1, "msm_fill": 3, "msm_aggregate": 3,
             "msm_horner": 2, "msm_order": 1}
+# Threads a lane at which phase 3 times each bucket fill.
+FILL_SWEEP = (4, 8, 16, 32)
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -294,6 +304,38 @@ def time_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def after_other(torch, other, fn, kernel: str,
+                reps: int = REPS) -> tuple[float, float | None]:
+    """fn launched right after other, reps times under torch.profiler:
+    the mean ms of fn by CUDA events around it alone, and by the trace's
+    device time of its kernel (the name's prefix kernel; None when the
+    trace shows no device time). fn runs with the caches other left
+    behind, where time_ms gives it warm from its own previous launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    times = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            other()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+    traced = None
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_type", None) == DeviceType.CUDA
+                and ev.key.startswith(kernel)):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            traced = dev_us / 1e3 / reps
+    return sum(times) / reps, traced
 
 
 def profile_batches(torch, fn, batch_ms: float, n: int = 3) -> None:
@@ -742,13 +784,31 @@ def rlc_stages(torch, args, frontend: str, n: int = 5) -> None:
         say(f"  {t * 1e3:8.3f} ms {100 * t / total:5.1f}% {name}")
 
 
+def fill_chain(idx, chunks: int) -> tuple[int, int]:
+    """Longest dependent chain of one fill thread, in (madds, unified
+    adds): ceil(n / C) madds for the fullest lane of n points, then
+    log2 C tree adds."""
+    n = int((idx >= 0).sum(dim=-1).max())
+    return -(-n // chunks), chunks.bit_length() - 1
+
+
+def aggregate_chain(nb: int, seg: int) -> tuple[int, int]:
+    """Longest dependent chain of one aggregation thread, in (unified
+    adds, doublings): 2 (s - 1) segment adds, 5 scan adds, 1 add and 5
+    tree adds, and log2 s doublings."""
+    return 2 * (seg - 1) + 11, seg.bit_length() - 1
+
+
 def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     """Phase 3, the MSM kernels: each against its plain version at the
     main path's shapes, staged from the clean batch (a) through the RLC
     front half with seeded weights; the fills read the niels forms the
-    decompress kernel wrote."""
-    from firedancer_tpu_torch import msm_plan
+    decompress kernel wrote. The fill and aggregation kernels add in
+    their own order: each launch equals its split mirror (*_split_ref)
+    limb for limb and the JAX-order plain version (*_ref) as points."""
+    from firedancer_tpu_torch import convert, msm_plan
     from firedancer_tpu_torch.ops import curve25519 as ge
+    from firedancer_tpu_torch.ops import fe25519 as fe
     from firedancer_tpu_torch.ops import msm, msm_cuda
     from firedancer_tpu_torch.ops import verify_rlc as vr
     from firedancer_tpu_torch.ops.sc25519 import L
@@ -780,31 +840,94 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
         return kernel_pass(torch, parity, record, name, runs, replaces,
                            source)
 
+    def same_points(name, got, want):
+        """The same group elements lane by lane: X1 Z2 = X2 Z1 and
+        Y1 Z2 = Y2 Z1 on every lane (on the card), and equal affine
+        encodings on the first 512."""
+        x1, y1, z1 = ge.from_limbs51(got, 3)
+        x2, y2, z2 = ge.from_limbs51(want, 3)
+        ok = (fe.fe_eq(fe.fe_mul(x1, z2), fe.fe_mul(x2, z1))
+              & fe.fe_eq(fe.fe_mul(y1, z2), fe.fe_mul(y2, z1)))
+        if not bool(ok.all()):
+            fail(f"{name}: {int((~ok).sum())} of {ok.numel()} lanes are "
+                 f"other points than the JAX order's")
+        parity(f"{name} (affine, 512 lanes)",
+               convert.point_to_affine_bytes(got[:512]),
+               convert.point_to_affine_bytes(want[:512]))
+        say(f"  {name}: {ok.numel()} lanes the same points as the JAX "
+            f"order's")
+
+    def fill_sweep(name, pts, idx):
+        """The fill at each C of FILL_SWEEP threads a lane, equal to its
+        split mirror at that C: the times behind msm_fill.cu's choice of
+        C (msm_cuda.fill_chunks)."""
+        nw, nb, rounds = idx.shape
+        idx_l = idx.reshape(nw * nb, rounds).contiguous()
+        times = []
+        for c in FILL_SWEEP:
+            def kern(c=c):
+                return msm_cuda.fill_buckets_cuda(pts, idx_l, chunks=c)
+            parity(f"msm_fill {name} at C = {c}", kern(),
+                   msm_cuda.fill_buckets_split_ref(pts, idx, chunks=c))
+            times.append(f"C = {c} {time_ms(torch, kern, REPS):.4f} ms")
+        say(f"  msm_fill {name} by threads a lane (chosen C = "
+            f"{msm_cuda.fill_chunks(rounds, nw * nb)}): {', '.join(times)}")
+
     runs = []
     for name, pts, idx, ok in grids:
         if not bool(ok):
             fail(f"msm_fill {name}: the clean batch overflowed a bucket")
         nw, nb, rounds = idx.shape
-        idx_r = idx.permute(2, 0, 1).reshape(rounds, nw * nb).contiguous()
+        idx_l = idx.reshape(nw * nb, rounds).contiguous()
+        chunks = msm_cuda.fill_chunks(rounds, nw * nb)
+        madds, adds = fill_chain(idx, chunks)
+        say(f"  msm_fill {name}: C = {chunks}, {nw * nb * chunks} threads; "
+            f"longest chain {rounds} madds (one thread a lane) -> {madds} "
+            f"madds + {adds} adds")
         runs.append((f"{name} {nw}x{nb} lanes x {rounds} rounds",
-                     lambda p=pts, i=idx_r: msm_cuda.fill_buckets_cuda(p, i),
-                     lambda p=pts, i=idx: msm_cuda.fill_buckets_ref(p, i),
+                     lambda p=pts, i=idx_l: msm_cuda.fill_buckets_cuda(p, i),
+                     lambda p=pts, i=idx: msm_cuda.fill_buckets_split_ref(
+                         p, i),
                      bound_fill(nw * nb, rounds, int((idx >= 0).sum()),
                                 pts.shape[0])))
     fills = kernel_row("msm_fill", runs,
                        "firedancer_tpu/ops/msm_pallas.py:148",
                        "firedancer_tpu_torch/ops/csrc/msm_fill.cu")
-    runs = []
+    for (name, pts, idx, _), out in zip(grids, fills.values()):
+        same_points(f"msm_fill {name}", out,
+                    msm_cuda.fill_buckets_ref(pts, idx))
+        fill_sweep(name, pts, idx)
+    runs, agg_in = [], []
     for (name, _, idx, _), out in zip(grids, fills.values()):
-        buckets = out.reshape(idx.shape[0], idx.shape[1], 4, 5)
-        runs.append((f"{name} {idx.shape[0]} columns x {idx.shape[1]}",
+        ncols, nb = idx.shape[:2]
+        seg = msm_cuda.aggregate_segment(nb)
+        adds, dbls = aggregate_chain(nb, seg)
+        say(f"  msm_aggregate {name}: s = {seg}; longest chain "
+            f"{2 * (nb - 2)} adds (one thread a column) -> {adds} adds + "
+            f"{dbls} doublings")
+        buckets = out.reshape(ncols, nb, 4, 5)
+        agg_in.append(buckets)
+        runs.append((f"{name} {ncols} columns x {nb}",
                      lambda b=buckets: msm_cuda.aggregate_buckets_cuda(b),
-                     lambda b=buckets: msm_cuda.aggregate_buckets_ref(b),
-                     bound_aggregate(idx.shape[0], idx.shape[1])))
-    aggs = list(kernel_row("msm_aggregate", runs,
-                           "firedancer_tpu/ops/msm_pallas.py:353",
-                           "firedancer_tpu_torch/ops/csrc/msm_aggregate.cu"
-                           ).values())
+                     lambda b=buckets: msm_cuda.aggregate_buckets_split_ref(
+                         b),
+                     bound_aggregate(ncols, nb)))
+    agg_out = kernel_row("msm_aggregate", runs,
+                         "firedancer_tpu/ops/msm_pallas.py:353",
+                         "firedancer_tpu_torch/ops/csrc/msm_aggregate.cu")
+    for run, buckets, got, (_, pts, idx, _) in zip(runs, agg_in,
+                                                  agg_out.values(), grids):
+        same_points(f"msm_aggregate {run[0]}", got,
+                    msm_cuda.aggregate_buckets_ref(buckets))
+        idx_l = idx.reshape(-1, idx.shape[2]).contiguous()
+        events, traced = after_other(
+            torch, lambda p=pts, i=idx_l: msm_cuda.fill_buckets_cuda(p, i),
+            run[1], "msm_aggregate_kernel")
+        say(f"  msm_aggregate {run[0]}: right after its fill (as in the "
+            f"pass), under the profiler: {events:.4f} ms by CUDA events, "
+            f"{'not measured' if traced is None else f'{traced:.4f} ms'} "
+            f"by the trace")
+    aggs = list(agg_out.values())
     runs = [(f"{name} {w.shape[0]} windows",
              lambda w=w: msm_cuda.window_horner_cuda(w, msm.W_BITS),
              lambda w=w: msm_cuda.window_horner_ref(w, msm.W_BITS),
@@ -827,8 +950,9 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     say("msm parity: the clean batch's staged MSMs verify (batch_ok True)")
 
     # The signed plans' branch of the fill (the sign folded into the
-    # gather), which EngineSpec(..., msm="s8l3") runs: its 253-bit grid
-    # against the plain version, then the whole pass's verdict.
+    # gather) and the signed height nb = 129, which EngineSpec(...,
+    # msm="s8l3") runs: its 253-bit grid against the split mirrors and
+    # the JAX order, then the whole pass's verdict.
     plan = msm_plan.parse_plan("s8l3")
     scalars, _, niels = msm_in["m"]
     nw, nb, rounds = msm._plan_dims(msm.WINDOWS_253, niels.shape[0], plan)
@@ -838,14 +962,21 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     if not bool(ok) or not bool(neg.any()):
         fail(f"msm_fill s8l3: fill verdict {bool(ok)}, "
              f"{int(neg.sum())} negated slots")
-    parity(f"msm_fill s8l3 {idx.shape[0]}x{nb} lanes x {rounds} rounds",
-           msm_cuda.fill_buckets(niels, idx, neg),
-           msm_cuda.fill_buckets_ref(niels, idx, neg))
+    label = f"msm_fill s8l3 {idx.shape[0]}x{nb} lanes x {rounds} rounds"
+    s8 = msm_cuda.fill_buckets(niels, idx, neg)
+    parity(label, s8, msm_cuda.fill_buckets_split_ref(niels, idx, neg))
+    same_points(label, s8, msm_cuda.fill_buckets_ref(niels, idx, neg))
+    s8 = s8.reshape(idx.shape[0], nb, 4, 5)
+    label = f"msm_aggregate s8l3 {idx.shape[0]} columns x {nb}"
+    s8_agg = msm_cuda.aggregate_buckets(s8)
+    parity(label, s8_agg, msm_cuda.aggregate_buckets_split_ref(s8))
+    same_points(label, s8_agg, msm_cuda.aggregate_buckets_ref(s8))
     if not bool(vr.verify_batch_rlc(*args, z, u, plan=plan)[2]):
         fail("msm parity: the clean batch's RLC verdict at s8l3 is False")
     say(f"msm parity: s8l3 fill ({int(neg.sum())} of "
-        f"{int((idx >= 0).sum())} slots negated) equals its plain version; "
-        f"the clean batch verifies at s8l3 (batch_ok True)")
+        f"{int((idx >= 0).sum())} slots negated) and aggregation equal "
+        f"their split mirrors and the JAX order's points; the clean batch "
+        f"verifies at s8l3 (batch_ok True)")
 
 
 def main() -> int:

@@ -12,6 +12,14 @@
   canonical affine bytes and in a digest of the projective coordinates.
   The CUDA kernels are held against these plain versions on the card by
   chip_smoke.py.
+* The fill and aggregation kernels add in their own order (a lane's
+  slots and a column's buckets split over a warp). Their plain mirrors
+  (``*_split_ref``) are held to the JAX-order versions and the goldens
+  as points (affine bytes): the projective limbs differ, the group
+  elements do not. A limb-exact transcription of the kernels in Python
+  integers (radix 2^51, csrc/fe25519.cuh and msm.cuh) runs the same
+  order at the inputs' largest limbs, asserts that no limb leaves the
+  range the CUDA arithmetic takes, and must equal the mirrors.
 """
 
 import re
@@ -323,13 +331,19 @@ def test_plain_versions_count_and_launch_nothing_on_the_cpu(clean_points):
     backend.reset_counts()
     idx, _ = msm._staging_from_digits(
         torch.zeros(2, 2 * B, dtype=torch.int64) + 3, 2 * B, 40, 32)
-    buckets = msm_cuda.fill_buckets(ge.niels_limbs(clean_points), idx)
+    niels = ge.niels_limbs(clean_points)
+    buckets = msm_cuda.fill_buckets(niels, idx)
     agg = msm_cuda.aggregate_buckets(buckets.reshape(2, 32, 4, 5))
     msm_cuda.window_horner(agg, 7)
     msm_cuda.mul_by_group_order(agg)
+    split = msm_cuda.fill_buckets_split_ref(niels, idx)
+    split_agg = msm_cuda.aggregate_buckets_split_ref(split.reshape(2, 32, 4,
+                                                                   5))
     assert backend.launches == {}
-    assert backend.plain_calls == {"msm_fill": 1, "msm_aggregate": 1,
+    assert backend.plain_calls == {"msm_fill": 2, "msm_aggregate": 2,
                                    "msm_horner": 1, "msm_order": 1}
+    np.testing.assert_array_equal(convert.point_to_affine_bytes(split_agg),
+                                  convert.point_to_affine_bytes(agg))
 
 
 def test_empty_fill_lanes_match_the_rounds_of_identity_adds():
@@ -355,3 +369,369 @@ def test_kernel_group_order_words_match_l():
     vals = [int(w.strip().rstrip("ULL"), 16) for w in words.split(",")]
     assert sum(v << (64 * i) for i, v in enumerate(vals)) == sc.L
     assert f"#define L_TOP_BIT {sc.L.bit_length() - 1}" in src
+
+
+# -- the fill and aggregation kernels' order: the split mirrors -------------
+
+
+def test_fill_chunks_and_aggregate_segments():
+    """The kernels' thread mappings at the main path's shapes (B = 8192)
+    and the rules behind them."""
+    assert msm_cuda.fill_chunks(698, 64 * 32) == 16        # torsion grid
+    assert msm_cuda.fill_chunks(129, 18 * 128) == 8        # z grid
+    assert msm_cuda.fill_chunks(129, 37 * 128) == 4        # 253-bit grid
+    assert msm_cuda.fill_chunks(129, 31 * 129) == 8        # s8l3
+    assert msm_cuda.fill_chunks(15, 10 ** 6) == 1
+    assert msm_cuda.fill_chunks(3, 64) == 2
+    wave = msm_cuda.FILL_WAVE_THREADS
+    for rounds in (1, 7, 16, 40, 129, 698, 5000):
+        for lanes in (1, 2048, 4736, 10 ** 5):
+            c = msm_cuda.fill_chunks(rounds, lanes)
+            assert c & (c - 1) == 0 and 1 <= c <= msm_cuda.WARP
+            assert c == 1 or (c <= rounds and lanes * c <= wave)
+            assert (c == msm_cuda.WARP or 2 * c > rounds
+                    or lanes * 2 * c > wave)
+    for nb in (2, 32, 33, 64, 65, 128, 129, 256):
+        s = msm_cuda.aggregate_segment(nb)
+        assert s & (s - 1) == 0
+        assert msm_cuda.WARP * s >= nb - 1 > msm_cuda.WARP * s // 2 or s == 1
+    assert [msm_cuda.aggregate_segment(nb) for nb in (32, 128, 129, 256)] == [
+        1, 4, 4, 8]
+
+
+@pytest.fixture(scope="module")
+def point_pool(clean_points):
+    """Z = 1 points: the clean case's A || R, the decodable torsion
+    encodings (small order) and the points with y within 19 of p."""
+    from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
+
+    enc = np.frombuffer(b"".join(corpus.torsion_encodings()),
+                        np.uint8).reshape(-1, 32)
+    tors, ok, small = curve_cuda.decompress_so(torch.from_numpy(enc.copy()))
+    assert bool(small[ok].all())
+    edge = []
+    for k in range(1, 20):
+        x = oracle._recover_x(fe.P - k, 0)
+        if x:
+            edge += [(x, fe.P - k), (fe.P - x, fe.P - k)]
+    edge_pts = ge.to_limbs51(tuple(
+        fe.fe_from_int([q[0] for q in edge]) if c == 0 else
+        fe.fe_from_int([q[1] for q in edge]) if c == 1 else
+        fe.fe_from_int([1] * len(edge)) if c == 2 else
+        fe.fe_from_int([q[0] * q[1] for q in edge]) for c in range(4)))
+    return torch.cat([clean_points, tors[ok], edge_pts])
+
+
+def _slot_table(nw, nb, rounds, chunks, n_points, seed):
+    """(nw, nb, R) int32 table of prefixes: lanes of 0, 1, C - 1, C,
+    C + 1, 2C + 1 and R points, the rest random in [0, R]."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, rounds + 1, nw * nb)
+    special = [0, 1, chunks - 1, chunks, chunks + 1, 2 * chunks + 1, rounds]
+    special = np.clip(special, 0, rounds)[:nw * nb]
+    counts[:len(special)] = special
+    idx = np.full((nw * nb, rounds), -1, np.int32)
+    for lane, n in enumerate(counts):
+        idx[lane, :n] = rng.integers(0, n_points, n)
+    return torch.from_numpy(idx.reshape(nw, nb, rounds))
+
+
+def _neg_table(idx, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 2, idx.shape).astype(bool)) & (
+        idx >= 0)
+
+
+def _same_points(a, b):
+    np.testing.assert_array_equal(convert.point_to_affine_bytes(a),
+                                  convert.point_to_affine_bytes(b))
+
+
+@pytest.mark.parametrize("nb,chunks,rounds", [
+    (2, 1, 3), (32, 4, 11), (33, 2, 9), (128, 8, 19), (129, 32, 70),
+    (129, 16, 33)])
+def test_fill_split_gives_the_jax_order_points(point_pool, nb, chunks,
+                                               rounds):
+    """Every lane of the split mirror is the JAX-order lane's point, on
+    prefix tables whose lanes hold 0, 1, C - 1, C, C + 1, 2C + 1 and R
+    points, torsion and y ~ p points among them, signed heights with
+    negated slots; empty lanes are the identity."""
+    niels = ge.niels_limbs(point_pool)
+    idx = _slot_table(2, nb, rounds, chunks, point_pool.shape[0], nb)
+    neg = _neg_table(idx, nb) if nb % 2 else None
+    got = msm_cuda.fill_buckets_split_ref(niels, idx, neg, chunks=chunks)
+    _same_points(got, msm_cuda.fill_buckets_ref(niels, idx, neg))
+    empty = (idx < 0).all(dim=-1).reshape(-1)
+    assert bool(ge.is_identity_limbs(got)[empty].all())
+
+
+@pytest.mark.parametrize("nb", [2, 32, 33, 64, 128, 129, 256])
+def test_aggregate_split_gives_the_jax_order_points(point_pool, nb):
+    """Three columns: random pool points (torsion and y ~ p points among
+    them), negated points (limbs up to 2^52, point_neg_limbs), identity
+    buckets, and a column that is the identity but for its top bucket;
+    segments run short or empty where 32 s > nb - 1."""
+    rng = np.random.default_rng(100 + nb)
+    pick = torch.from_numpy(rng.integers(0, point_pool.shape[0], 3 * nb))
+    buckets = point_pool[pick].clone()
+    flip = torch.from_numpy(rng.integers(0, 2, 3 * nb).astype(bool))
+    buckets[flip] = ge.point_neg_limbs(buckets[flip])
+    ident = ge.to_limbs51(ge.identity((1,)))
+    buckets[torch.from_numpy(rng.integers(0, 2, 3 * nb).astype(bool))] = ident
+    buckets = buckets.reshape(3, nb, 4, 5)
+    buckets[2, :nb - 1] = ident
+    buckets[0, nb - 1] = ge.point_neg_limbs(point_pool[:1])[0]
+    assert int(buckets.max()) >= 1 << 51
+    got = msm_cuda.aggregate_buckets_split_ref(buckets)
+    _same_points(got, msm_cuda.aggregate_buckets_ref(buckets))
+
+
+def test_split_order_changes_the_limbs_not_the_points(golden, clean_points,
+                                                      torsion_buckets):
+    """The JAX kernels' torsion fill and its trials' aggregation: the
+    split mirrors give the goldens' points in other projective
+    coordinates on every lane with more than one point, which is why the
+    kernels are held to the JAX order affinely and to their mirrors
+    exactly."""
+    idx, _, jax_order = torsion_buckets
+    np.testing.assert_array_equal(convert.point_digest(jax_order),
+                                  golden["kernel/fill_dig"])
+    nb = 1 << msm_plan.TORSION_BUCKET_BITS
+    k = golden["clean/u"].shape[0]
+    multi = ((idx >= 0).sum(dim=-1) > 1).reshape(-1).numpy()
+    assert multi.any()
+    for chunks in (None, 4):
+        split = msm_cuda.fill_buckets_split_ref(ge.niels_limbs(clean_points),
+                                                idx, chunks=chunks)
+        np.testing.assert_array_equal(convert.point_to_affine_bytes(split),
+                                      golden["kernel/fill_aff"])
+        differ = (convert.point_digest(split)
+                  != golden["kernel/fill_dig"]).any(axis=1)
+        assert differ[multi].all()
+        agg = msm_cuda.aggregate_buckets_split_ref(split.reshape(k, nb, 4, 5))
+        np.testing.assert_array_equal(convert.point_to_affine_bytes(agg),
+                                      golden["u7/clean/sub_aff"])
+        assert (convert.point_digest(agg)
+                != golden["u7/clean/sub_dig"]).any(axis=1).all()
+
+
+# A limb-exact transcription of csrc/fe25519.cuh and msm.cuh in Python
+# integers: five radix-2^51 limbs, with the ranges the CUDA code relies
+# on asserted at every step (u64 limbs, u128 column sums, fe_sub's 4p
+# offset larger than the subtrahend's limbs).
+_M51 = (1 << 51) - 1
+_FOUR_P = [(1 << 53) - 76] + [(1 << 53) - 4] * 4
+_K_D2 = [(fe.D2_INT >> (51 * i)) & _M51 for i in range(5)]
+_K_ZERO, _K_ONE = [0] * 5, [1, 0, 0, 0, 0]
+
+
+def _k_carry(a):
+    assert all(0 <= v < 1 << 63 for v in a)
+    a = list(a)
+    for i in range(4):
+        a[i + 1] += a[i] >> 51
+        a[i] &= _M51
+    a[0] += 19 * (a[4] >> 51)
+    a[4] &= _M51
+    a[1] += a[0] >> 51
+    a[0] &= _M51
+    return a
+
+
+def _k_add(a, b):
+    return _k_carry([x + y for x, y in zip(a, b)])
+
+
+def _k_sub(a, b):
+    assert all(y < f for y, f in zip(b, _FOUR_P))
+    return _k_carry([x + f - y for x, y, f in zip(a, b, _FOUR_P)])
+
+
+def _k_wide(t):
+    assert all(v < 1 << 128 for v in t)
+    r = [0] * 5
+    for i in range(4):
+        assert t[i] >> 51 < 1 << 64
+        t[i + 1] += t[i] >> 51
+        assert t[i + 1] < 1 << 128
+        r[i] = t[i] & _M51
+    c = t[4] >> 51
+    assert c < 1 << 64
+    r[4] = t[4] & _M51
+    w = r[0] + 19 * c
+    r[0] = w & _M51
+    r[1] += w >> 51
+    assert all(v < 1 << 52 for v in r)
+    return r
+
+
+def _k_mul(a, b):
+    b19 = [19 * v for v in b]
+    assert all(v < 1 << 64 for v in a + b19)
+    return _k_wide([sum(a[i] * (b[k - i] if i <= k else b19[k - i + 5])
+                        for i in range(5)) for k in range(5)])
+
+
+def _k_sq(a):
+    a0, a1, a2, a3, a4 = a
+    d0, d1, d2, a3_19, a4_19 = 2 * a0, 2 * a1, 2 * a2, 19 * a3, 19 * a4
+    assert all(v < 1 << 64 for v in (d0, d1, d2, a3_19, a4_19, 2 * a3))
+    return _k_wide([a0 * a0 + d1 * a4_19 + d2 * a3_19,
+                    d0 * a1 + d2 * a4_19 + a3 * a3_19,
+                    d0 * a2 + a1 * a1 + 2 * a3 * a4_19,
+                    d0 * a3 + d1 * a2 + a4 * a4_19,
+                    d0 * a4 + d1 * a3 + a2 * a2])
+
+
+def _k_out(e, f, g, h):
+    return (_k_mul(e, f), _k_mul(g, h), _k_mul(f, g), _k_mul(e, h))
+
+
+def _k_madd(p, q):
+    x, y, z, t = p
+    yp, ym, t2d = q
+    a, b = _k_mul(_k_sub(y, x), ym), _k_mul(_k_add(y, x), yp)
+    c, d = _k_mul(t, t2d), _k_add(z, z)
+    return _k_out(_k_sub(b, a), _k_sub(d, c), _k_add(d, c), _k_add(b, a))
+
+
+def _k_add_ext(p, q):
+    a = _k_mul(_k_sub(p[1], p[0]), _k_sub(q[1], q[0]))
+    b = _k_mul(_k_add(p[1], p[0]), _k_add(q[1], q[0]))
+    c = _k_mul(_k_mul(p[3], q[3]), _K_D2)
+    zz = _k_mul(p[2], q[2])
+    d = _k_add(zz, zz)
+    return _k_out(_k_sub(b, a), _k_sub(d, c), _k_add(d, c), _k_add(b, a))
+
+
+def _k_double(p):
+    x, y, z, _ = p
+    a, b, zz = _k_sq(x), _k_sq(y), _k_sq(z)
+    c, d = _k_add(zz, zz), _k_sub(_K_ZERO, a)
+    e = _k_sub(_k_sub(_k_sq(_k_add(x, y)), a), b)
+    g = _k_add(d, b)
+    return _k_out(e, _k_sub(g, c), g, _k_sub(d, b))
+
+
+def _k_identity():
+    return (_K_ZERO, _K_ONE, _K_ONE, _K_ZERO)
+
+
+def _k_butterfly(vals):
+    """ge_warp_tree: every thread adds its xor partner's point."""
+    o = len(vals) // 2
+    while o:
+        vals = [_k_add_ext(vals[j], vals[j ^ o]) for j in range(len(vals))]
+        o //= 2
+    return vals[0]
+
+
+def _k_fill_lane(niels, row, negs, chunks):
+    """msm_fill_kernel for one lane: its C threads, then the butterfly."""
+    parts = []
+    for c in range(chunks):
+        acc = _k_identity()
+        for r in range(c, len(row), chunks):
+            if row[r] < 0:
+                break
+            yp, ym, t2d = (list(v) for v in niels[row[r]])
+            if negs is not None and negs[r]:
+                yp, ym, t2d = ym, yp, _k_sub(_K_ZERO, t2d)
+            acc = _k_madd(acc, (yp, ym, t2d))
+        parts.append(acc)
+    return _k_butterfly(parts)
+
+
+def _k_aggregate_column(col, seg):
+    """msm_aggregate_kernel for one column: 32 threads' segments, the
+    suffix scan, U_0 := identity, log2 s doublings, T_j + s U_j, the
+    butterfly."""
+    nb = len(col)
+    s_j, t_j = [], []
+    for j in range(32):
+        lo, s, t = 1 + j * seg, _k_identity(), _k_identity()
+        hi = min(lo + seg - 1, nb - 1)
+        if lo <= hi:
+            s = t = col[hi]
+            for b in range(hi - 1, lo - 1, -1):
+                s = _k_add_ext(s, col[b])
+                t = _k_add_ext(t, s)
+        s_j.append(s)
+        t_j.append(t)
+    u, o = s_j, 1
+    while o < 32:
+        u = [_k_add_ext(u[j], u[j + o]) if j + o < 32 else u[j]
+             for j in range(32)]
+        o *= 2
+    u[0] = _k_identity()
+    for _ in range(seg.bit_length() - 1):
+        u = [_k_double(p) for p in u]
+    return _k_butterfly([_k_add_ext(t, v) for t, v in zip(t_j, u)])
+
+
+def _k_ints(pt):
+    return [sum(v << (51 * i) for i, v in enumerate(c)) % fe.P for c in pt]
+
+
+def _limb_ints(t: torch.Tensor):
+    return [[sum(int(v) << (51 * i) for i, v in enumerate(c)) % fe.P
+             for c in lane] for lane in t.tolist()]
+
+
+def test_fill_transcription_matches_the_mirror_at_the_largest_limbs():
+    """Niels forms whose every limb is 2^51 - 1 (and random ones), on the
+    signed height 33 with negated slots and C = 8: the CUDA arithmetic
+    stays in its ranges through the adds and the butterfly, and the
+    transcription equals fill_buckets_split_ref coordinate for
+    coordinate."""
+    rng = np.random.default_rng(8)
+    niels = torch.from_numpy(rng.integers(0, 1 << 51, (6, 3, 5)))
+    niels[0] = _M51
+    idx = _slot_table(1, 33, 20, 8, 6, 8)
+    idx[0, :, 0] = torch.where(idx[0, :, 0] >= 0, 0, idx[0, :, 0])
+    neg = _neg_table(idx, 8)
+    want = _limb_ints(msm_cuda.fill_buckets_split_ref(niels, idx, neg,
+                                                      chunks=8))
+    rows, negs = idx[0].tolist(), neg[0].tolist()
+    for lane in range(33):
+        got = _k_fill_lane(niels.tolist(), rows[lane], negs[lane], 8)
+        assert _k_ints(got) == want[lane], lane
+
+
+@pytest.mark.parametrize("nb", [32, 129, 256])
+def test_aggregate_transcription_matches_the_mirror_at_the_largest_limbs(nb):
+    """Bucket limbs of 2^52 - 1, the most the kernels take (and random
+    ones below 2^52), at s = 1, 4 and 8: the CUDA arithmetic stays in its
+    ranges through the segments, scan, doublings and butterfly, and the
+    transcription equals aggregate_buckets_split_ref."""
+    rng = np.random.default_rng(nb)
+    buckets = torch.from_numpy(rng.integers(0, 1 << 52, (1, nb, 4, 5)))
+    buckets[0, nb - 1] = (1 << 52) - 1
+    buckets[0, ::3] = (1 << 52) - 1
+    want = _limb_ints(msm_cuda.aggregate_buckets_split_ref(buckets))
+    col = [tuple(list(c) for c in b) for b in buckets[0].tolist()]
+    got = _k_aggregate_column(col, msm_cuda.aggregate_segment(nb))
+    assert _k_ints(got) == want[0]
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    ("fill_buckets_cuda", lambda n: (n, torch.zeros(4, 3,
+                                                    dtype=torch.int32))),
+    ("aggregate_buckets_cuda", lambda n: (torch.zeros(2, 8, 4, 5,
+                                                      dtype=torch.int64),))])
+def test_fill_and_aggregate_kernels_refuse_cpu_tensors(wrapper, args):
+    niels = torch.zeros(3, 3, 5, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(msm_cuda, wrapper)(*args(niels))
+
+
+@pytest.mark.parametrize("source,line", [
+    ("msm_fill.cu", "if (chunks < 1 || chunks > 32 ||"),
+    ("msm_aggregate.cu", "#define AGG_WARP 32")])
+def test_kernel_warp_width_matches_the_wrappers(source, line):
+    """The fill's most threads a lane and the aggregation's threads a
+    column are the warp the mirrors (msm_cuda.WARP) split over."""
+    assert msm_cuda.WARP == 32
+    src = (ROOT / "firedancer_tpu_torch" / "ops" / "csrc" /
+           source).read_text()
+    assert line in src
