@@ -11,7 +11,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    compute capability; require CUDA with capability 9.x.
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
-   registers and spills.
+   registers and spills, and K3's window loop in SASS (instructions a
+   thread a window and their opcode mix, from cuobjdump).
 3. Kernel parity: each of the fifteen kernels against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
    agree exactly (canonical bytes, limbs and masks). The bucket fill and
@@ -39,7 +40,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    z || z times h || s); fe_pow, both chains, on 8192 lanes; compress on
    K3's outputs with the edge points planted (the identity, the torsion
    points and y within 19 of p, at Z = 1 and Z != 1); and K3 itself with
-   h = 0 and clamped scalars, as signing calls it. Times with CUDA
+   h = 0 and clamped scalars, as signing calls it. K3 (a quad of threads
+   a lane) must equal double_scalarmult_ref limb for limb on every
+   launch: the general one, the two h = 0 ones and an edge launch (h, s
+   of 0, 1, 15, 2^256 - 1 and alternating 0/15 nibbles on the torsion
+   points and the base point, at Z = 1 and Z != 1) at n = 1, 31, 33 and
+   8191 lanes, the ragged tails of its 32-lane block; 16 edge lanes also
+   against the oracle. K3's registers, stack, shared memory a block and
+   blocks an SM are printed from the CUDA runtime. Times with CUDA
    events, warm, the kernel's mean over 20 launches beside the plain
    version's, summed over the launches of one pass (one signing call for
    the signing kernels).
@@ -78,8 +86,11 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -291,6 +302,36 @@ def bound_order(k: int, order: int):
                   2 * k * PT_BYTES)
 
 
+def k3_loop_mix(lib) -> None:
+    """Phase 2: K3's window loop in SASS (cuobjdump -sass on its library):
+    the largest innermost backward branch of dsm_kernel, its instruction
+    count (a thread's instructions a window) and opcode mix."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        say("K3 SASS: cuobjdump not found (not measured)")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    body = sass[sass.index("Function : _Z10dsm_kernel"):]
+    end = body.find("Function :", 10)
+    ins = [(int(a, 16), t.split()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[:end] if end > 0 else body)]
+    loops = []
+    for a, toks in ins:
+        if "BRA" in toks and int(toks[-1], 16) < a:
+            loops.append((int(toks[-1], 16), a))
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
+    ops = collections.Counter(
+        (t[1] if t[0].startswith("@") else t[0]).split(".")[0]
+        for a, t in ins if lo <= a <= hi)
+    n = sum(ops.values())
+    say(f"K3 SASS window loop: {n} instructions a thread a window: " +
+        ", ".join(f"{k} {v} ({100 * v / n:.1f}%)"
+                  for k, v in ops.most_common(8)))
+
+
 # ------------------------------------------------------------- timing
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -436,6 +477,61 @@ def _edge_points(torch, rng, dev):
         pts += [(x, y, 1), (x * lam % p, y * lam % p, lam)]
     return torch.stack([_limbs51(torch, [q[c] for q in pts], dev)
                         for c in range(3)], dim=1)
+
+
+def k3_edges(torch, gpu, parity, a_pt, h, s) -> None:
+    """Phase 3, K3 on its edges, limb for limb against its plain version:
+    h and s of 0, 1, 15, 2^256 - 1 and nibbles alternating 0 and 15, on
+    A = each torsion point (the identity, order 2, 4 and 8) and the base
+    point, at Z = 1 and at a random Z; the general batch fills the rest.
+    Launched at n = 1, 31, 33 and B - 1 lanes: the ragged tails of the
+    32-lane block, whose dead quads rerun lane n - 1 and store nothing.
+    16 edge lanes are also held as affine bytes against the oracle."""
+    from firedancer_tpu_torch import convert
+    from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
+    from firedancer_tpu_torch.ops import dsm_cuda
+
+    p = oracle.P
+    rng = np.random.RandomState(11)
+    aff = list(dict.fromkeys(oracle.point_decompress(e)
+                             for e in corpus.torsion_encodings()))
+    aff.append(oracle.B)
+    pts = []
+    for x, y in aff:
+        lam = int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
+        for z in (1, lam):
+            pts.append((x * z % p, y * z % p, z, x * y * z % p))
+    scalars = [0, 1, 15, 2**256 - 1, int.from_bytes(b"\x0f" * 32, "little"),
+               int.from_bytes(b"\xf0" * 32, "little")]
+    cases = [(hv, pt, sv) for pt in pts for hv in scalars for sv in scalars]
+    dev = a_pt.device
+    n_all = B - 1
+    ea = a_pt[:n_all].clone()
+    eh, es = h[:n_all].clone(), s[:n_all].clone()
+    ea[:len(cases)] = torch.stack([_limbs51(torch, [c[1][k] for c in cases],
+                                            dev) for k in range(4)], dim=1)
+    eh[:len(cases)] = gpu(_le([c[0] for c in cases], 32))
+    es[:len(cases)] = gpu(_le([c[2] for c in cases], 32))
+    for n in (1, 31, 33, n_all):
+        parity(f"double_scalarmult edges, {n} lanes",
+               dsm_cuda.double_scalarmult_cuda(eh[:n], ea[:n], es[:n]),
+               dsm_cuda.double_scalarmult_ref(eh[:n], ea[:n], es[:n]))
+    got = dsm_cuda.double_scalarmult_cuda(eh[:n_all], ea[:n_all], es[:n_all])
+    picks = np.linspace(0, len(cases) - 1, 16).astype(int)
+    enc = convert.point_to_affine_bytes(got[torch.as_tensor(picks,
+                                                            device=dev)])
+    for row, k in zip(enc, picks):
+        hv, (x, y, z, _), sv = cases[k]
+        zi = pow(z, p - 2, p)
+        neg_a = ((p - x * zi % p) % p, y * zi % p)
+        want = oracle.point_add(oracle.scalarmult(hv, neg_a),
+                                oracle.scalarmult(sv, oracle.B))
+        if row.tobytes() != oracle.point_compress(want):
+            fail(f"double_scalarmult: edge lane {k} differs from the oracle")
+    say(f"double_scalarmult edges: {len(cases)} edge lanes (h, s in "
+        f"{{0, 1, 15, 2^256 - 1, 0x0f.., 0xf0..}}, {len(aff)} points at "
+        f"Z = 1 and Z != 1) at n = 1, 31, 33 and {n_all} equal the plain "
+        "version limb for limb; 16 equal the oracle")
 
 
 def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
@@ -1014,6 +1110,7 @@ def main() -> int:
         lines = [ln.strip() for ln in text.splitlines()
                  if "registers" in ln or "spill" in ln]
         say(f"ptxas {name}: " + " | ".join(lines))
+    k3_loop_mix(build.lib_path("double_scalarmult"))
 
     rng = np.random.RandomState(7)
 
@@ -1103,6 +1200,15 @@ def main() -> int:
            bound_double_scalarmult(B),
            "firedancer_tpu/ops/dsm_pallas.py:252",
            "firedancer_tpu_torch/ops/csrc/double_scalarmult.cu")
+    k3_edges(torch, gpu, parity, a_pt, h, s)
+    info = dsm_cuda.kernel_info()
+    say(f"double_scalarmult resources: {info['threads']} threads (32 "
+        f"lanes) a block, {info['registers']} registers and "
+        f"{info['stack_bytes']} B of stack a thread, "
+        f"{info['static_shared_bytes'] + info['dynamic_shared_bytes']} B of "
+        f"shared memory a block ({info['dynamic_shared_bytes']} B A "
+        f"columns + {info['static_shared_bytes']} B B table), "
+        f"{info['blocks_per_sm']} blocks an SM; ptxas above gives spills")
 
     # K4: affine points against projective (lam X : lam Y : lam), half of
     # the lanes holding the next lane's point instead.

@@ -36,29 +36,6 @@
 #include "fe25519.cuh"
 
 #define DN_THREADS 128
-#define FULL_MASK 0xffffffffu
-
-__device__ __forceinline__ fe fe_shfl_up(const fe &a, int d) {
-  fe r;
-#pragma unroll
-  for (int k = 0; k < 5; k++) r.v[k] = __shfl_up_sync(FULL_MASK, a.v[k], d);
-  return r;
-}
-
-__device__ __forceinline__ fe fe_shfl_down(const fe &a, int d) {
-  fe r;
-#pragma unroll
-  for (int k = 0; k < 5; k++)
-    r.v[k] = __shfl_down_sync(FULL_MASK, a.v[k], d);
-  return r;
-}
-
-__device__ __forceinline__ fe fe_shfl(const fe &a, int src) {
-  fe r;
-#pragma unroll
-  for (int k = 0; k < 5; k++) r.v[k] = __shfl_sync(FULL_MASK, a.v[k], src);
-  return r;
-}
 
 __global__ void __launch_bounds__(DN_THREADS)
     decompress_niels_kernel(const uint8_t *__restrict__ enc,
@@ -93,7 +70,7 @@ __global__ void __launch_bounds__(DN_THREADS)
     o = fe_shfl_down(suf, d);
     if (lane + d < 32) suf = fe_mul(suf, o);
   }
-  const fe prod = fe_shfl(pre, 31);
+  const fe prod = fe_shfl_idx(pre, 31);
   fe pre_ex = fe_shfl_up(pre, 1);
   fe suf_ex = fe_shfl_down(suf, 1);
   if (lane == 0) pre_ex = one;

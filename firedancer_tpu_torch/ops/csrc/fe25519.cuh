@@ -194,6 +194,43 @@ __device__ __forceinline__ void fe_store_canonical(int64_t *p, const fe &a) {
   for (int i = 0; i < 5; i++) p[i] = (int64_t)c.v[i];
 }
 
+// A warp's field elements, moved by shuffles (every thread of the warp
+// must take part: full mask). The MSM kernels, decompress_niels and K3
+// share this one set.
+#define FD_FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ fe fe_shfl_xor(const fe &a, int o) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; i++) r.v[i] = __shfl_xor_sync(FD_FULL_MASK, a.v[i], o);
+  return r;
+}
+
+__device__ __forceinline__ fe fe_shfl_down(const fe &a, int o) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; i++) r.v[i] = __shfl_down_sync(FD_FULL_MASK, a.v[i], o);
+  return r;
+}
+
+__device__ __forceinline__ fe fe_shfl_up(const fe &a, int o) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; i++) r.v[i] = __shfl_up_sync(FD_FULL_MASK, a.v[i], o);
+  return r;
+}
+
+// The element of lane src of this thread's group of `width` lanes (a
+// power of two <= 32; K3's quads use width 4).
+__device__ __forceinline__ fe fe_shfl_idx(const fe &a, int src,
+                                          int width = 32) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 5; i++)
+    r.v[i] = __shfl_sync(FD_FULL_MASK, a.v[i], src, width);
+  return r;
+}
+
 // The curve25519 addition-chain prefix: z^(2^250 - 1) and z^11.
 __device__ __forceinline__ void fe_pow_ladder(const fe &z, fe *z250, fe *z11) {
   fe z2 = fe_sq(z);

@@ -87,22 +87,6 @@ __device__ __forceinline__ ge ge_add_ext(const ge &p, const ge &q) {
   return ge_add_ext_with(p, [&q](int k) { return ge_coord(q, k); });
 }
 
-// A warp's field elements, moved by shuffles (every thread of the warp
-// must take part: full mask).
-__device__ __forceinline__ fe fe_shfl_xor(const fe &a, int o) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 5; i++) r.v[i] = __shfl_xor_sync(0xffffffffu, a.v[i], o);
-  return r;
-}
-
-__device__ __forceinline__ fe fe_shfl_down(const fe &a, int o) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 5; i++) r.v[i] = __shfl_down_sync(0xffffffffu, a.v[i], o);
-  return r;
-}
-
 // p plus the point of the thread o lanes away (xor) or o lanes up
 // (down; past the warp's end a thread gets its own point). Every thread
 // of the warp must call it.

@@ -5,8 +5,19 @@ which verify calls on the negated point).
 ``double_scalarmult`` launches ``csrc/double_scalarmult.cu`` for CUDA
 tensors and runs ``double_scalarmult_ref`` (the plain
 ``curve25519.double_scalarmult`` on -A) for CPU tensors. Both build the
-A table and walk the windows the same way, so they return the same
-canonical projective X, Y, Z.
+A table by the same 14 adds and walk the same unsigned 4-bit windows in
+the same add order, so they return the same canonical projective X, Y, Z.
+
+The kernel runs a quad of four threads a lane, thread q holding
+coordinate q of the accumulator (X, Y, Z, T): every formula's four
+independent products run side by side and meet through width-4
+shuffles, so a window's dependent chain is ~12 field operations, not
+~43. Each thread keeps its coordinate of the lane's A table in shared
+memory (80 KB a block of 32 lanes, two blocks an SM); the B table is a
+device tensor (``base_table``, made once per device from
+``base_table_niels``) that each block copies into shared memory. The
+source's header gives the bound and the mapping; ``kernel_info`` reports
+registers, stack, shared memory and the blocks an SM holds.
 """
 
 from __future__ import annotations
@@ -21,7 +32,7 @@ from . import curve25519 as ge
 from . import fe25519 as fe
 
 _V = ctypes.c_void_p
-_tables_set: set[int] = set()
+_btabs: dict[torch.device, torch.Tensor] = {}
 
 
 def double_scalarmult_ref(h_bytes: torch.Tensor, a_pt: torch.Tensor,
@@ -37,7 +48,7 @@ def double_scalarmult_ref(h_bytes: torch.Tensor, a_pt: torch.Tensor,
 
 def base_table_niels() -> np.ndarray:
     """(16, 3, 5) uint64: [0..15]*B as (y+x, y-x, 2d*x*y) radix-2^51
-    limbs, the kernel's __constant__ table."""
+    limbs, the kernel's B table."""
     out = np.zeros((16, 3, 5), np.uint64)
     for t, (x, y) in enumerate(ge.base_multiples()):
         for c, v in enumerate(((y + x) % fe.P, (y - x) % fe.P,
@@ -46,16 +57,31 @@ def base_table_niels() -> np.ndarray:
     return out
 
 
-def _set_base_table(device: torch.device) -> None:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx in _tables_set:
-        return
-    fn = build.bind("double_scalarmult", "fd_dsm_set_base_table", [_V])
-    tab = np.ascontiguousarray(base_table_niels())
-    with torch.cuda.device(idx):
-        build.check_rc("fd_dsm_set_base_table", fn(tab.ctypes.data))
-    _tables_set.add(idx)
+def base_table(device) -> torch.Tensor:
+    """base_table_niels() as a (16, 3, 5) int64 tensor on device, made
+    once per device; the kernel reads it by pointer. Callers must not
+    write to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    tab = _btabs.get(dev)
+    if tab is None:
+        tab = torch.from_numpy(base_table_niels().astype(np.int64)).to(dev)
+        _btabs[dev] = tab
+    return tab
+
+
+def kernel_info() -> dict[str, int]:
+    """The kernel's resources on the current device (the CUDA runtime's
+    function attributes and occupancy API): registers and stack bytes a
+    thread, static and dynamic shared bytes a block, threads a block and
+    resident blocks an SM."""
+    fn = build.bind("double_scalarmult", "fd_dsm_kernel_info", [_V])
+    info = (ctypes.c_int * 6)()
+    build.check_rc("fd_dsm_kernel_info", fn(ctypes.addressof(info)))
+    return dict(zip(("registers", "stack_bytes", "static_shared_bytes",
+                     "dynamic_shared_bytes", "threads", "blocks_per_sm"),
+                    info))
 
 
 def double_scalarmult_cuda(h_bytes: torch.Tensor, a_pt: torch.Tensor,
@@ -71,13 +97,14 @@ def double_scalarmult_cuda(h_bytes: torch.Tensor, a_pt: torch.Tensor,
     out = torch.empty(n, 3, 5, dtype=torch.int64, device=dev)
     if n == 0:
         return out
-    _set_base_table(dev)
+    btab = base_table(dev)
     fn = build.bind("double_scalarmult", "fd_double_scalarmult",
-                    [_V, _V, ctypes.c_int, _V, _V, ctypes.c_longlong, _V])
+                    [_V, _V, ctypes.c_int, _V, _V, _V, ctypes.c_longlong, _V])
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check_rc("fd_double_scalarmult",
                    fn(h_bytes.data_ptr(), a_pt.data_ptr(), a_pt.shape[1],
-                      s_bytes.data_ptr(), out.data_ptr(), n, stream))
+                      s_bytes.data_ptr(), btab.data_ptr(), out.data_ptr(), n,
+                      stream))
     backend.count_launch("double_scalarmult")
     return out
 

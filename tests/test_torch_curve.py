@@ -217,3 +217,12 @@ def test_base_table_matches_oracle():
         assert (ypx, ymx) == ((y + x) % fe.P, (y - x) % fe.P)
         assert t2d == 2 * fe.D_INT * x * y % fe.P
     assert ge.base_multiples()[1] == oracle.B
+
+
+def test_base_table_tensor_is_made_once_per_device():
+    tab = dsm_cuda.base_table("cpu")
+    assert tab.dtype == torch.int64 and tab.shape == (16, 3, 5)
+    assert tab.is_contiguous()
+    assert np.array_equal(tab.numpy(),
+                          dsm_cuda.base_table_niels().astype(np.int64))
+    assert dsm_cuda.base_table(torch.device("cpu")) is tab
