@@ -28,12 +28,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    kernels take their inputs staged from a clean 8192-lane batch through
    the RLC front half: the three bucket fills (z, 253-bit, torsion) on
    the decompress kernel's niels forms, the three aggregations, both
-   Horners and the K = 64 [L] ladder; then the signed plan s8l3's 253-bit
-   fill (the sign folded into the gather) and aggregation (nb = 129) and
-   its pass's verdict. Each fill and aggregation launch prints its
-   thread mapping and its longest dependent chain before and after, and
-   each fill is also timed at C = 4, 8, 16 and 32 threads a lane, and
-   each aggregation right after its fill, as the pass runs it. The
+   Horners (also at nw = 1, 2 and 130) and the K = 64 [L] ladder (also on
+   planted edges at K = 1, 7, 9 and 64 and on the torsion batch (t)'s
+   trial aggregates), each alone, then the three chains in the one
+   msm_tails launch the pass makes, all limb for limb; then, at every
+   plan of msm_plan.all_plans(), both MSMs' fills (signed plans with the
+   sign folded into the gather), aggregations, Horners and the tails
+   launch, and the pass's verdict. Each fill, aggregation, Horner and
+   ladder prints its thread mapping or its longest dependent chain
+   before and after, and each fill is also timed at C = 4, 8, 16 and 32
+   threads a lane, and each aggregation right after its fill, as the
+   pass runs it; the tails kernel prints its resources. The
    signing path's four: sc_reduce64 on 8192 64-byte values with the edges
    0, L - 1, L, 2^255 - 1 and 2^512 - 1 planted; sc_muladd with c != 0
    (signing's h a + r, a clamped) and c = 0 (the staged pass's stacked
@@ -62,7 +67,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    8192, frontend=f)) for f = "fused" and "staged" answers (a) the bench
    batch (batch_ok True, no fallback, every status 0; decompress_niels
    launches once, frontend_rlc (fused) or sha512_batch (staged) once,
-   the MSM kernels 3, 3, 2, 1 times, and no direct-path kernel), (b) the
+   the fill and aggregation kernels 3 times each, the tails kernel
+   (both Horners and the ladders) once, and no direct-path kernel), (b) the
    mixed batch and (t) a torsion batch (an order-2 pair and four
    order-8-offset lanes): both fall back, with the direct path's
    statuses. Then verifies/s on (a), the cost of (b), the device time by
@@ -115,7 +121,9 @@ SIGN_LAUNCHES = {"sha512_batch": 3, "sc_reduce64": 2, "double_scalarmult": 2,
 SIGN_SHAPES = ((8192, "192-byte messages"), (4096, "100-1232-byte messages"))
 # Launches of one clean RLC pass, by front half.
 RLC_PASS = {"decompress_niels": 1, "msm_fill": 3, "msm_aggregate": 3,
-            "msm_horner": 2, "msm_order": 1}
+            "msm_tails": 1}
+# The kernel rows that run inside the pass's one msm_tails launch.
+TAILS_ROWS = ("msm_horner", "msm_order")
 # Threads a lane at which phase 3 times each bucket fill.
 FILL_SWEEP = (4, 8, 16, 32)
 
@@ -795,7 +803,8 @@ def rlc_front_half(torch, rows, card, inputs, frontend, wants) -> None:
     own = (("sha512_batch",) if frontend == "staged" else
            ("frontend_rlc", *RLC_PASS))
     for name in own:
-        rows[name]["launches"] = launches[name]
+        for row in TAILS_ROWS if name == "msm_tails" else (name,):
+            rows[row]["launches"] = launches[name]
 
     if res_a.used_fallback or not np.array_equal(st_a, want_a_st):
         fail(f"rlc batch (a), {frontend}: fallback {res_a.used_fallback}, "
@@ -843,14 +852,16 @@ def rlc_stages(torch, args, frontend: str, n: int = 5) -> None:
     synchronise, so a stage's time holds its host enqueue and its device
     work: drawing z and u (os.urandom) with their copy to the card, the
     front half (decompress_niels, the scalars, glue), the local half
-    after it (staging, three fills and aggregations), the tails (two
-    Horners, the ladder, the verdict) and the batch_ok read-back: the
-    functions the engine's pass runs, in its order. Mean of n passes."""
+    after it (staging, three fills and aggregations), the tails
+    (combine_points: the msm_tails launch, the certification's identity
+    test), the verdict (batch_verdict: the T = t1 + t2 identity test in
+    plain PyTorch ops) and the batch_ok read-back: the functions the
+    engine's pass runs, in its order. Mean of n passes."""
     from firedancer_tpu_torch.ops import verify_rlc as vr
 
     dev = args[0].device
     names = ("weights", "front half", "fills and aggregations", "tails",
-             "read-back")
+             "verdict", "read-back")
     spent = dict.fromkeys(names, 0.0)
     for _ in range(n):
         marks = [time.perf_counter()]
@@ -865,7 +876,9 @@ def rlc_stages(torch, args, frontend: str, n: int = 5) -> None:
         mark()
         parts = vr.msm_partials(msm_in)
         mark()
-        ok = vr.verify_rlc_combine(parts)
+        tails = vr.combine_points(parts)
+        mark()
+        ok = vr.batch_verdict(*tails)
         mark()
         if not bool(ok):
             fail(f"rlc stages ({frontend}): the clean batch's verdict is "
@@ -895,7 +908,7 @@ def aggregate_chain(nb: int, seg: int) -> tuple[int, int]:
     return 2 * (seg - 1) + 11, seg.bit_length() - 1
 
 
-def msm_parity(torch, gpu, parity, record, batch_a) -> None:
+def msm_parity(torch, gpu, parity, record, batch_a, batch_t) -> None:
     """Phase 3, the MSM kernels: each against its plain version at the
     main path's shapes, staged from the clean batch (a) through the RLC
     front half with seeded weights; the fills read the niels forms the
@@ -907,7 +920,6 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
     from firedancer_tpu_torch.ops import fe25519 as fe
     from firedancer_tpu_torch.ops import msm, msm_cuda
     from firedancer_tpu_torch.ops import verify_rlc as vr
-    from firedancer_tpu_torch.ops.sc25519 import L
 
     rng = np.random.default_rng(11)
     z = gpu(vr.fresh_z(B, rng))
@@ -1024,55 +1036,202 @@ def msm_parity(torch, gpu, parity, record, batch_a) -> None:
             f"{'not measured' if traced is None else f'{traced:.4f} ms'} "
             f"by the trace")
     aggs = list(agg_out.values())
-    runs = [(f"{name} {w.shape[0]} windows",
-             lambda w=w: msm_cuda.window_horner_cuda(w, msm.W_BITS),
-             lambda w=w: msm_cuda.window_horner_ref(w, msm.W_BITS),
-             bound_horner(w.shape[0], msm.W_BITS))
-            for name, w in (("z", aggs[0]), ("253", aggs[1]))]
-    kernel_row("msm_horner", runs, "firedancer_tpu/ops/msm_pallas.py:295",
-               "firedancer_tpu_torch/ops/csrc/msm_horner.cu")
     trials = aggs[2]
-    kernel_row("msm_order", [(
-        f"K = {trials.shape[0]} trials",
-        lambda: msm_cuda.mul_by_group_order_cuda(trials),
-        lambda: msm_cuda.mul_by_group_order_ref(trials),
-        bound_order(trials.shape[0], L))],
-        "firedancer_tpu/ops/msm_pallas.py:218",
-        "firedancer_tpu_torch/ops/csrc/msm_order.cu")
+    tails_parity(torch, gpu, parity, record, aggs, batch_t, z, u)
     parts = {"w_r": aggs[0], "ok_r": grids[0][3], "w_m": aggs[1],
              "ok_m": grids[1][3], "sub": trials, "sub_ok": grids[2][3]}
     if not bool(vr.verify_rlc_combine(parts)):
         fail("msm parity: the clean batch's RLC verdict is False")
     say("msm parity: the clean batch's staged MSMs verify (batch_ok True)")
 
-    # The signed plans' branch of the fill (the sign folded into the
-    # gather) and the signed height nb = 129, which EngineSpec(...,
-    # msm="s8l3") runs: its 253-bit grid against the split mirrors and
-    # the JAX order, then the whole pass's verdict.
-    plan = msm_plan.parse_plan("s8l3")
-    scalars, _, niels = msm_in["m"]
-    nw, nb, rounds = msm._plan_dims(msm.WINDOWS_253, niels.shape[0], plan)
-    planes = msm._top_tree_planes(msm.WINDOWS_253, nw, plan)
-    idx, neg, ok, _ = msm._plan_staging(scalars, niels.shape[0], rounds, nw,
-                                        nb, plan, planes)
-    if not bool(ok) or not bool(neg.any()):
-        fail(f"msm_fill s8l3: fill verdict {bool(ok)}, "
-             f"{int(neg.sum())} negated slots")
-    label = f"msm_fill s8l3 {idx.shape[0]}x{nb} lanes x {rounds} rounds"
-    s8 = msm_cuda.fill_buckets(niels, idx, neg)
-    parity(label, s8, msm_cuda.fill_buckets_split_ref(niels, idx, neg))
-    same_points(label, s8, msm_cuda.fill_buckets_ref(niels, idx, neg))
-    s8 = s8.reshape(idx.shape[0], nb, 4, 5)
-    label = f"msm_aggregate s8l3 {idx.shape[0]} columns x {nb}"
-    s8_agg = msm_cuda.aggregate_buckets(s8)
-    parity(label, s8_agg, msm_cuda.aggregate_buckets_split_ref(s8))
-    same_points(label, s8_agg, msm_cuda.aggregate_buckets_ref(s8))
-    if not bool(vr.verify_batch_rlc(*args, z, u, plan=plan)[2]):
-        fail("msm parity: the clean batch's RLC verdict at s8l3 is False")
-    say(f"msm parity: s8l3 fill ({int(neg.sum())} of "
-        f"{int((idx >= 0).sum())} slots negated) and aggregation equal "
-        f"their split mirrors and the JAX order's points; the clean batch "
-        f"verifies at s8l3 (batch_ok True)")
+    # Every plan of msm_plan.all_plans() on both MSMs: the fill (the
+    # signed plans with the sign folded into the gather, heights 2^w and
+    # 2^(w-1) + 1), the aggregation and the Horner (the l3 plans with
+    # _top_window_sum's point as their top window, w = 6, 7, 8) against
+    # the split mirrors, the JAX order's points and the plain Horner;
+    # the tails launch at the plan's w; the whole pass's verdict.
+    for plan in msm_plan.all_plans():
+        tok = msm_plan.plan_token(plan)
+        ws = []
+        for name, (scalars, pts, niels), n_windows in (
+                ("z", msm_in["r"], msm.WINDOWS_Z),
+                ("253", msm_in["m"], msm.WINDOWS_253)):
+            idx, neg, ok, top, planes = msm.msm_staging(
+                scalars, n_windows, pts.shape[0], plan)
+            n_neg = 0 if neg is None else int(neg.sum())
+            if not bool(ok) or (plan.signed and n_neg == 0):
+                fail(f"msm_fill {tok} {name}: fill verdict {bool(ok)}, "
+                     f"{n_neg} negated slots")
+            nw, nb, rounds = idx.shape
+            label = f"{tok} {name} {nw}x{nb} lanes x {rounds} rounds"
+            fill = msm_cuda.fill_buckets(niels, idx, neg)
+            parity(f"msm_fill {label}", fill,
+                   msm_cuda.fill_buckets_split_ref(niels, idx, neg))
+            same_points(f"msm_fill {label}", fill,
+                        msm_cuda.fill_buckets_ref(niels, idx, neg))
+            buckets = fill.reshape(nw, nb, 4, 5)
+            w_res = msm_cuda.aggregate_buckets(buckets)
+            parity(f"msm_aggregate {label}", w_res,
+                   msm_cuda.aggregate_buckets_split_ref(buckets))
+            same_points(f"msm_aggregate {label}", w_res,
+                        msm_cuda.aggregate_buckets_ref(buckets))
+            if planes:
+                w_res = torch.cat([w_res, msm._top_window_sum(top, pts,
+                                                              planes)])
+            parity(f"msm_horner {tok} {name}, {w_res.shape[0]} windows",
+                   msm_cuda.window_horner_cuda(w_res, plan.w),
+                   msm_cuda.window_horner_ref(w_res, plan.w))
+            ws.append(w_res)
+            say(f"  msm plan {tok} {name}: {n_neg} of "
+                f"{int((idx >= 0).sum())} slots negated, "
+                f"{'a summed top window, ' if planes else ''}"
+                f"{w_res.shape[0]} windows of {plan.w} bits")
+        parity(f"msm_tails {tok}",
+               msm_cuda.msm_tails_cuda(*ws, trials, plan.w),
+               msm_cuda.msm_tails_ref(*ws, trials, plan.w))
+        if not bool(vr.verify_batch_rlc(*args, z, u, plan=plan)[2]):
+            fail(f"msm parity: the clean batch's RLC verdict at {tok} is "
+                 f"False")
+    say(f"msm parity: at each of the {len(msm_plan.all_plans())} plans "
+        f"both MSMs' fills and aggregations equal their split mirrors and "
+        f"the JAX order's points, their Horners and the tails launch the "
+        f"plain versions, and the clean batch verifies (batch_ok True)")
+
+
+def horner_chain(nw: int, w_bits: int) -> tuple[int, int]:
+    """The Horner's dependent chain: field operations in sequence on one
+    thread (a window below the top: w doublings of 4 S + 4 M and a
+    unified add of 9 M) and stages on a quad (2 a doubling or add)."""
+    return (nw - 1) * (8 * w_bits + 9), (nw - 1) * 2 * (w_bits + 1)
+
+
+def order_chain(order: int) -> tuple[int, int]:
+    """The [L] ladder's chain, counted as horner_chain counts: a doubling
+    for each bit below the leading one, an add for each set bit."""
+    n_dbl, n_add = order.bit_length() - 1, bin(order).count("1") - 1
+    return 8 * n_dbl + 9 * n_add, 2 * (n_dbl + n_add)
+
+
+def _ladder_edges(torch, trials):
+    """(64, 4, 5) limbs for the ladder: the eight torsion points (the
+    identity, order 2, 4 and 8) at Z = 1 and at a random Z, the same
+    negated (limbs up to 2^52), 16 trial aggregates with p added to
+    every limb (limbs up to 2^52), then trial aggregates."""
+    from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
+    from firedancer_tpu_torch.ops import curve25519 as ge
+
+    p = oracle.P
+    rng = np.random.RandomState(13)
+    t8 = corpus._order8_point()
+    rows = []
+    for k in range(8):
+        x, y = oracle.scalarmult(k, t8)
+        lam = int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
+        for zz in (1, lam):
+            rows.append([v * zz % p for v in (x, y, 1, x * y)])
+    dev = trials.device
+    tors = torch.stack([_limbs51(torch, [r[c] for r in rows], dev)
+                        for c in range(4)], dim=1)
+    plus_p = trials[:16] + _limbs51(torch, [p], dev)[0]
+    return torch.cat([tors, ge.point_neg_limbs(tors), plus_p,
+                      trials])[:64].contiguous()
+
+
+def tails_parity(torch, gpu, parity, record, aggs, batch_t, z, u) -> None:
+    """Phase 3, the RLC tails (csrc/msm_tails.cu, a quad of threads a
+    chain): both Horners (row msm_horner) and the K = 64 ladder (row
+    msm_order) launched alone, then all three in one launch, as the pass
+    runs them (msm_tails), each equal to its plain version limb for limb.
+    The Horner also at nw = 1, 2 and 130; the ladder also on planted edges at
+    K = 1, 7, 9 and 64 and on batch (t)'s trial aggregates, where some
+    [L] Agg is a small-order point other than the identity."""
+    from firedancer_tpu_torch.ops import curve25519 as ge
+    from firedancer_tpu_torch.ops import msm, msm_cuda
+    from firedancer_tpu_torch.ops import verify_rlc as vr
+    from firedancer_tpu_torch.ops.sc25519 import L
+
+    w_z, w_m, trials = aggs
+    wb = msm.W_BITS
+    for name, w in (("z", w_z), ("253", w_m)):
+        one, quad = horner_chain(w.shape[0], wb)
+        say(f"  msm_horner {name}: longest chain {one} field operations "
+            f"(one thread) -> {quad} stages (a quad)")
+    one, quad = order_chain(L)
+    say(f"  msm_order: longest chain {one} field operations (one thread a "
+        f"trial) -> {quad} stages (a quad a trial)")
+    kernel_pass(torch, parity, record, "msm_horner", [
+        (f"{name} {w.shape[0]} windows",
+         lambda w=w: msm_cuda.window_horner_cuda(w, wb),
+         lambda w=w: msm_cuda.window_horner_ref(w, wb),
+         bound_horner(w.shape[0], wb))
+        for name, w in (("z", w_z), ("253", w_m))],
+        "firedancer_tpu/ops/msm_pallas.py:295",
+        "firedancer_tpu_torch/ops/csrc/msm_horner.cu")
+    # nw = 1 and 2, and 130 windows: three chunks of cached forms.
+    w_long = torch.cat([w_m] * 4)[:130].contiguous()
+    for w in (w_z[:1].contiguous(), w_z[:2].contiguous(), w_long):
+        parity(f"msm_horner, nw = {w.shape[0]}",
+               msm_cuda.window_horner_cuda(w, wb),
+               msm_cuda.window_horner_ref(w, wb))
+    kernel_pass(torch, parity, record, "msm_order", [(
+        f"K = {trials.shape[0]} trials",
+        lambda: msm_cuda.mul_by_group_order_cuda(trials),
+        lambda: msm_cuda.mul_by_group_order_ref(trials),
+        bound_order(trials.shape[0], L))],
+        "firedancer_tpu/ops/msm_pallas.py:218",
+        "firedancer_tpu_torch/ops/csrc/msm_order.cu")
+    edges = _ladder_edges(torch, trials)
+    for k in (1, 7, 9, 64):
+        parity(f"msm_order edges, K = {k}",
+               msm_cuda.mul_by_group_order_cuda(edges[:k].contiguous()),
+               msm_cuda.mul_by_group_order_ref(edges[:k]))
+    _, _, msm_in_t = vr.rlc_front(*(gpu(a) for a in batch_t), z, u)
+    sub_t = vr.msm_partials(msm_in_t)["sub"]
+    la_t = msm_cuda.mul_by_group_order_cuda(sub_t)
+    parity("msm_order, batch (t)'s trial aggregates", la_t,
+           msm_cuda.mul_by_group_order_ref(sub_t))
+    hit = ~ge.is_identity_limbs(la_t)
+    eight = ge.from_limbs51(la_t)
+    for _ in range(3):
+        eight = ge.point_double(eight)
+    if not bool(hit.any()) or not bool(
+            ge.is_identity_limbs(ge.to_limbs51(eight)).all()):
+        fail(f"msm_order, batch (t): {int(hit.sum())} trials off the "
+             f"identity, [8 L] Agg the identity "
+             f"{bool(ge.is_identity_limbs(ge.to_limbs51(eight)).all())}")
+    say(f"  msm_order: batch (t)'s {sub_t.shape[0]} trials, {int(hit.sum())}"
+        f" with [L] Agg a small-order point other than the identity; the "
+        f"edges (torsion points at Z = 1 and Z != 1, negated, limbs + p) "
+        f"at K = 1, 7, 9 and 64 equal the plain version")
+
+    def tails():
+        return msm_cuda.msm_tails_cuda(w_z, w_m, trials, wb)
+
+    def plain():
+        return msm_cuda.msm_tails_ref(w_z, w_m, trials, wb)
+
+    def one_by_one():
+        return (msm_cuda.window_horner_cuda(w_z, wb),
+                msm_cuda.window_horner_cuda(w_m, wb),
+                msm_cuda.mul_by_group_order_cuda(trials))
+
+    parity("msm_tails, the pass's tails in one launch", tails(), plain())
+    parity("msm_tails at nw = 1 and 2, K = 9", msm_cuda.msm_tails_cuda(
+        w_z[:1].contiguous(), w_m[:2].contiguous(), edges[:9].contiguous(),
+        wb), msm_cuda.msm_tails_ref(w_z[:1], w_m[:2], edges[:9], wb))
+    bound = _sum_bounds([bound_horner(w_z.shape[0], wb),
+                         bound_horner(w_m.shape[0], wb),
+                         bound_order(trials.shape[0], L)])
+    say(f"  msm_tails, both Horners and K = {trials.shape[0]} ladders in "
+        f"one launch: kernel {time_ms(torch, tails, REPS):.4f} ms, the "
+        f"three launched one by one {time_ms(torch, one_by_one, REPS):.4f}"
+        f" ms, plain {time_ms(torch, plain, 1):.1f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    info = msm_cuda.tails_kernel_info()
+    say(f"msm_tails resources: {info['threads']} threads (one warp) a "
+        f"block, {info['registers']} registers and {info['stack_bytes']} B"
+        f" of stack a thread, {info['static_shared_bytes']} B of shared "
+        f"memory a block; ptxas above gives spills")
 
 
 def main() -> int:
@@ -1365,7 +1524,7 @@ def main() -> int:
     batch_t = corpus.to_arrays(items_t, MSG_LEN)
     say(f"traffic: {time.perf_counter() - t0:.1f} s of oracle signing")
 
-    msm_parity(torch, gpu, parity, record, batch_a)
+    msm_parity(torch, gpu, parity, record, batch_a, batch_t)
 
     # 4. Direct path.
     t0 = time.perf_counter()

@@ -1,6 +1,8 @@
 """Build and load the port's CUDA kernels (plain C interface + ctypes).
 
-Every ``csrc/*.cu`` becomes its own shared library, compiled by ``nvcc``
+Each ``csrc/<name>.cu`` of ``KERNELS`` becomes its own shared library
+(``msm_tails.cu`` includes ``msm_horner.cu`` and ``msm_order.cu``, its
+two roles), compiled by ``nvcc``
 for ``sm_90a`` into ``build/torch_kernels/`` at the repository root (a
 directory git ignores). The sources are built on first use, one ``nvcc``
 per source, all started together. A library's file name carries a stamp
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("sha512_mod_l", "decompress_so", "double_scalarmult", "point_eq",
-           "msm_fill", "msm_aggregate", "msm_horner", "msm_order",
+           "msm_fill", "msm_aggregate", "msm_tails",
            "frontend_rlc", "decompress_niels", "sha512_batch", "sc_reduce",
            "fe_pow", "compress")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

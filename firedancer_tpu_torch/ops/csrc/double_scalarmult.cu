@@ -14,7 +14,8 @@
 // dependent field operations, and at B = 8192 only 64 blocks of 128
 // threads exist for 132 SMs.
 //
-// Design: a quad of four threads a lane (threads 4k .. 4k+3 of a warp),
+// Design (the quad helpers live in ge_quad.cuh, shared with the MSM
+// tails): a quad of four threads a lane (threads 4k .. 4k+3 of a warp),
 // thread q holding coordinate q of the extended accumulator (X, Y, Z, T)
 // as one fe. Each step runs the one-thread formulas (dbl-2008-hwcd,
 // add-2008-hwcd-3) with their operands in their order; only which
@@ -51,62 +52,11 @@
 // 81,920 B of dynamic shared memory the occupancy API gives 2 blocks an
 // SM on an H100, so B = 8192 (256 blocks) runs in one wave. chip_smoke.py
 // prints both reports (phases 2 and 3, fd_dsm_kernel_info).
-#include "fe25519.cuh"
+#include "ge_quad.cuh"
 
 #define DSM_LANES 32                 // lanes a block
 #define DSM_THREADS (4 * DSM_LANES)  // a quad a lane
 #define DSM_ATAB_BYTES (16 * 5 * DSM_THREADS * 8)
-
-// The q-th of four field elements, by selects (no local memory).
-__device__ __forceinline__ fe fe_pick(int q, const fe &a, const fe &b,
-                                      const fe &c, const fe &d) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 5; i++)
-    r.v[i] = q == 0 ? a.v[i] : q == 1 ? b.v[i] : q == 2 ? c.v[i] : d.v[i];
-  return r;
-}
-
-// Stage 2 of both formulas: coordinate q of (e f, g h, f g, e h).
-__device__ __forceinline__ fe quad_stage2(int q, const fe &e, const fe &f,
-                                          const fe &g, const fe &h) {
-  return fe_mul(fe_pick(q, e, g, f, e), fe_pick(q, f, h, g, h));
-}
-
-// dbl-2008-hwcd (fe25519.cuh ge_double) on a quad: thread q holds and
-// returns coordinate q.
-__device__ __forceinline__ fe quad_double(int q, const fe &p) {
-  const fe x = fe_shfl_idx(p, 0, 4), y = fe_shfl_idx(p, 1, 4);
-  fe t = fe_sq(fe_pick(q, p, p, p, fe_add(x, y)));
-  t = fe_pick(q, t, t, fe_add(t, t), t);
-  const fe a = fe_shfl_idx(t, 0, 4), b = fe_shfl_idx(t, 1, 4);
-  const fe c = fe_shfl_idx(t, 2, 4), sq = fe_shfl_idx(t, 3, 4);
-  const fe d = fe_neg(a);
-  const fe e = fe_sub(fe_sub(sq, a), b);
-  const fe g = fe_add(d, b);
-  const fe f = fe_sub(g, c);
-  const fe h = fe_sub(d, b);
-  return quad_stage2(q, e, f, g, h);
-}
-
-// add-2008-hwcd-3 on a quad: p + an entry of which thread q holds the
-// coordinate it consumes, tq (q0 Y - X, q1 Y + X, q2 2dT, q3 2Z).
-__device__ __forceinline__ fe quad_add(int q, const fe &p, const fe &tq) {
-  const fe o = fe_shfl_xor(p, 1);  // q0 Y, q1 X, q2 T, q3 Z
-  const fe t = fe_mul(fe_pick(q, fe_sub(o, p), fe_add(p, o), o, o), tq);
-  const fe a = fe_shfl_idx(t, 0, 4), b = fe_shfl_idx(t, 1, 4);
-  const fe c = fe_shfl_idx(t, 2, 4), d = fe_shfl_idx(t, 3, 4);
-  const fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c),
-           h = fe_add(b, a);
-  return quad_stage2(q, e, f, g, h);
-}
-
-// Coordinate q of p's cached form (Y - X, Y + X, 2dT, 2Z).
-__device__ __forceinline__ fe quad_cached(int q, const fe &p) {
-  const fe o = fe_shfl_xor(p, 1);
-  return fe_pick(q, fe_sub(o, p), fe_add(p, o),
-                 fe_mul(o, fe_load_const(FE_D2)), fe_add(o, o));
-}
 
 __device__ __forceinline__ u64 load_le64(const uint8_t *p) {
   u64 x = 0;

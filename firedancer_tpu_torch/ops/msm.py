@@ -174,6 +174,27 @@ def _top_window_sum(top_digits: torch.Tensor, points: torch.Tensor,
     return ge.to_limbs51(acc)
 
 
+def msm_staging(scalars_bytes: torch.Tensor, n_windows: int, bsz: int,
+                plan: MsmPlan = BASELINE_PLAN, max_rounds: int | None = None):
+    """The staging of msm_fast_partial at plan: (idx, neg, ok, top,
+    planes) -- the (nw_grid, nb, R) slot table, its sign bits (None on
+    unsigned plans), the fill verdict, and the top window's digits with
+    its bit-plane count where _top_window_sum takes that window (else
+    None, 0)."""
+    if plan == BASELINE_PLAN:
+        if max_rounds is None:
+            max_rounds = msm_plan.default_rounds(bsz)
+        idx, ok = _staging_indices(scalars_bytes, n_windows, bsz, max_rounds)
+        return idx, None, ok, None, 0
+    nw, nb, rounds = _plan_dims(n_windows, bsz, plan)
+    if max_rounds is None:
+        max_rounds = rounds
+    planes = _top_tree_planes(n_windows, nw, plan)
+    idx, neg, ok, top = _plan_staging(scalars_bytes, bsz, max_rounds, nw, nb,
+                                      plan, tree_planes=planes)
+    return idx, neg, ok, top, planes
+
+
 def msm_fast_partial(scalars_bytes: torch.Tensor, points: torch.Tensor,
                      n_windows: int, max_rounds: int | None = None,
                      plan: MsmPlan = BASELINE_PLAN,
@@ -184,21 +205,9 @@ def msm_fast_partial(scalars_bytes: torch.Tensor, points: torch.Tensor,
     it); niels their (B, 3, 5) niels forms (None: formed from points).
     Returns (w_res, ok): w_res (nw, 4, 5), W_t = sum_b b * S_{t,b} (nw is
     the plan's window count), ok the fill verdict (0-dim bool)."""
-    bsz = points.shape[0]
-    if plan == BASELINE_PLAN:
-        if max_rounds is None:
-            max_rounds = msm_plan.default_rounds(bsz)
-        nw, nb = n_windows, N_BUCKETS
-        idx, ok = _staging_indices(scalars_bytes, nw, bsz, max_rounds)
-        neg, top, planes = None, None, 0
-    else:
-        nw, nb, rounds = _plan_dims(n_windows, bsz, plan)
-        if max_rounds is None:
-            max_rounds = rounds
-        planes = _top_tree_planes(n_windows, nw, plan)
-        idx, neg, ok, top = _plan_staging(scalars_bytes, bsz, max_rounds,
-                                          nw, nb, plan, tree_planes=planes)
-    nw_grid = nw - 1 if planes else nw
+    idx, neg, ok, top, planes = msm_staging(scalars_bytes, n_windows,
+                                            points.shape[0], plan, max_rounds)
+    nw_grid, nb = idx.shape[:2]
     if niels is None:
         niels = ge.niels_limbs(points)
     buckets = msm_cuda.fill_buckets(niels, idx, neg)

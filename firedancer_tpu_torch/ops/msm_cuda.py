@@ -10,6 +10,10 @@
   most significant window first; ``csrc/msm_horner.cu``.
 * ``mul_by_group_order`` (``mul_by_group_order_pallas``:164): [L] P per
   trial point; ``csrc/msm_order.cu``.
+* ``msm_tails``: the RLC pass's two Horners and its ladders in one
+  launch of ``csrc/msm_tails.cu``, whose roles are the two above (a quad
+  of threads a chain, ``csrc/ge_quad.cuh``); ``window_horner`` and
+  ``mul_by_group_order`` launch it with one role.
 
 Each op launches its kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors. The plain versions use the reference's
@@ -327,16 +331,15 @@ def window_horner_ref(w_res: torch.Tensor, w_bits: int) -> torch.Tensor:
 
 
 def window_horner_cuda(w_res: torch.Tensor, w_bits: int) -> torch.Tensor:
-    """The kernel: same contract as window_horner_ref."""
-    backend.check_tensor("w_res", w_res, torch.int64, (None, 4, 5))
-    nw = w_res.shape[0]
-    if nw < 1:
-        raise ValueError("window_horner needs >= 1 window")
+    """The kernel (msm_tails.cu with the Horner role alone): same
+    contract as window_horner_ref."""
+    _check_horner("w_res", w_res)
     out = torch.empty(1, 4, 5, dtype=torch.int64, device=w_res.device)
-    fn = build.bind("msm_horner", "fd_msm_horner",
+    fn = build.bind("msm_tails", "fd_msm_horner",
                     [_V, _V, ctypes.c_int, ctypes.c_int, _V])
     build.check_rc("fd_msm_horner", fn(
-        w_res.data_ptr(), out.data_ptr(), nw, w_bits, _stream(w_res)))
+        w_res.data_ptr(), out.data_ptr(), w_res.shape[0], w_bits,
+        _stream(w_res)))
     backend.count_launch("msm_horner")
     return out
 
@@ -366,14 +369,14 @@ def mul_by_group_order_ref(pt: torch.Tensor) -> torch.Tensor:
 
 
 def mul_by_group_order_cuda(pt: torch.Tensor) -> torch.Tensor:
-    """The kernel: same contract as mul_by_group_order_ref."""
+    """The kernel (msm_tails.cu with the ladder role alone): same
+    contract as mul_by_group_order_ref."""
     backend.check_tensor("pt", pt, torch.int64, (None, 4, 5))
     k = pt.shape[0]
     out = torch.empty(k, 4, 5, dtype=torch.int64, device=pt.device)
     if k == 0:
         return out
-    fn = build.bind("msm_order", "fd_msm_mul_by_order",
-                    [_V, _V, _LL, _V])
+    fn = build.bind("msm_tails", "fd_msm_mul_by_order", [_V, _V, _LL, _V])
     build.check_rc("fd_msm_mul_by_order", fn(
         pt.data_ptr(), out.data_ptr(), k, _stream(pt)))
     backend.count_launch("msm_order")
@@ -385,3 +388,65 @@ def mul_by_group_order(pt: torch.Tensor) -> torch.Tensor:
     if backend.use_kernel(pt):
         return mul_by_group_order_cuda(pt.contiguous())
     return mul_by_group_order_ref(pt)
+
+
+# -------------------------------------------------------------- tails
+
+
+def _check_horner(name: str, w_res: torch.Tensor) -> None:
+    backend.check_tensor(name, w_res, torch.int64, (None, 4, 5))
+    if w_res.shape[0] < 1:
+        raise ValueError(f"{name}: the Horner needs >= 1 window")
+
+
+def msm_tails_ref(w_r: torch.Tensor, w_m: torch.Tensor, pt: torch.Tensor,
+                  w_bits: int):
+    """Plain version: (window_horner_ref(w_r), window_horner_ref(w_m),
+    mul_by_group_order_ref(pt))."""
+    return (window_horner_ref(w_r, w_bits), window_horner_ref(w_m, w_bits),
+            mul_by_group_order_ref(pt))
+
+
+def msm_tails_cuda(w_r: torch.Tensor, w_m: torch.Tensor, pt: torch.Tensor,
+                   w_bits: int):
+    """The kernel: both Horners and the K ladders in one launch
+    (csrc/msm_tails.cu, a warp a chain or eight trials). Same contract as
+    msm_tails_ref, equal to it limb for limb."""
+    _check_horner("w_r", w_r)
+    _check_horner("w_m", w_m)
+    backend.check_tensor("pt", pt, torch.int64, (None, 4, 5))
+    dev = w_r.device
+    t1 = torch.empty(1, 4, 5, dtype=torch.int64, device=dev)
+    t2 = torch.empty(1, 4, 5, dtype=torch.int64, device=dev)
+    la = torch.empty(pt.shape[0], 4, 5, dtype=torch.int64, device=dev)
+    fn = build.bind("msm_tails", "fd_msm_tails",
+                    [_V, ctypes.c_int, _V, ctypes.c_int, ctypes.c_int, _V,
+                     _LL, _V, _V, _V, _V])
+    build.check_rc("fd_msm_tails", fn(
+        w_r.data_ptr(), w_r.shape[0], w_m.data_ptr(), w_m.shape[0], w_bits,
+        pt.data_ptr(), pt.shape[0], t1.data_ptr(), t2.data_ptr(),
+        la.data_ptr(), _stream(w_r)))
+    backend.count_launch("msm_tails")
+    return t1, t2, la
+
+
+def msm_tails(w_r: torch.Tensor, w_m: torch.Tensor, pt: torch.Tensor,
+              w_bits: int):
+    """The tails of an RLC pass: the two MSMs' Horners of (nw, 4, 5)
+    window sums -> (1, 4, 5) each, and [L] P of the (K, 4, 5) trial
+    aggregates."""
+    if backend.use_kernel(w_r, w_m, pt):
+        return msm_tails_cuda(w_r.contiguous(), w_m.contiguous(),
+                              pt.contiguous(), w_bits)
+    return msm_tails_ref(w_r, w_m, pt, w_bits)
+
+
+def tails_kernel_info() -> dict[str, int]:
+    """msm_tails_kernel's resources on the current device (the CUDA
+    runtime's function attributes): registers and stack bytes a thread,
+    static shared bytes a block, threads a block."""
+    fn = build.bind("msm_tails", "fd_msm_tails_kernel_info", [_V])
+    info = (ctypes.c_int * 4)()
+    build.check_rc("fd_msm_tails_kernel_info", fn(ctypes.addressof(info)))
+    return dict(zip(("registers", "stack_bytes", "static_shared_bytes",
+                     "threads"), info))

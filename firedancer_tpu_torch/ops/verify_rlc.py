@@ -25,8 +25,9 @@ L in one of the JAX package's two accelerator configurations
 (``frontend``): "fused", one ``frontend_rlc`` launch, or "staged",
 ``sha512_batch`` with the reduction and products in PyTorch. u = sum zs
 mod L, and u B rides the 253-bit MSM as one extra lane. The three MSMs
-run on ``msm``'s kernel path: the bucket fill, aggregation, window
-Horner and [L] ladder kernels.
+run on ``msm``'s kernel path: the bucket fill and aggregation kernels,
+then one launch of the tails kernel for both window Horners and the [L]
+ladders.
 
 Semantics are the reference's default 2-point verify, as the direct
 path: s >= L is ERR_SIG; A or R failing to decode, or a small-order A,
@@ -43,7 +44,7 @@ import torch
 
 from ..msm_plan import BASELINE_PLAN, MsmPlan
 from . import curve25519 as ge
-from . import curve_cuda, frontend_cuda
+from . import curve_cuda, frontend_cuda, msm_cuda
 from .frontend_cuda import DEFAULT_FRONTEND
 from . import msm as msm_mod
 from . import sc25519 as sc
@@ -181,12 +182,12 @@ def combine_points(parts, plan: MsmPlan = BASELINE_PLAN):
     """The tails of one RLC pass: (t1, t2, cert, verdicts) with t1, t2
     the two MSMs' Horner outputs (1, 4, 5), cert True iff every trial
     aggregate times L is the identity, verdicts the AND of the three fill
-    verdicts."""
-    t1, ok1 = msm_mod.msm_fast_combine(parts["w_r"], parts["ok_r"], plan)
-    t2, ok2 = msm_mod.msm_fast_combine(parts["w_m"], parts["ok_m"], plan)
-    cert, sub_fill_ok = msm_mod.subgroup_fast_combine(parts["sub"],
-                                                      parts["sub_ok"])
-    return t1, t2, cert, ok1 & ok2 & sub_fill_ok
+    verdicts. On the card the two Horners and the ladders are one launch
+    (msm_cuda.msm_tails); on the CPU the three plain versions."""
+    t1, t2, la = msm_cuda.msm_tails(parts["w_r"], parts["w_m"],
+                                    parts["sub"], plan.w)
+    cert = ge.is_identity_limbs(la).all()
+    return t1, t2, cert, parts["ok_r"] & parts["ok_m"] & parts["sub_ok"]
 
 
 def batch_verdict(t1, t2, cert, fills_ok) -> torch.Tensor:

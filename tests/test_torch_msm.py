@@ -40,6 +40,7 @@ from firedancer_tpu_torch.ops import backend, curve_cuda, msm, msm_cuda
 from firedancer_tpu_torch.ops import curve25519 as ge
 from firedancer_tpu_torch.ops import fe25519 as fe
 from firedancer_tpu_torch.ops import sc25519 as sc
+from firedancer_tpu_torch.ops import verify_rlc as vr
 from firedancer_tpu_torch.ops.msm_recode import recode_signed
 
 torch.set_num_threads(1)
@@ -712,6 +713,205 @@ def test_aggregate_transcription_matches_the_mirror_at_the_largest_limbs(nb):
     col = [tuple(list(c) for c in b) for b in buckets[0].tolist()]
     got = _k_aggregate_column(col, msm_cuda.aggregate_segment(nb))
     assert _k_ints(got) == want[0]
+
+
+# The quad mapping of csrc/ge_quad.cuh, thread by thread: a quad is the
+# list of its four threads' fe (thread q holds coordinate q of X, Y, Z,
+# T), a shuffle hands a thread another thread's value, and every thread's
+# own arithmetic (the operands fe_pick discards included) runs through
+# the _k_* helpers, which assert the CUDA ranges.
+
+
+def _q_idx(v, src):
+    """fe_shfl_idx(v, src, 4): every thread gets thread src's value."""
+    return [v[src]] * 4
+
+
+def _q_xor1(v):
+    """fe_shfl_xor(v, 1)."""
+    return [v[q ^ 1] for q in range(4)]
+
+
+def _q_stage2(e, f, g, h):
+    """quad_stage2: e, f, g, h are the same on every thread."""
+    return [_k_mul((e, g, f, e)[q], (f, h, g, h)[q]) for q in range(4)]
+
+
+def _q_double(p):
+    x, y = _q_idx(p, 0), _q_idx(p, 1)
+    t = [_k_sq((p[q], p[q], p[q], _k_add(x[q], y[q]))[q]) for q in range(4)]
+    t = [(t[q], t[q], _k_add(t[q], t[q]), t[q])[q] for q in range(4)]
+    a, b, c, sq = (_q_idx(t, j)[0] for j in range(4))
+    d = _k_sub(_K_ZERO, a)
+    e = _k_sub(_k_sub(sq, a), b)
+    g = _k_add(d, b)
+    return _q_stage2(e, _k_sub(g, c), g, _k_sub(d, b))
+
+
+def _q_add(p, tq):
+    o = _q_xor1(p)
+    t = [_k_mul((_k_sub(o[q], p[q]), _k_add(p[q], o[q]), o[q], o[q])[q],
+                tq[q]) for q in range(4)]
+    a, b, c, d = (_q_idx(t, j)[0] for j in range(4))
+    return _q_stage2(_k_sub(b, a), _k_sub(d, c), _k_add(d, c), _k_add(b, a))
+
+
+def _q_cached(p):
+    o = _q_xor1(p)
+    return [(_k_sub(o[q], p[q]), _k_add(p[q], o[q]), _k_mul(o[q], _K_D2),
+             _k_add(o[q], o[q]))[q] for q in range(4)]
+
+
+def _q_horner(w, w_bits):
+    """msm_horner.cu horner_quad: from the top window down, w_bits
+    quad_doubles and a quad_add of the window's cached form."""
+    r = list(w[-1])
+    for t in range(len(w) - 2, -1, -1):
+        for _ in range(w_bits):
+            r = _q_double(r)
+        r = _q_add(r, _q_cached(w[t]))
+    return r
+
+
+def _q_ladder(p):
+    """msm_order.cu order_quad: P's cached form once, then per bit of L
+    below the leading one a quad_double and, on a set bit, a quad_add."""
+    pc = _q_cached(p)
+    r = list(p)
+    for bit in bin(sc.L)[3:]:
+        r = _q_double(r)
+        if bit == "1":
+            r = _q_add(r, pc)
+    return r
+
+
+def _canonical_limbs(quad):
+    return [[(v >> (51 * i)) & _M51 for i in range(5)] for v in _k_ints(quad)]
+
+
+def _rows(t: torch.Tensor):
+    """(n, 4, 5) limbs -> n quads of Python-int limbs."""
+    return [[list(c) for c in row] for row in t.tolist()]
+
+
+def test_quad_formulas_match_the_one_thread_formulas():
+    """quad_double, quad_add (on quad_cached's form) and quad_cached
+    give the field elements of the one-thread transcription (_k_double,
+    _k_add_ext), at limbs of 2^52 - 1 and random ones below 2^52."""
+    rng = np.random.default_rng(81)
+    pts = torch.from_numpy(rng.integers(0, 1 << 52, (4, 4, 5)))
+    pts[0] = (1 << 52) - 1
+    p, q = _rows(pts[:2]), _rows(pts[2:])
+    for a, b in zip(p, q):
+        assert _k_ints(_q_double(a)) == _k_ints(_k_double(a))
+        assert _k_ints(_q_add(a, _q_cached(b))) == _k_ints(_k_add_ext(a, b))
+        x, y, z, t = _k_ints(b)
+        assert _k_ints(_q_cached(b)) == [(y - x) % fe.P, (y + x) % fe.P,
+                                         fe.D2_INT * t % fe.P, 2 * z % fe.P]
+
+
+@pytest.mark.parametrize("w_bits", [6, 7, 8])
+@pytest.mark.parametrize("nw", [1, 2, 18, 37, 43])
+def test_quad_horner_matches_the_plain_version(nw, w_bits):
+    """The quad Horner of msm_horner.cu against window_horner_ref,
+    canonical limb for limb, at the plans' widths and window counts (18
+    and 37 the baseline's, 43 the most a plan has), on window sums with
+    limbs of 2^52 - 1 and random ones below 2^52."""
+    rng = np.random.default_rng(100 * nw + w_bits)
+    w = torch.from_numpy(rng.integers(0, 1 << 52, (nw, 4, 5)))
+    w[::3] = (1 << 52) - 1
+    want = msm_cuda.window_horner_ref(w, w_bits)[0].tolist()
+    assert _canonical_limbs(_q_horner(_rows(w), w_bits)) == want
+
+
+def _ladder_points(clean_points):
+    """The eight torsion points (the identity, order 2, 4 and 8) at Z = 1
+    and at a random Z, two clean points, both negated (limbs up to
+    2^52), and a row of limbs 2^52 - 1."""
+    from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
+
+    rng = np.random.default_rng(5)
+    t8 = corpus._order8_point()
+    rows = []
+    for k in range(8):
+        x, y = oracle.scalarmult(k, t8)
+        for z in (1, int(rng.integers(2, 1 << 62))):
+            rows.append([v * z % fe.P for v in (x, y, 1, x * y)])
+    tors = torch.tensor([[[(v >> (51 * i)) & _M51 for i in range(5)]
+                          for v in r] for r in rows], dtype=torch.int64)
+    clean = clean_points[:2]
+    ones = torch.full((1, 4, 5), (1 << 52) - 1, dtype=torch.int64)
+    return torch.cat([tors, clean, ge.point_neg_limbs(clean), ones])
+
+
+def test_quad_ladder_matches_the_plain_version(clean_points):
+    """The quad ladder of msm_order.cu against mul_by_group_order_ref,
+    canonical limb for limb: [L] T is the identity for the identity and
+    the clean points and a point of T's order for the other torsion
+    points (L = 5 mod 8)."""
+    pts = _ladder_points(clean_points)
+    want = msm_cuda.mul_by_group_order_ref(pts)
+    for row, exp in zip(_rows(pts), want.tolist()):
+        assert _canonical_limbs(_q_ladder(row)) == exp
+    ident = ge.is_identity_limbs(want).tolist()
+    assert ident == [True, True] + [False] * 14 + [True] * 4 + [False]
+
+
+def test_horner_chunks_visit_every_window_once():
+    """horner_quad's chunk loops (HORNER_CHUNK from the source): every
+    window below the top one, once, from the top down, for nw = 1 to
+    three chunks and more."""
+    src = (ROOT / "firedancer_tpu_torch" / "ops" / "csrc" /
+           "msm_horner.cu").read_text()
+    chunk = int(re.search(r"#define HORNER_CHUNK (\d+)", src).group(1))
+    for nw in range(1, 3 * chunk + 3):
+        seen = []
+        hi = nw - 2
+        while hi >= 0:
+            lo = max(hi - chunk + 1, 0)
+            formed = {min(t0 + quad, hi) for t0 in range(lo, hi + 1, 8)
+                      for quad in range(8) if t0 + quad <= hi}
+            assert formed == set(range(lo, hi + 1))
+            seen += list(range(hi, lo - 1, -1))
+            hi -= chunk
+        assert seen == list(range(nw - 2, -1, -1))
+
+
+def test_combine_points_on_the_cpu_runs_the_three_plain_versions():
+    """combine_points' outputs on CPU tensors equal the two Horners and
+    the ladder called one by one, and only their plain versions run."""
+    rng = np.random.default_rng(9)
+    plan = msm_plan.parse_plan("u6l3")
+    parts = {"w_r": torch.from_numpy(rng.integers(0, 1 << 51, (3, 4, 5))),
+             "w_m": torch.from_numpy(rng.integers(0, 1 << 51, (4, 4, 5))),
+             "sub": torch.from_numpy(rng.integers(0, 1 << 51, (2, 4, 5))),
+             "ok_r": torch.tensor(True), "ok_m": torch.tensor(True),
+             "sub_ok": torch.tensor(False)}
+    backend.reset_counts()
+    t1, t2, cert, ok = vr.combine_points(parts, plan)
+    assert backend.launches == {}
+    assert backend.plain_calls == {"msm_horner": 2, "msm_order": 1}
+    want_t1, ok_r = msm.msm_fast_combine(parts["w_r"], parts["ok_r"], plan)
+    want_t2, ok_m = msm.msm_fast_combine(parts["w_m"], parts["ok_m"], plan)
+    want_cert, sub_ok = msm.subgroup_fast_combine(parts["sub"],
+                                                  parts["sub_ok"])
+    assert torch.equal(t1, want_t1) and torch.equal(t2, want_t2)
+    assert bool(cert) == bool(want_cert)
+    assert bool(ok) == bool(ok_r & ok_m & sub_ok)
+    parts["sub"] = ge.to_limbs51(ge.identity((2,)))
+    parts["sub_ok"] = torch.tensor(True)
+    _, _, cert, ok = vr.combine_points(parts, plan)
+    assert bool(cert) and bool(ok) and not bool(want_cert)
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    ("msm_tails_cuda", lambda p: (p, p, p, 7)),
+    ("window_horner_cuda", lambda p: (p, 7)),
+    ("mul_by_group_order_cuda", lambda p: (p,))])
+def test_tails_kernels_refuse_cpu_tensors(wrapper, args):
+    pts = torch.zeros(2, 4, 5, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(msm_cuda, wrapper)(*args(pts))
 
 
 @pytest.mark.parametrize("wrapper,args", [
