@@ -11,8 +11,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    compute capability; require CUDA with capability 9.x.
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
-   registers and spills, and K3's window loop in SASS (instructions a
-   thread a window and their opcode mix, from cuobjdump).
+   registers and spills, K3's window loop and the decompress core's
+   squaring loop in SASS (instructions a thread a window or a squaring
+   and their opcode mix, from cuobjdump).
 3. Kernel parity: each of the fifteen kernels against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
    agree exactly (canonical bytes, limbs and masks). The bucket fill and
@@ -23,8 +24,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    half's three: frontend_rlc and sha512_batch on 8192 hash rows (and on rows
    of every length 0-1296; sha512_batch also on signing's 1344-byte rows
    of the 1280-byte bucket), decompress_niels on 2 x 8192 encodings with
-   y = +-1, non-square, non-canonical and small-order lanes planted (and
-   on a batch that is not a multiple of its 32-lane group). The four MSM
+   y = +-1, non-square, non-canonical and small-order lanes planted, its
+   points equal to K2's. Both decompress kernels (one core, five threads
+   a lane, six lanes a warp) also run at n = 1, 5, 6, 7, 31 and
+   2 x 8192 - 3 lanes; K2 is
+   timed at 8192, 2 x 8192 and 4 x 8192 lanes, and both print their
+   registers, stack and spills. The four MSM
    kernels take their inputs staged from a clean 8192-lane batch through
    the RLC front half: the three bucket fills (z, 253-bit, torsion) on
    the decompress kernel's niels forms, the three aggregations, both
@@ -126,6 +131,8 @@ RLC_PASS = {"decompress_niels": 1, "msm_fill": 3, "msm_aggregate": 3,
 TAILS_ROWS = ("msm_horner", "msm_order")
 # Threads a lane at which phase 3 times each bucket fill.
 FILL_SWEEP = (4, 8, 16, 32)
+# Ragged batches of the decompress kernels (six lanes a warp, 24 a block).
+RAGGED = (1, 5, 6, 7, 31)
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -207,17 +214,12 @@ def bound_decompress_so(n: int):
                   n * (32 + 4 * 40 + 2))
 
 
-def bound_decompress_niels(n: int, group: int):
-    """Per lane 267 squarings and 19 multiplies: the curve equation, the
-    252-squaring ladder, the root checks, T, 2d T and the three
-    small-order doublings (12 S + 9 M), with Montgomery's trick at its
-    least, 3 multiplies a lane; per group of `group` lanes one inversion
-    (254 S + 11 M). Reads 32 B a lane; writes the point, both niels forms
+def bound_decompress_niels(n: int):
+    """K2's chain (267 S + 28 M a lane) and the 2d T multiply of the
+    niels forms. Reads 32 B a lane; writes the point, both niels forms
     and two masks."""
-    groups = -(-n // group)
-    ops = (n * (267 * IMAD_PER_SQ + 19 * IMAD_PER_MUL)
-           + groups * (254 * IMAD_PER_SQ + 11 * IMAD_PER_MUL))
-    return _bound(ops, n * (32 + 4 * 40 + 2 * 3 * 40 + 2))
+    return _bound(n * (267 * IMAD_PER_SQ + 29 * IMAD_PER_MUL),
+                  n * (32 + 4 * 40 + 2 * 3 * 40 + 2))
 
 
 def bound_double_scalarmult(n: int):
@@ -310,17 +312,18 @@ def bound_order(k: int, order: int):
                   2 * k * PT_BYTES)
 
 
-def k3_loop_mix(lib) -> None:
-    """Phase 2: K3's window loop in SASS (cuobjdump -sass on its library):
-    the largest innermost backward branch of dsm_kernel, its instruction
-    count (a thread's instructions a window) and opcode mix."""
+def sass_loop(lib, function: str, largest: bool):
+    """Phase 2: a kernel's loop in SASS (cuobjdump -sass on its library):
+    the largest (K3's window loop) or smallest (the decompress core's
+    squaring loop) innermost backward branch of the function, as a list
+    of its instructions' token lists (a thread's instructions an
+    iteration); None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
-        say("K3 SASS: cuobjdump not found (not measured)")
-        return
+        return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    body = sass[sass.index("Function : _Z10dsm_kernel"):]
+    body = sass[sass.index(f"Function : {function}"):]
     end = body.find("Function :", 10)
     ins = [(int(a, 16), t.split()) for a, t in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[:end] if end > 0 else body)]
@@ -330,14 +333,38 @@ def k3_loop_mix(lib) -> None:
             loops.append((int(toks[-1], 16), a))
     inner = [lp for lp in loops if not any(
         o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
-    lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
+    lo, hi = (max if largest else min)(inner, key=lambda lp: lp[1] - lp[0])
+    return [t for a, t in ins if lo <= a <= hi]
+
+
+def loop_mix(loop) -> str:
+    """Instruction count and opcode mix of a sass_loop."""
     ops = collections.Counter(
-        (t[1] if t[0].startswith("@") else t[0]).split(".")[0]
-        for a, t in ins if lo <= a <= hi)
+        (t[1] if t[0].startswith("@") else t[0]).split(".")[0] for t in loop)
     n = sum(ops.values())
-    say(f"K3 SASS window loop: {n} instructions a thread a window: " +
-        ", ".join(f"{k} {v} ({100 * v / n:.1f}%)"
-                  for k, v in ops.most_common(8)))
+    return f"{n} instructions a thread: " + ", ".join(
+        f"{k} {v} ({100 * v / n:.1f}%)" for k, v in ops.most_common(8))
+
+
+def sass_loops(build) -> None:
+    """Phase 2: K3's window loop, and the decompress core's squaring loop
+    (lg_sqn's loop is not unrolled: one squaring an iteration)."""
+    k3 = sass_loop(build.lib_path("double_scalarmult"), "_Z10dsm_kernel",
+                   largest=True)
+    if k3 is None:
+        say("SASS: cuobjdump not found (not measured)")
+        return
+    say(f"K3 SASS window loop, a window: {loop_mix(k3)}")
+    sq = sass_loop(build.lib_path("decompress_so"),
+                   "_Z20decompress_so_kernel", largest=False)
+    say(f"decompress core SASS squaring loop (K2), a squaring: "
+        f"{loop_mix(sq)}")
+
+
+def ptxas_line(build, name: str) -> str:
+    """ptxas's registers, stack frame and spills of a kernel's library."""
+    return " | ".join(ln.strip() for ln in build.ptxas_report().get(
+        name, "").splitlines() if "registers" in ln or "spill" in ln)
 
 
 # ------------------------------------------------------------- timing
@@ -1265,11 +1292,9 @@ def main() -> int:
     build.build_all()
     say(f"build: {time.perf_counter() - t0:.2f} s "
         f"(stamp {build.stamp()}, {build.BUILD_DIR})")
-    for name, text in build.ptxas_report().items():
-        lines = [ln.strip() for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        say(f"ptxas {name}: " + " | ".join(lines))
-    k3_loop_mix(build.lib_path("double_scalarmult"))
+    for name in build.ptxas_report():
+        say(f"ptxas {name}: {ptxas_line(build, name)}")
+    sass_loops(build)
 
     rng = np.random.RandomState(7)
 
@@ -1317,19 +1342,35 @@ def main() -> int:
            "firedancer_tpu/ops/frontend_pallas.py:290",
            "firedancer_tpu_torch/ops/csrc/sha512_mod_l.cu")
 
-    # K2: the stacked A || R pass, 2B lanes: the edge corpus, then
-    # encodings of random points and random bytes.
+    # K2: the stacked A || R pass, 2B lanes: the edge corpus, then random
+    # bytes (about half decode); then ragged shapes, cut where edges meet
+    # random lanes; timed at B, 2B and 4B lanes.
     edge = corpus.edge_encodings(rng)
-    k2_np = rng.randint(0, 256, (2 * B, 32), dtype=np.uint8)
+    k2_np = rng.randint(0, 256, (4 * B, 32), dtype=np.uint8)
     k2_np[:len(edge)] = np.frombuffer(b"".join(edge), np.uint8).reshape(-1, 32)
-    enc = gpu(k2_np)
+    enc4 = gpu(k2_np)
+    enc = enc4[:2 * B]
     k2 = curve_cuda.decompress_so_cuda(enc)
     err = parity("decompress_so", k2, curve_cuda.decompress_so_ref(enc))
     torsion = len(corpus.torsion_encodings())
     if not (bool(k2[2][:torsion].all()) and bool(k2[1][:torsion].all())):
         fail("decompress_so: a torsion encoding is not decoded small-order")
+    ragged = [(len(edge) - 3, n) for n in RAGGED] + [(0, 2 * B - 3)]
+    for off, n in ragged:
+        cut = enc[off:off + n]
+        err = max(err, parity(f"decompress_so ({n} lanes)",
+                              curve_cuda.decompress_so_cuda(cut),
+                              curve_cuda.decompress_so_ref(cut)))
     say(f"decompress_so: {int(k2[1].sum())}/{2 * B} lanes decode, "
-        f"{len(edge)} edge encodings")
+        f"{len(edge)} edge encodings; equal at n = "
+        f"{', '.join(str(n) for _, n in ragged)}")
+    for lanes in (B, 2 * B, 4 * B):
+        k_ms = time_ms(torch, lambda: curve_cuda.decompress_so_cuda(
+            enc4[:lanes]), REPS)
+        say(f"  decompress_so at {lanes} lanes: {k_ms:.4f} ms, "
+            f"{k_ms * 1e6 / lanes:.2f} ns a lane, bound "
+            f"{bound_decompress_so(lanes)[0]:.4f} ms")
+    say(f"decompress_so resources: {ptxas_line(build, 'decompress_so')}")
     record("decompress_so", err,
            time_ms(torch, lambda: curve_cuda.decompress_so_cuda(enc), REPS),
            time_ms(torch, lambda: curve_cuda.decompress_so_ref(enc), 2),
@@ -1431,12 +1472,11 @@ def main() -> int:
            "firedancer_tpu/ops/sha512_pallas.py:220",
            "firedancer_tpu_torch/ops/csrc/sha512_batch.cu")
 
-    # decompress_niels on 2B encodings: random bytes (about half decode,
-    # so every 32-lane group mixes failing and valid lanes), the edge
-    # corpus spread over the first B lanes (y = +-1, non-square,
-    # non-canonical and small-order lanes among valid group mates) and
-    # one whole group of undecodable encodings at lane B; then the batch
-    # cut to 2B - 3 lanes, off the group.
+    # decompress_niels on 2B encodings: random bytes (about half decode),
+    # the edge corpus spread over the first B lanes (y = +-1, non-square,
+    # non-canonical and small-order lanes among valid ones; the plain
+    # version's 32-lane inversion groups mix them) and one whole group of
+    # undecodable encodings at lane B; then the ragged shapes.
     dn_np = rng.randint(0, 256, (2 * B, 32), dtype=np.uint8)
     spots = np.linspace(5, B - 1, len(edge)).astype(np.int64)
     dn_np[spots] = np.frombuffer(b"".join(edge), np.uint8).reshape(-1, 32)
@@ -1446,10 +1486,11 @@ def main() -> int:
     dn = curve_cuda.decompress_niels_cuda(dn_enc)
     err = parity("decompress_niels", dn,
                  curve_cuda.decompress_niels_ref(dn_enc))
-    err = max(err, parity(
-        f"decompress_niels ({2 * B - 3} lanes)",
-        curve_cuda.decompress_niels_cuda(dn_enc[:2 * B - 3].contiguous()),
-        curve_cuda.decompress_niels_ref(dn_enc[:2 * B - 3])))
+    for off, n in [(int(spots[3]), n) for n in RAGGED] + [(0, 2 * B - 3)]:
+        cut = dn_enc[off:off + n]
+        err = max(err, parity(f"decompress_niels ({n} lanes)",
+                              curve_cuda.decompress_niels_cuda(cut),
+                              curve_cuda.decompress_niels_ref(cut)))
     err = max(err, parity("decompress_niels points vs decompress_so",
                           dn[:3], curve_cuda.decompress_so_cuda(dn_enc)))
     t_spots = gpu(spots[:torsion])
@@ -1458,15 +1499,16 @@ def main() -> int:
         fail("decompress_niels: a torsion encoding is not decoded "
              "small-order, or an undecodable lane decoded")
     say(f"decompress_niels: {int(dn[1].sum())}/{2 * B} lanes decode, "
-        f"{len(edge)} edge encodings spread, one failing group")
-    from firedancer_tpu_torch.ops import decompress as dec_mod
-
+        f"{len(edge)} edge encodings spread, one failing group; equal at "
+        f"n = {', '.join(str(n) for n in RAGGED)} and {2 * B - 3}")
+    say(f"decompress_niels resources: "
+        f"{ptxas_line(build, 'decompress_niels')}")
     record("decompress_niels", err,
            time_ms(torch, lambda: curve_cuda.decompress_niels_cuda(dn_enc),
                    REPS),
            time_ms(torch, lambda: curve_cuda.decompress_niels_ref(dn_enc),
                    2),
-           bound_decompress_niels(2 * B, dec_mod.GROUP),
+           bound_decompress_niels(2 * B),
            "firedancer_tpu/ops/curve_pallas.py:234",
            "firedancer_tpu_torch/ops/csrc/decompress_niels.cu")
 

@@ -195,8 +195,7 @@ __device__ __forceinline__ void fe_store_canonical(int64_t *p, const fe &a) {
 }
 
 // A warp's field elements, moved by shuffles (every thread of the warp
-// must take part: full mask). The MSM kernels, decompress_niels and K3
-// share this one set.
+// must take part: full mask). The MSM kernels and K3 share this one set.
 #define FD_FULL_MASK 0xffffffffu
 
 __device__ __forceinline__ fe fe_shfl_xor(const fe &a, int o) {
@@ -210,13 +209,6 @@ __device__ __forceinline__ fe fe_shfl_down(const fe &a, int o) {
   fe r;
 #pragma unroll
   for (int i = 0; i < 5; i++) r.v[i] = __shfl_down_sync(FD_FULL_MASK, a.v[i], o);
-  return r;
-}
-
-__device__ __forceinline__ fe fe_shfl_up(const fe &a, int o) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 5; i++) r.v[i] = __shfl_up_sync(FD_FULL_MASK, a.v[i], o);
   return r;
 }
 
@@ -284,13 +276,6 @@ __device__ __forceinline__ ge ge_double(const ge &p, bool need_t) {
   r.Z = fe_mul(f, g);
   r.T = need_t ? fe_mul(e, h) : fe_zero();
   return r;
-}
-
-// Small order: 8*P == identity, three doublings and an identity test.
-__device__ __forceinline__ int ge_is_small_order(const ge &p) {
-  ge t = p;
-  for (int i = 0; i < 3; i++) t = ge_double(t, false);
-  return fe_is_zero(t.X) && fe_eq(t.Y, t.Z);
 }
 
 // Launch geometry shared by the one-thread-per-lane kernels.

@@ -8,7 +8,9 @@
 // 512-lane tile in VMEM so that the ~265 sequential multiplies never
 // stream through HBM; here each lane is one thread and the chain runs in
 // registers: fe_invert and fe_pow22523 of fe25519.cuh, the device
-// functions K2 and decompress_niels run, called and not copied.
+// functions compress runs, called and not copied (K2 and
+// decompress_niels run fe_pow22523's chain on five threads a lane,
+// decompress_core.cuh lg_pow22523).
 //
 // Bound on this card: integer multiply issue (254 or 251 squarings and
 // 11 multiplies a lane) against 80 bytes a lane. Design: one

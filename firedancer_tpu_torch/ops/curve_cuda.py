@@ -9,7 +9,10 @@ Points cross as canonical int64 ``(B, k, 5)`` radix-2^51 limbs (X, Y,
 Z, T), niels forms as ``(B, 3, 5)``. Each op launches its CUDA kernel
 (``csrc/decompress_so.cu``, ``csrc/decompress_niels.cu``,
 ``csrc/point_eq.cu``, ``csrc/compress.cu``) for CUDA tensors and runs its
-plain version for CPU tensors.
+plain version for CPU tensors. Both decompress kernels run one core
+(``csrc/decompress_core.cuh``): donna's inversion-free square-root chain
+of a lane on GROUP threads, thread j holding limb j of every field
+element, LANES_PER_WARP lanes a warp.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from . import decompress as dec
 from . import fe25519 as fe
 
 _V = ctypes.c_void_p
+GROUP = 5                       # threads a lane (decompress_core.cuh DC_GROUP)
+LANES_PER_WARP = 32 // GROUP    # threads 30-31 of a warp decode no lane
 
 
 def decompress_so_ref(enc: torch.Tensor):
@@ -98,9 +103,10 @@ def decompress_niels_cuda(enc: torch.Tensor):
 
 
 def decompress_niels(enc: torch.Tensor):
-    """Batched decompress of (B, 32) encodings -> (point, ok, small_order,
-    niels, niels_neg): the RLC pass's front half (one inversion per
-    decompress.GROUP lanes)."""
+    """Decompress of (B, 32) encodings -> (point, ok, small_order, niels,
+    niels_neg): the RLC pass's front half. The kernel runs K2's per-lane
+    chain; the plain version shares one inversion among decompress.GROUP
+    lanes, as the JAX kernel does. The outputs are the same."""
     if backend.use_kernel(enc):
         return decompress_niels_cuda(enc.contiguous())
     return decompress_niels_ref(enc)

@@ -1,5 +1,5 @@
-"""Montgomery-batched point decompression, the plain version of the
-kernel behind ``curve_cuda.decompress_niels``: the counterpart of
+"""Montgomery-batched point decompression, the plain version of
+``curve_cuda.decompress_niels``: the counterpart of
 ``firedancer_tpu/ops/decompress_pallas.py`` (``_y_pm1_mask``:212,
 ``_mont_inv_tree``:233, ``_decompress_block``:242,
 ``decompress_batched_xla``:316, ``inversion_count``:170).
@@ -17,8 +17,10 @@ differs from donna's by a fourth root of unity, and the same root checks
 outputs are bit-exact. Lanes with y = +-1 (u = 0, so m = 0 would poison
 their group) enter the tree as 1; their x is 0 from the ladder.
 
-The group is the kernel's: one warp of GROUP = 32 lanes, a batch padded
-with 1 to a multiple of it. Field elements are ``fe25519`` (B, 10)
+The grouping is the JAX kernel's counterpart, with GROUP = 32 lanes and
+a batch padded with 1 to a multiple of it. The CUDA kernel shares no
+inversion: it runs donna's per-lane chain (``csrc/decompress_core.cuh``),
+whose outputs are the same. Field elements are ``fe25519`` (B, 10)
 tensors; points cross as canonical (B, 4, 5) radix-2^51 limbs.
 """
 
@@ -31,7 +33,7 @@ import torch
 from . import curve25519 as ge
 from . import fe25519 as fe
 
-GROUP_LOG2 = 5                 # one inversion per warp of 32 lanes
+GROUP_LOG2 = 5                 # one inversion per 32 lanes
 GROUP = 1 << GROUP_LOG2
 LADDER_SQUARINGS = 252
 

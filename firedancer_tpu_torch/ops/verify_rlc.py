@@ -17,9 +17,9 @@ group order and must give the identity (soundness per accepted batch:
 an overflowing bucket fill only routes the batch to the exact per-lane
 path (``ops.verify.verify_batch``).
 
-The front half decompresses A || R once with the Montgomery-batched
-kernel (``curve_cuda.decompress_niels``), which also writes the small-order
-mask and the niels forms the three bucket fills read, and computes the
+The front half decompresses A || R once (``curve_cuda.decompress_niels``,
+K2's per-lane chain), which also writes the small-order mask and the
+niels forms the three bucket fills read, and computes the
 scalars h = SHA-512(r || A || msg) mod L, m = z h mod L and zs = z s mod
 L in one of the JAX package's two accelerator configurations
 (``frontend``): "fused", one ``frontend_rlc`` launch, or "staged",
