@@ -11,9 +11,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    compute capability; require CUDA with capability 9.x.
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
-   registers and spills, K3's window loop and the decompress core's
-   squaring loop in SASS (instructions a thread a window or a squaring
-   and their opcode mix, from cuobjdump).
+   registers and spills, K3's window loop, the decompress core's
+   squaring loop and the SHA-512 core's round loop in SASS (instructions
+   a thread an iteration and their opcode mix, from cuobjdump).
 3. Kernel parity: each of the fifteen kernels against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
    agree exactly (canonical bytes, limbs and masks). The bucket fill and
@@ -25,7 +25,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
    of every length 0-1296; sha512_batch also on signing's 1344-byte rows
    of the 1280-byte bucket), decompress_niels on 2 x 8192 encodings with
    y = +-1, non-square, non-canonical and small-order lanes planted, its
-   points equal to K2's. Both decompress kernels (one core, five threads
+   points equal to K2's. K1 and frontend_rlc (one warp-staged SHA-512
+   core, 32 lanes a warp) also run on rows of stride 1299, on 256-byte
+   rows at an odd base address and (frontend_rlc) with z and s at odd
+   addresses, each at B and at n = 1, 31, 33 and 8191 lanes; ptxas must
+   report 0 bytes of stack and 0 spills for both; each prints the trace's
+   device time beside its CUDA-event time (their wrappers' host path is
+   longer than the kernels; firedancer_tpu_torch/tools/hash_times.py
+   times them by shape and warps a block).
+   Both decompress kernels (one core, five threads
    a lane, six lanes a warp) also run at n = 1, 5, 6, 7, 31 and
    2 x 8192 - 3 lanes; K2 is
    timed at 8192, 2 x 8192 and 4 x 8192 lanes, and both print their
@@ -133,6 +141,8 @@ TAILS_ROWS = ("msm_horner", "msm_order")
 FILL_SWEEP = (4, 8, 16, 32)
 # Ragged batches of the decompress kernels (six lanes a warp, 24 a block).
 RAGGED = (1, 5, 6, 7, 31)
+# Ragged batches of the warp-staged hash kernels (32 lanes a warp).
+HASH_RAGGED = (1, 31, 33, B - 1)
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -312,17 +322,15 @@ def bound_order(k: int, order: int):
                   2 * k * PT_BYTES)
 
 
-def sass_loop(lib, function: str, largest: bool):
-    """Phase 2: a kernel's loop in SASS (cuobjdump -sass on its library):
-    the largest (K3's window loop) or smallest (the decompress core's
-    squaring loop) innermost backward branch of the function, as a list
-    of its instructions' token lists (a thread's instructions an
-    iteration); None without cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.access(tool, os.X_OK):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+def _op(t) -> str:
+    """A SASS instruction's opcode without its predicate or modifiers."""
+    return (t[1] if t[0].startswith("@") else t[0]).split(".")[0]
+
+
+def inner_loops(sass: str, function: str) -> list:
+    """The innermost backward branches of a function in cuobjdump -sass
+    output, each as a list of its instructions' token lists (a thread's
+    instructions an iteration)."""
     body = sass[sass.index(f"Function : {function}"):]
     end = body.find("Function :", 10)
     ins = [(int(a, 16), t.split()) for a, t in re.findall(
@@ -333,38 +341,69 @@ def sass_loop(lib, function: str, largest: bool):
             loops.append((int(toks[-1], 16), a))
     inner = [lp for lp in loops if not any(
         o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
-    lo, hi = (max if largest else min)(inner, key=lambda lp: lp[1] - lp[0])
-    return [t for a, t in ins if lo <= a <= hi]
+    return [[t for a, t in ins if lo <= a <= hi] for lo, hi in inner]
+
+
+def sass_loop(lib, function: str, pick):
+    """Phase 2: the innermost loop of a kernel that pick (max or min with
+    a key) selects from inner_loops, from cuobjdump -sass on its library;
+    None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return pick(inner_loops(sass, function))
 
 
 def loop_mix(loop) -> str:
     """Instruction count and opcode mix of a sass_loop."""
-    ops = collections.Counter(
-        (t[1] if t[0].startswith("@") else t[0]).split(".")[0] for t in loop)
+    ops = collections.Counter(_op(t) for t in loop)
     n = sum(ops.values())
     return f"{n} instructions a thread: " + ", ".join(
         f"{k} {v} ({100 * v / n:.1f}%)" for k, v in ops.most_common(8))
 
 
 def sass_loops(build) -> None:
-    """Phase 2: K3's window loop, and the decompress core's squaring loop
-    (lg_sqn's loop is not unrolled: one squaring an iteration)."""
+    """Phase 2: K3's window loop (the largest), the decompress core's
+    squaring loop (the smallest: lg_sqn's loop is not unrolled, one
+    squaring an iteration) and the SHA-512 core's round loop (the one
+    with the most funnel shifts SHF: sw_rounds, 16 rounds an
+    iteration)."""
     k3 = sass_loop(build.lib_path("double_scalarmult"), "_Z10dsm_kernel",
-                   largest=True)
+                   lambda lps: max(lps, key=len))
     if k3 is None:
         say("SASS: cuobjdump not found (not measured)")
         return
     say(f"K3 SASS window loop, a window: {loop_mix(k3)}")
     sq = sass_loop(build.lib_path("decompress_so"),
-                   "_Z20decompress_so_kernel", largest=False)
+                   "_Z20decompress_so_kernel", lambda lps: min(lps, key=len))
     say(f"decompress core SASS squaring loop (K2), a squaring: "
         f"{loop_mix(sq)}")
+    sha = sass_loop(build.lib_path("sha512_mod_l"),
+                    "_Z19sha512_mod_l_kernelPKhxPKiPhx",
+                    lambda lps: max(lps, key=lambda lp: sum(
+                        _op(t) == "SHF" for t in lp)))
+    say(f"SHA-512 core SASS round loop (K1), 16 rounds: "
+        f"{loop_mix(sha)}")
 
 
 def ptxas_line(build, name: str) -> str:
     """ptxas's registers, stack frame and spills of a kernel's library."""
     return " | ".join(ln.strip() for ln in build.ptxas_report().get(
         name, "").splitlines() if "registers" in ln or "spill" in ln)
+
+
+def check_no_stack(build, name: str) -> None:
+    """ptxas must report 0 bytes of stack and 0 spills for every entry of
+    a kernel's library; prints its registers, stack, spills and shared
+    memory."""
+    rep = build.ptxas_report().get(name, "")
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", rep)
+    say(f"{name} resources: {ptxas_line(build, name)}")
+    if not frames or any(int(v) for f in frames for v in f):
+        fail(f"{name}: ptxas reports stack or spills ({frames})")
 
 
 # ------------------------------------------------------------- timing
@@ -382,14 +421,30 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def trace_device_ms(prof, kernel: str) -> float | None:
+    """Mean device time of a launch of the kernels whose name starts with
+    kernel in a torch.profiler trace, over the launches the trace holds
+    (it may drop some); None when the trace shows no device time."""
+    from torch.autograd import DeviceType
+
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_type", None) == DeviceType.CUDA
+                and ev.key.startswith(kernel)):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            total, count = total + dev_us, count + ev.count
+    return total / 1e3 / count if total > 0 else None
+
+
 def after_other(torch, other, fn, kernel: str,
                 reps: int = REPS) -> tuple[float, float | None]:
     """fn launched right after other, reps times under torch.profiler:
     the mean ms of fn by CUDA events around it alone, and by the trace's
-    device time of its kernel (the name's prefix kernel; None when the
-    trace shows no device time). fn runs with the caches other left
-    behind, where time_ms gives it warm from its own previous launch."""
-    from torch.autograd import DeviceType
+    device time of its kernel (trace_device_ms). fn runs with the caches
+    other left behind, where time_ms gives it warm from its own previous
+    launch."""
     from torch.profiler import ProfilerActivity, profile
 
     times = []
@@ -403,15 +458,23 @@ def after_other(torch, other, fn, kernel: str,
             stop.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(stop))
-    traced = None
-    for ev in prof.key_averages():
-        if (getattr(ev, "device_type", None) == DeviceType.CUDA
-                and ev.key.startswith(kernel)):
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            traced = dev_us / 1e3 / reps
-    return sum(times) / reps, traced
+    return sum(times) / reps, trace_device_ms(prof, kernel)
+
+
+def traced_ms(torch, fn, kernel: str, reps: int = REPS) -> float | None:
+    """Mean device time of kernel over reps warm calls of fn under
+    torch.profiler (trace_device_ms). It times a kernel shorter than its
+    wrapper's host path, where CUDA events around back-to-back calls time
+    the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return trace_device_ms(prof, kernel)
 
 
 def profile_batches(torch, fn, batch_ms: float, n: int = 3) -> None:
@@ -512,6 +575,54 @@ def _edge_points(torch, rng, dev):
         pts += [(x, y, 1), (x * lam % p, y * lam % p, lam)]
     return torch.stack([_limbs51(torch, [q[c] for q in pts], dev)
                         for c in range(3)], dim=1)
+
+
+def hash_rows(torch, gpu, dev) -> dict:
+    """Rows of the warp-staged hash kernels beside the main path's (own
+    seed, so that the later phases' inputs stay as they were): stride
+    1299 (rows off every 16-byte boundary) with lengths 0, 111, 112, 239,
+    240, 1231 and max_len planted, and 256-byte rows starting 3 bytes
+    past an aligned address (aligned words joined by funnel shifts)."""
+    rng = np.random.RandomState(17)
+    lens = rng.randint(0, 1300, B).astype(np.int32)
+    lens[:7] = [0, 111, 112, 239, 240, 1231, 1299]
+    odd = gpu(rng.randint(0, 256, B * 256 + 3, dtype=np.uint8))[3:]
+    return {"stride 1299": (gpu(rng.randint(0, 256, (B, 1299),
+                                            dtype=np.uint8)), gpu(lens)),
+            "256-byte rows at base + 3": (
+                odd.view(B, 256),
+                torch.full((B,), 256, dtype=torch.int32, device=dev))}
+
+
+def hash_shapes(parity, name, shapes, kern, plain) -> float:
+    """A hash kernel against its plain version on each (label, args) of
+    shapes, on all B lanes and on the first n of HASH_RAGGED (the plain
+    version works row by row, so its first n rows are its output on
+    them). Returns the largest error."""
+    err = 0.0
+    for label, args in shapes:
+        want = plain(*args)
+        err = max(err, parity(f"{name} ({label})", kern(*args), want))
+        for n in HASH_RAGGED:
+            cut = kern(*(a[:n] for a in args))
+            err = max(err, parity(
+                f"{name} ({label}, n = {n})", cut,
+                tuple(w[:n] for w in want) if isinstance(want, tuple)
+                else want[:n]))
+    return err
+
+
+def hash_timed(torch, name, kern, kernel) -> float:
+    """A hash kernel's time at the main path's shape: CUDA events around
+    REPS wrapper calls, returned as every row's ms is, and the trace's
+    device time printed beside it."""
+    events = time_ms(torch, kern, REPS)
+    traced = traced_ms(torch, kern, kernel)
+    say(f"  {name} {B} x 256-byte rows: {events:.4f} ms a call by CUDA "
+        f"events (the wrapper's host path bounds it), device "
+        f"{'not measured' if traced is None else f'{traced:.4f} ms'} "
+        f"by the trace")
+    return events
 
 
 def k3_edges(torch, gpu, parity, a_pt, h, s) -> None:
@@ -1320,22 +1431,28 @@ def main() -> int:
             f"{bound[0]:.4f} ms ({bound[1]}), max_abs_err {err}")
 
     # 3. Kernel parity and times at the main path's shapes.
-    # K1: the main path's hash rows r || A || msg, (8192, 64 + 192).
+    # K1: the main path's hash rows r || A || msg, (8192, 64 + 192); rows
+    # of every length 0-1296; stride 1299; rows at an odd base address;
+    # each also at the ragged n of HASH_RAGGED.
     k1_msgs = gpu(rng.randint(0, 256, (B, 64 + MSG_LEN), dtype=np.uint8))
     k1_lens = torch.full((B,), 64 + MSG_LEN, dtype=torch.int32, device=dev)
-    err = parity("sha512_mod_l",
-                 frontend_cuda.sha512_mod_l_cuda(k1_msgs, k1_lens),
-                 frontend_cuda.sha512_mod_l_ref(k1_msgs, k1_lens))
     spread = rng.randint(0, 64 + MTU_MSG + 1, B).astype(np.int32)
     spread[:6] = [0, 111, 112, 239, 240, 64 + MTU_MSG]
     s_msgs = gpu(rng.randint(0, 256, (B, 64 + MTU_MSG), dtype=np.uint8))
     s_lens = gpu(spread)
-    err = max(err, parity("sha512_mod_l (lengths 0-1296)",
-                          frontend_cuda.sha512_mod_l_cuda(s_msgs, s_lens),
-                          frontend_cuda.sha512_mod_l_ref(s_msgs, s_lens)))
+    extra_rows = hash_rows(torch, gpu, dev)
+    k1_shapes = [("256-byte rows", (k1_msgs, k1_lens)),
+                 ("lengths 0-1296", (s_msgs, s_lens)), *extra_rows.items()]
+    err = hash_shapes(parity, "sha512_mod_l", k1_shapes,
+                      frontend_cuda.sha512_mod_l_cuda,
+                      frontend_cuda.sha512_mod_l_ref)
+    say(f"sha512_mod_l: equal on {', '.join(k for k, _ in k1_shapes)}, "
+        f"each at B and n = {', '.join(map(str, HASH_RAGGED))}")
+    check_no_stack(build, "sha512_mod_l")
     record("sha512_mod_l", err,
-           time_ms(torch, lambda: frontend_cuda.sha512_mod_l_cuda(
-               k1_msgs, k1_lens), REPS),
+           hash_timed(torch, "sha512_mod_l",
+                      lambda: frontend_cuda.sha512_mod_l_cuda(
+                          k1_msgs, k1_lens), "sha512_mod_l_kernel"),
            time_ms(torch, lambda: frontend_cuda.sha512_mod_l_ref(
                k1_msgs, k1_lens), 2),
            bound_sha512_mod_l(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),
@@ -1442,16 +1559,23 @@ def main() -> int:
     z_np[:, 15] &= 0x3F
     z_np[::97] = 0
     fz, fs = gpu(z_np), gpu(rng.randint(0, 256, (B, 32), dtype=np.uint8))
-    err = parity("frontend_rlc",
-                 frontend_cuda.frontend_rlc_cuda(k1_msgs, k1_lens, fz, fs),
-                 frontend_cuda.frontend_rlc_ref(k1_msgs, k1_lens, fz, fs))
-    err = max(err, parity(
-        "frontend_rlc (lengths 0-1296)",
-        frontend_cuda.frontend_rlc_cuda(s_msgs, s_lens, fz, fs),
-        frontend_cuda.frontend_rlc_ref(s_msgs, s_lens, fz, fs)))
+    # z and s at odd addresses: the kernel's byte path for its scalars.
+    fz_odd, fs_odd = (gpu(np.concatenate([np.zeros(1, np.uint8),
+                                          t.cpu().numpy().ravel()]))[1:]
+                      .view(B, 32) for t in (fz, fs))
+    rlc_shapes = [(label, (m, ln, fz, fs)) for label, (m, ln) in k1_shapes]
+    rlc_shapes.append(("lengths 0-1296, z and s at odd addresses",
+                       (s_msgs, s_lens, fz_odd, fs_odd)))
+    err = hash_shapes(parity, "frontend_rlc", rlc_shapes,
+                      frontend_cuda.frontend_rlc_cuda,
+                      frontend_cuda.frontend_rlc_ref)
+    say(f"frontend_rlc: equal on {', '.join(k for k, _ in rlc_shapes)}, "
+        f"each at B and n = {', '.join(map(str, HASH_RAGGED))}")
+    check_no_stack(build, "frontend_rlc")
     record("frontend_rlc", err,
-           time_ms(torch, lambda: frontend_cuda.frontend_rlc_cuda(
-               k1_msgs, k1_lens, fz, fs), REPS),
+           hash_timed(torch, "frontend_rlc",
+                      lambda: frontend_cuda.frontend_rlc_cuda(
+                          k1_msgs, k1_lens, fz, fs), "frontend_rlc_kernel"),
            time_ms(torch, lambda: frontend_cuda.frontend_rlc_ref(
                k1_msgs, k1_lens, fz, fs), 2),
            bound_frontend_rlc(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),

@@ -1,13 +1,15 @@
 // SHA-512 (FIPS 180-4) and the scalar arithmetic mod L shared by the
 // front-half kernels (K1 sha512_mod_l.cu, frontend_rlc.cu and
-// sha512_batch.cu, one copy of the rounds for all three) and by
+// sha512_batch.cu: the constants, the digest and the reductions) and by
 // sc_reduce.cu (the Barrett reduction and the 256-bit product).
 //
-// sha512_row hashes one lane's row m[0:len], building the padding (0x80,
-// zeros, the 128-bit big-endian bit length) in the kernel, so no
-// host-side packing pass exists (the TPU kernels read words packed by
-// firedancer_tpu/ops/sha512_pallas.py:141 _pack_schedule); native uint64
-// words, 80 rounds per 128-byte block over a 16-word schedule ring.
+// sha512_row hashes one lane's row m[0:len] on one thread, building the
+// padding (0x80, zeros, the 128-bit big-endian bit length) in the
+// kernel, so no host-side packing pass exists (the TPU kernels read
+// words packed by firedancer_tpu/ops/sha512_pallas.py:141
+// _pack_schedule); native uint64 words, 80 rounds per 128-byte block
+// over a 16-word schedule ring. Only sha512_batch.cu still runs it: K1
+// and frontend_rlc hash on the warp-staged core of sha512_warp.cuh.
 // sc_reduce512 reduces a 512-bit little-endian integer mod L by Barrett
 // with b = 2^64, k = 4 (HAC 14.42): mu = floor(2^512 / L) has five limbs,
 // r < 3L before the final two conditional subtractions.
