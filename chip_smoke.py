@@ -12,7 +12,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
    nvcc into build/torch_kernels/, print the seconds and ptxas's
    registers and spills, K3's window loop, the decompress core's
-   squaring loop and the SHA-512 core's round loop in SASS (instructions
+   squaring loop (in K2 and in compress) and the SHA-512 core's round
+   loop in SASS (instructions
    a thread an iteration and their opcode mix, from cuobjdump).
 3. Kernel parity: each of the fifteen kernels against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
@@ -22,17 +23,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launch must also give the same points as the JAX-order version
    (cross-multiplied on every lane, affine bytes on 512). The RLC front
    half's three: frontend_rlc and sha512_batch on 8192 hash rows (and on rows
-   of every length 0-1296; sha512_batch also on signing's 1344-byte rows
-   of the 1280-byte bucket), decompress_niels on 2 x 8192 encodings with
+   of every length 0-1296; sha512_batch also on signing's 32-, 224- and
+   1344-byte rows, the last of the 1280-byte bucket), decompress_niels on
+   2 x 8192 encodings with
    y = +-1, non-square, non-canonical and small-order lanes planted, its
-   points equal to K2's. K1 and frontend_rlc (one warp-staged SHA-512
-   core, 32 lanes a warp) also run on rows of stride 1299, on 256-byte
-   rows at an odd base address and (frontend_rlc) with z and s at odd
-   addresses, each at B and at n = 1, 31, 33 and 8191 lanes; ptxas must
-   report 0 bytes of stack and 0 spills for both; each prints the trace's
-   device time beside its CUDA-event time (their wrappers' host path is
-   longer than the kernels; firedancer_tpu_torch/tools/hash_times.py
-   times them by shape and warps a block).
+   points equal to K2's. K1, frontend_rlc and sha512_batch (one
+   warp-staged SHA-512 core, 32 lanes a warp) also run on rows of stride
+   1299, on 256-byte rows at an odd base address and (frontend_rlc) with
+   z and s at odd addresses, each shape at B and at n = 1, 31, 33 and
+   8191 lanes; ptxas must report 0 bytes of stack and 0 spills for the
+   three; each prints the trace's device time beside its CUDA-event time
+   (their wrappers' host path is longer than the kernels;
+   firedancer_tpu_torch/tools/hash_times.py times them by shape and warps
+   a block), as do point_eq, sc_reduce64, sc_muladd, fe_pow and compress.
    Both decompress kernels (one core, five threads
    a lane, six lanes a warp) also run at n = 1, 5, 6, 7, 31 and
    2 x 8192 - 3 lanes; K2 is
@@ -55,9 +58,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    signing path's four: sc_reduce64 on 8192 64-byte values with the edges
    0, L - 1, L, 2^255 - 1 and 2^512 - 1 planted; sc_muladd with c != 0
    (signing's h a + r, a clamped) and c = 0 (the staged pass's stacked
-   z || z times h || s); fe_pow, both chains, on 8192 lanes; compress on
+   z || z times h || s); fe_pow, both chains, on 8192 lanes; compress (the
+   decompress core's five threads a lane, through its inversion chain) on
    K3's outputs with the edge points planted (the identity, the torsion
-   points and y within 19 of p, at Z = 1 and Z != 1); and K3 itself with
+   points and y within 19 of p, at Z = 1 and Z != 1; Z = 0 lanes; the
+   same points with every limb in [2^51, 2^52)), also at n = 1, 5, 6, 7,
+   31 and 8192 - 3 and on (n, 4, 5) points, byte for byte, with 0 stack
+   and 0 spills; and K3 itself with
    h = 0 and clamped scalars, as signing calls it. K3 (a quad of threads
    a lane) must equal double_scalarmult_ref limb for limb on every
    launch: the general one, the two h = 0 ones and an edge launch (h, s
@@ -366,10 +373,10 @@ def loop_mix(loop) -> str:
 
 def sass_loops(build) -> None:
     """Phase 2: K3's window loop (the largest), the decompress core's
-    squaring loop (the smallest: lg_sqn's loop is not unrolled, one
-    squaring an iteration) and the SHA-512 core's round loop (the one
-    with the most funnel shifts SHF: sw_rounds, 16 rounds an
-    iteration)."""
+    squaring loop in K2 and in compress (the smallest: lg_sqn's loop is
+    not unrolled, one squaring an iteration) and the SHA-512 core's round
+    loop (the one with the most funnel shifts SHF: sw_rounds, 16 rounds
+    an iteration)."""
     k3 = sass_loop(build.lib_path("double_scalarmult"), "_Z10dsm_kernel",
                    lambda lps: max(lps, key=len))
     if k3 is None:
@@ -380,6 +387,10 @@ def sass_loops(build) -> None:
                    "_Z20decompress_so_kernel", lambda lps: min(lps, key=len))
     say(f"decompress core SASS squaring loop (K2), a squaring: "
         f"{loop_mix(sq)}")
+    csq = sass_loop(build.lib_path("compress"), "_Z15compress_kernel",
+                    lambda lps: min(lps, key=len))
+    say(f"decompress core SASS squaring loop (compress), a squaring: "
+        f"{loop_mix(csq)}")
     sha = sass_loop(build.lib_path("sha512_mod_l"),
                     "_Z19sha512_mod_l_kernelPKhxPKiPhx",
                     lambda lps: max(lps, key=lambda lp: sum(
@@ -423,14 +434,15 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def trace_device_ms(prof, kernel: str) -> float | None:
     """Mean device time of a launch of the kernels whose name starts with
-    kernel in a torch.profiler trace, over the launches the trace holds
-    (it may drop some); None when the trace shows no device time."""
+    kernel in a torch.profiler trace (after the "void " that a template
+    kernel's name starts with), over the launches the trace holds (it may
+    drop some); None when the trace shows no device time."""
     from torch.autograd import DeviceType
 
     total, count = 0.0, 0
     for ev in prof.key_averages():
         if (getattr(ev, "device_type", None) == DeviceType.CUDA
-                and ev.key.startswith(kernel)):
+                and ev.key.removeprefix("void ").startswith(kernel)):
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -524,18 +536,30 @@ def max_abs_err(torch, a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
-def kernel_pass(torch, parity, record, name, runs, replaces, source):
+def _device_note(torch, fn, trace) -> str:
+    """", device t ms" by the trace's device time of the kernels named
+    trace (traced_ms) over REPS calls of fn; "" without trace."""
+    if trace is None:
+        return ""
+    t = traced_ms(torch, fn, trace)
+    return f", device {'not measured' if t is None else f'{t:.4f} ms'}"
+
+
+def kernel_pass(torch, parity, record, name, runs, replaces, source,
+                trace=None):
     """runs: (label, kernel fn, plain fn, bound) per launch of a pass;
-    each launch held against its plain version and timed; one JSON row
-    with the pass's summed times and bounds. Returns the kernel outputs
-    by label."""
+    each launch held against its plain version and timed (CUDA events;
+    with trace, the kernel symbol's prefix, also the trace's device time,
+    printed); one JSON row with the pass's summed times and bounds.
+    Returns the kernel outputs by label."""
     err = ms = plain_ms = 0.0
     outs = {}
     for label, kern, plain, bound in runs:
         out = kern()
         err = max(err, parity(f"{name} {label}", out, plain()))
         k_ms, p_ms = time_ms(torch, kern, REPS), time_ms(torch, plain, 1)
-        say(f"  {name} {label}: kernel {k_ms:.4f} ms, plain "
+        say(f"  {name} {label}: kernel {k_ms:.4f} ms"
+            f"{_device_note(torch, kern, trace)}, plain "
             f"{p_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
         outs[label] = out
@@ -556,10 +580,22 @@ def _limbs51(torch, values, dev):
                         dtype=torch.int64, device=dev).reshape(-1, 5)
 
 
+def _high_limbs(v: int) -> list:
+    """Radix-2^51 limbs of a value congruent to v mod p with every limb in
+    [2^51, 2^52): 2^51 plus the canonical limbs of v - S mod p, S the
+    value of five limbs of 2^51."""
+    p = 2**255 - 19
+    r = (v - sum(1 << (51 * i + 51) for i in range(5))) % p
+    return [(1 << 51) + ((r >> (51 * i)) & ((1 << 51) - 1)) for i in range(5)]
+
+
 def _edge_points(torch, rng, dev):
     """(n, 3, 5) limbs of compress's edge points: the identity (0:1:1)
     and (0:lambda:lambda), the torsion points and the points with y
-    within 19 of p, each at Z = 1 and at a random Z."""
+    within 19 of p, each at Z = 1 and at a random Z; then Z = 0 lanes
+    (0:0:0 and random X, Y), which encode as zero bytes; then the points
+    again with every limb of X, Y and Z in [2^51, 2^52) (the kernel's
+    input range, not canonical)."""
     from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
 
     p = oracle.P
@@ -573,8 +609,13 @@ def _edge_points(torch, rng, dev):
     for x, y in aff:
         lam = int.from_bytes(rng.bytes(32), "little") % (p - 1) + 1
         pts += [(x, y, 1), (x * lam % p, y * lam % p, lam)]
-    return torch.stack([_limbs51(torch, [q[c] for q in pts], dev)
-                        for c in range(3)], dim=1)
+    pts += [(0, 0, 0)] + [tuple(int.from_bytes(rng.bytes(32), "little") % p
+                                for _ in range(2)) + (0,) for _ in range(7)]
+    canon = torch.stack([_limbs51(torch, [q[c] for q in pts], dev)
+                         for c in range(3)], dim=1)
+    high = torch.tensor([[_high_limbs(v) for v in q] for q in pts],
+                        dtype=torch.int64, device=dev)
+    return torch.cat([canon, high])
 
 
 def hash_rows(torch, gpu, dev) -> dict:
@@ -592,6 +633,21 @@ def hash_rows(torch, gpu, dev) -> dict:
             "256-byte rows at base + 3": (
                 odd.view(B, 256),
                 torch.full((B,), 256, dtype=torch.int32, device=dev))}
+
+
+def sign_hash_rows(torch, gpu, dev) -> list:
+    """sha512_batch's signing rows beside K1's shapes (own seed): the
+    32-byte seeds and prefix || msg at (s1), 32 + 192 = 224 bytes (the
+    16-byte path), lengths 0, 1, 31, 111, 112, 223 planted below the full
+    row."""
+    rng = np.random.RandomState(19)
+    out = []
+    for row, head in ((32, [0, 1, 31]), (32 + MSG_LEN, [0, 111, 112, 223])):
+        lens = np.full(B, row, np.int32)
+        lens[:len(head)] = head
+        out.append((f"{row}-byte rows", (gpu(rng.randint(
+            0, 256, (B, row), dtype=np.uint8)), gpu(lens))))
+    return out
 
 
 def hash_shapes(parity, name, shapes, kern, plain) -> float:
@@ -617,11 +673,9 @@ def hash_timed(torch, name, kern, kernel) -> float:
     REPS wrapper calls, returned as every row's ms is, and the trace's
     device time printed beside it."""
     events = time_ms(torch, kern, REPS)
-    traced = traced_ms(torch, kern, kernel)
     say(f"  {name} {B} x 256-byte rows: {events:.4f} ms a call by CUDA "
-        f"events (the wrapper's host path bounds it), device "
-        f"{'not measured' if traced is None else f'{traced:.4f} ms'} "
-        f"by the trace")
+        f"events (the wrapper's host path bounds it)"
+        f"{_device_note(torch, kern, kernel)} by the trace")
     return events
 
 
@@ -693,11 +747,13 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
 
     L, P = oracle.L, oracle.P
 
-    def timed(label, kern, plain, bound=None):
-        """A launch outside a pass row: parity and time, printed."""
+    def timed(label, kern, plain, bound=None, trace=None):
+        """A launch outside a pass row: parity and time (with trace, also
+        the trace's device time), printed."""
         parity(label, kern(), plain())
         extra = f", bound {bound[0]:.4f} ms ({bound[1]})" if bound else ""
-        say(f"  {label}: kernel {time_ms(torch, kern, REPS):.4f} ms, plain "
+        say(f"  {label}: kernel {time_ms(torch, kern, REPS):.4f} ms"
+            f"{_device_note(torch, kern, trace)}, plain "
             f"{time_ms(torch, plain, 1):.1f} ms{extra}")
 
     # sc_reduce64: the digests of r and h; edges planted in r's.
@@ -712,7 +768,7 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
          lambda v=v: sc_cuda.sc_reduce64_ref(v), bound_sc_reduce64(B))
         for name, v in (("r", xs[0]), ("h", xs[1]))],
         "firedancer_tpu/ops/sc_pallas.py:141",
-        "firedancer_tpu_torch/ops/csrc/sc_reduce.cu")
+        "firedancer_tpu_torch/ops/csrc/sc_reduce.cu", "sc_reduce64_kernel")
     got = red[f"r {B} x 64 B"][:len(edges)].cpu().numpy()
     if [int.from_bytes(r.tobytes(), "little") for r in got] != \
             [v % L for v in edges]:
@@ -736,7 +792,7 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
         lambda: sc_cuda.sc_muladd_ref(h_t, a_t, r_t),
         bound_sc_muladd(B, True))],
         "firedancer_tpu/ops/sc_pallas.py:111",
-        "firedancer_tpu_torch/ops/csrc/sc_reduce.cu")
+        "firedancer_tpu_torch/ops/csrc/sc_reduce.cu", "sc_muladd_kernel")
     ints = [[int.from_bytes(r.tobytes(), "little") for r in
              t[:25].cpu().numpy()] for t in (h_t, a_t, r_t,
                                              *ma_out.values())]
@@ -747,7 +803,8 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
     zz, hs = gpu(np.concatenate([z_np, z_np])), torch.cat([h_t, xs[1][:, :32]])
     timed(f"sc_muladd c = 0, staged z||z h||s, {2 * B} lanes",
           lambda: sc_cuda.sc_muladd_cuda(zz, hs),
-          lambda: sc_cuda.sc_muladd_ref(zz, hs), bound_sc_muladd(2 * B, False))
+          lambda: sc_cuda.sc_muladd_ref(zz, hs), bound_sc_muladd(2 * B, False),
+          "sc_muladd_kernel")
 
     # fe_pow: both chains on 8192 lanes of values < 2^255 (edges planted).
     pe = [0, 1, 2, P - 1, P, P + 1, 2**255 - 1]
@@ -762,10 +819,12 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
                         ("pow22523", (pow_cuda.fe_pow22523_cuda,
                                       pow_cuda.fe_pow22523_ref)))],
         "firedancer_tpu/ops/pow_pallas.py:148",
-        "firedancer_tpu_torch/ops/csrc/fe_pow.cu")
+        "firedancer_tpu_torch/ops/csrc/fe_pow.cu", "fe_pow_kernel")
 
     # K3 as signing calls it (h = 0, the base point, clamped a and r < L),
-    # then compress on its outputs with the edge points planted.
+    # then compress on its outputs with the edge points planted (Z = 0 and
+    # non-canonical limbs among them), also at the ragged n of the
+    # five-thread group (six lanes a warp) and with a T column.
     zero = torch.zeros_like(a_t)
     base = sign._b_rows(dev, B)
     k3 = {}
@@ -782,7 +841,23 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
          lambda p=p: curve_cuda.compress_ref(p), bound_compress(B))
         for name, p in k3.items()],
         "firedancer_tpu/ops/curve_pallas.py:340",
-        "firedancer_tpu_torch/ops/csrc/compress.cu")
+        "firedancer_tpu_torch/ops/csrc/compress.cu", "compress_kernel")
+    pub, n_edge = k3["pub = a B"], edge_pts.shape[0]
+    for n in RAGGED + (B - 3,):
+        for off in sorted({0, min(n_edge - 3, B - n)}):
+            cut = pub[off:off + n]
+            parity(f"compress ({n} lanes from lane {off})",
+                   curve_cuda.compress_cuda(cut),
+                   curve_cuda.compress_ref(cut))
+    with_t = torch.cat([pub, pub[:, :1]], dim=1)
+    parity("compress ((B, 4, 5) points: T not read)",
+           curve_cuda.compress_cuda(with_t), curve_cuda.compress_ref(with_t))
+    zero_z = enc[f"pub = a B {B} lanes"][:n_edge].view(2, -1, 32)[:, -8:]
+    if zero_z.any():
+        fail("compress: a Z = 0 lane does not encode as zero bytes")
+    say(f"compress: equal on {n_edge} planted edge lanes (Z = 0, limbs in "
+        f"[2^51, 2^52)), at n = {', '.join(map(str, RAGGED))} and {B - 3} "
+        f"and with a T column")
     parity("compress vs the affine encoding (512 lanes)",
            enc[f"pub = a B {B} lanes"][:512].cpu().numpy(),
            convert.point_to_affine_bytes(k3["pub = a B"][:512]))
@@ -799,10 +874,14 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
     sl = rng.randint(0, row + 1, B).astype(np.int32)
     sl[:8] = [0, 111, 112, 239, 240, 1231, row - 1, row]
     s_rows, s_lens = gpu(rng.randint(0, 256, (B, row), dtype=np.uint8)), gpu(sl)
+    hash_shapes(parity, "sha512_batch", [(f"rows of {row} bytes",
+                                          (s_rows, s_lens))],
+                frontend_cuda.sha512_batch_cuda,
+                frontend_cuda.sha512_batch_ref)
     timed(f"sha512_batch, rows of {row} bytes",
           lambda: frontend_cuda.sha512_batch_cuda(s_rows, s_lens),
           lambda: frontend_cuda.sha512_batch_ref(s_rows, s_lens),
-          bound_sha512_batch(sl, row))
+          bound_sha512_batch(sl, row), "sha512_batch_kernel")
     say("signing kernels: sc_reduce64, sc_muladd, fe_pow, compress and K3 "
         "with h = 0 equal their plain versions; the edge lanes equal "
         "Python's integers and the oracle")
@@ -1542,9 +1621,13 @@ def main() -> int:
     say(f"point_eq: {int(k4.sum())}/{B} lanes equal")
     if not 0.4 * B < int(k4.sum()) < 0.6 * B:
         fail("point_eq: expected about half of the lanes equal")
-    record("point_eq", err,
-           time_ms(torch, lambda: curve_cuda.point_eq_affine_cuda(aff, proj),
-                   REPS),
+    def k4_fn():
+        return curve_cuda.point_eq_affine_cuda(aff, proj)
+
+    k4_ms = time_ms(torch, k4_fn, REPS)
+    say(f"  point_eq {B} lanes: kernel {k4_ms:.4f} ms"
+        f"{_device_note(torch, k4_fn, 'point_eq_kernel')}")
+    record("point_eq", err, k4_ms,
            time_ms(torch, lambda: curve_cuda.point_eq_affine_ref(aff, proj),
                    2),
            bound_point_eq(B),
@@ -1581,15 +1664,19 @@ def main() -> int:
            bound_frontend_rlc(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),
            "firedancer_tpu/ops/frontend_pallas.py:319",
            "firedancer_tpu_torch/ops/csrc/frontend_rlc.cu")
-    err = parity("sha512_batch",
-                 frontend_cuda.sha512_batch_cuda(k1_msgs, k1_lens),
-                 frontend_cuda.sha512_batch_ref(k1_msgs, k1_lens))
-    err = max(err, parity("sha512_batch (lengths 0-1296)",
-                          frontend_cuda.sha512_batch_cuda(s_msgs, s_lens),
-                          frontend_cuda.sha512_batch_ref(s_msgs, s_lens)))
+    # sha512_batch on K1's shapes and signing's 32- and 224-byte rows
+    # (its 1344-byte rows in sign_kernel_parity).
+    sb_shapes = [*k1_shapes, *sign_hash_rows(torch, gpu, dev)]
+    err = hash_shapes(parity, "sha512_batch", sb_shapes,
+                      frontend_cuda.sha512_batch_cuda,
+                      frontend_cuda.sha512_batch_ref)
+    say(f"sha512_batch: equal on {', '.join(k for k, _ in sb_shapes)}, "
+        f"each at B and n = {', '.join(map(str, HASH_RAGGED))}")
+    check_no_stack(build, "sha512_batch")
     record("sha512_batch", err,
-           time_ms(torch, lambda: frontend_cuda.sha512_batch_cuda(
-               k1_msgs, k1_lens), REPS),
+           hash_timed(torch, "sha512_batch",
+                      lambda: frontend_cuda.sha512_batch_cuda(
+                          k1_msgs, k1_lens), "sha512_batch_kernel"),
            time_ms(torch, lambda: frontend_cuda.sha512_batch_ref(
                k1_msgs, k1_lens), 2),
            bound_sha512_batch(np.full(B, 64 + MSG_LEN), 64 + MSG_LEN),
@@ -1637,6 +1724,7 @@ def main() -> int:
            "firedancer_tpu_torch/ops/csrc/decompress_niels.cu")
 
     sign_kernel_parity(torch, gpu, parity, record, rng)
+    check_no_stack(build, "compress")
 
     # Traffic (oracle signing on the host), for phases 3 to 5.
     t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 // Point decompression on a group of five threads a lane, the core of K2
-// (decompress_so.cu) and decompress_niels.cu.
+// (decompress_so.cu) and decompress_niels.cu; its field chain on the
+// group, with the inversion lg_invert, is also compress.cu's.
 //
 // Per lane, donna's decompression as K2 always ran it: y from the
 // encoding with bit 255 masked, u = y^2 - 1, v = d y^2 + 1,
@@ -251,21 +252,37 @@ __device__ __forceinline__ void lg_store_canonical(const limb_group &g,
   if (g.live) p[g.j] = (int64_t)c;
 }
 
-// z^((p-5)/8) = z^(2^252 - 3): fe25519.cuh's chain (fe_pow_ladder,
-// fe_pow22523) on the group.
-__device__ __forceinline__ u64 lg_pow22523(const limb_group &g, u64 z) {
+// The curve25519 addition-chain prefix on the group: z^(2^250 - 1) and
+// z^11 (fe25519.cuh fe_pow_ladder).
+__device__ __forceinline__ void lg_pow_ladder(const limb_group &g, u64 z,
+                                              u64 *z250, u64 *z11) {
   const u64 z2 = lg_sq(g, z);
   const u64 z9 = lg_mul(g, lg_sqn(g, z2, 2), z);
-  const u64 z11 = lg_mul(g, z9, z2);
-  const u64 z_5_0 = lg_mul(g, lg_sq(g, z11), z9);
+  const u64 z11_ = lg_mul(g, z9, z2);
+  const u64 z_5_0 = lg_mul(g, lg_sq(g, z11_), z9);
   const u64 z_10_0 = lg_mul(g, lg_sqn(g, z_5_0, 5), z_5_0);
   const u64 z_20_0 = lg_mul(g, lg_sqn(g, z_10_0, 10), z_10_0);
   const u64 z_40_0 = lg_mul(g, lg_sqn(g, z_20_0, 20), z_20_0);
   const u64 z_50_0 = lg_mul(g, lg_sqn(g, z_40_0, 10), z_10_0);
   const u64 z_100_0 = lg_mul(g, lg_sqn(g, z_50_0, 50), z_50_0);
   const u64 z_200_0 = lg_mul(g, lg_sqn(g, z_100_0, 100), z_100_0);
-  const u64 z250 = lg_mul(g, lg_sqn(g, z_200_0, 50), z_50_0);
+  *z250 = lg_mul(g, lg_sqn(g, z_200_0, 50), z_50_0);
+  *z11 = z11_;
+}
+
+// z^((p-5)/8) = z^(2^252 - 3) (fe25519.cuh fe_pow22523).
+__device__ __forceinline__ u64 lg_pow22523(const limb_group &g, u64 z) {
+  u64 z250, z11;
+  lg_pow_ladder(g, z, &z250, &z11);
   return lg_mul(g, lg_sqn(g, z250, 2), z);
+}
+
+// z^(p-2) = z^(2^255 - 21), the inverse of a nonzero z, and 0 for z = 0
+// (fe25519.cuh fe_invert).
+__device__ __forceinline__ u64 lg_invert(const limb_group &g, u64 z) {
+  u64 z250, z11;
+  lg_pow_ladder(g, z, &z250, &z11);
+  return lg_mul(g, lg_sqn(g, z250, 5), z11);
 }
 
 // This thread's limb of a decoded lane's X, Y and T (Z = 1), and ok.

@@ -1,15 +1,9 @@
-// SHA-512 (FIPS 180-4) and the scalar arithmetic mod L shared by the
-// front-half kernels (K1 sha512_mod_l.cu, frontend_rlc.cu and
-// sha512_batch.cu: the constants, the digest and the reductions) and by
-// sc_reduce.cu (the Barrett reduction and the 256-bit product).
-//
-// sha512_row hashes one lane's row m[0:len] on one thread, building the
-// padding (0x80, zeros, the 128-bit big-endian bit length) in the
-// kernel, so no host-side packing pass exists (the TPU kernels read
-// words packed by firedancer_tpu/ops/sha512_pallas.py:141
-// _pack_schedule); native uint64 words, 80 rounds per 128-byte block
-// over a 16-word schedule ring. Only sha512_batch.cu still runs it: K1
-// and frontend_rlc hash on the warp-staged core of sha512_warp.cuh.
+// SHA-512 (FIPS 180-4) constants and the scalar arithmetic mod L shared
+// by the front-half kernels (K1 sha512_mod_l.cu, frontend_rlc.cu and
+// sha512_batch.cu, which hash on the warp-staged core of sha512_warp.cuh:
+// the round constants, the IV, the rotate and the digest) and by
+// sc_reduce.cu (the Barrett reduction, the 256-bit product, the 32-byte
+// loads and stores).
 // sc_reduce512 reduces a 512-bit little-endian integer mod L by Barrett
 // with b = 2^64, k = 4 (HAC 14.42): mu = floor(2^512 / L) has five limbs,
 // r < 3L before the final two conditional subtractions.
@@ -65,34 +59,6 @@ __device__ __constant__ u64 SC_MU[5] = {0xed9ce5a30a2c131bULL,
 
 __device__ __forceinline__ u64 rotr64(u64 x, int n) {
   return (x >> n) | (x << (64 - n));
-}
-
-__device__ __forceinline__ void sha512_block(u64 st[8], u64 w[16]) {
-  u64 a = st[0], b = st[1], c = st[2], d = st[3];
-  u64 e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll 16
-  for (int t = 0; t < 80; t++) {
-    u64 wt;
-    if (t < 16) {
-      wt = w[t];
-    } else {
-      u64 w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-      u64 s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
-      u64 s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
-      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-      w[t & 15] = wt;
-    }
-    u64 S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-    u64 ch = (e & f) ^ (~e & g);
-    u64 t1 = h + S1 + ch + K512[t] + wt;
-    u64 S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-    u64 maj = (a & b) ^ (a & c) ^ (b & c);
-    u64 t2 = S0 + maj;
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + t2;
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
 // x (8 limbs, < 2^512) mod L -> 4 limbs.
@@ -173,40 +139,6 @@ __device__ __forceinline__ void mul256(const u64 a[4], const u64 b[4],
       carry = t >> 64;
     }
     p[i + 4] = (u64)carry;
-  }
-}
-
-// The state words of SHA-512(m[0:len]); len is clamped to [0, stride].
-__device__ __forceinline__ void sha512_row(const uint8_t *m, long long len,
-                                           long long stride, u64 st[8]) {
-  len = len < 0 ? 0 : (len > stride ? stride : len);
-  const long long nblocks = (len + 17 + 127) / 128;
-#pragma unroll
-  for (int k = 0; k < 8; k++) st[k] = SHA512_IV[k];
-  for (long long blk = 0; blk < nblocks; blk++) {
-    u64 w[16];
-    const long long base = blk * 128;
-    if (base + 128 <= len) {
-      for (int j = 0; j < 16; j++) {
-        u64 x = 0;
-        const uint8_t *p = m + base + 8 * j;
-#pragma unroll
-        for (int k = 0; k < 8; k++) x = (x << 8) | p[k];
-        w[j] = x;
-      }
-    } else {
-      for (int j = 0; j < 16; j++) {
-        u64 x = 0;
-        for (int k = 0; k < 8; k++) {
-          long long pos = base + 8 * j + k;
-          u64 byte = pos < len ? m[pos] : (pos == len ? 0x80 : 0);
-          x = (x << 8) | byte;
-        }
-        w[j] = x;
-      }
-      if (blk == nblocks - 1) w[15] = (u64)len << 3;
-    }
-    sha512_block(st, w);
   }
 }
 

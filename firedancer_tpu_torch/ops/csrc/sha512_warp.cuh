@@ -1,6 +1,6 @@
-// The warp-staged SHA-512 core of the front-half hash kernels (K1
-// sha512_mod_l.cu and frontend_rlc.cu): one warp hashes 32 lanes, thread
-// `lane` of a warp owning row row0 + lane.
+// The warp-staged SHA-512 core of the port's three hash kernels (K1
+// sha512_mod_l.cu, frontend_rlc.cu and sha512_batch.cu): one warp hashes
+// 32 lanes, thread `lane` of a warp owning row row0 + lane.
 //
 // Staging. For each 128-byte block index k the warp copies block k of
 // its 32 rows into shared memory (a stage of 32 rows x SW_PITCH words,
@@ -30,9 +30,9 @@
 // wholly past n returns at once). The rounds run on registers with every
 // index of the 16-word schedule ring static.
 //
-// Replaces sha512.cuh's one-thread sha512_row for these two kernels (it
-// read each row with byte loads strided by max_len across the warp and
-// kept the ring in local memory); sha512_batch.cu still runs sha512_row.
+// It replaced a one-thread-a-lane hash, which read each row with byte
+// loads strided by max_len across the warp and kept the ring in local
+// memory.
 #pragma once
 
 #include "sha512.cuh"

@@ -9,10 +9,11 @@ Points cross as canonical int64 ``(B, k, 5)`` radix-2^51 limbs (X, Y,
 Z, T), niels forms as ``(B, 3, 5)``. Each op launches its CUDA kernel
 (``csrc/decompress_so.cu``, ``csrc/decompress_niels.cu``,
 ``csrc/point_eq.cu``, ``csrc/compress.cu``) for CUDA tensors and runs its
-plain version for CPU tensors. Both decompress kernels run one core
-(``csrc/decompress_core.cuh``): donna's inversion-free square-root chain
-of a lane on GROUP threads, thread j holding limb j of every field
-element, LANES_PER_WARP lanes a warp.
+plain version for CPU tensors. Both decompress kernels and compress run
+one core (``csrc/decompress_core.cuh``): a lane's field chain on GROUP
+threads, thread j holding limb j of every field element, LANES_PER_WARP
+lanes a warp; donna's inversion-free square root for decompress, the
+inversion z^(p - 2) for compress.
 """
 
 from __future__ import annotations

@@ -9,9 +9,8 @@
 * ``sha512_batch`` (``sha512_pallas.sha512_batch_pallas``:201): plain
   64-byte digests, the staged front half's hash; ``csrc/sha512_batch.cu``.
 
-The first two run on the warp-staged SHA-512 core (``csrc/sha512_warp.cuh``:
-a warp hashes 32 lanes, two warps a block); ``sha512_batch`` still runs
-one thread a lane (``sha512.cuh`` ``sha512_row``).
+All three run on the warp-staged SHA-512 core (``csrc/sha512_warp.cuh``:
+a warp hashes 32 lanes, two warps a block).
 
 Each launches its CUDA kernel for CUDA tensors and runs its plain version
 (``*_ref``) for CPU tensors. ``frontend_direct`` is the direct path's

@@ -1,5 +1,5 @@
-"""Time the port's warp-staged hash kernels, K1 (sha512_mod_l) and
-frontend_rlc, on one CUDA card, shape by shape.
+"""Time the port's warp-staged hash kernels, K1 (sha512_mod_l),
+frontend_rlc and sha512_batch, on one CUDA card, shape by shape.
 
 Each kernel is first held to its plain version on each shape (equal
 bytes), then timed over 20 warm wrapper calls two ways: CUDA events
@@ -12,7 +12,7 @@ device time of a launch in torch.profiler's trace.
 --root DIR  time the firedancer_tpu_torch of the checkout at DIR (default:
             this one; it builds into DIR/build/). Run it on two checkouts
             in turns to compare their kernels on one card.
---sweep     also build both kernels at the other two of 1, 2 and 4
+--sweep     also build the kernels at the other two of 1, 2 and 4
             warps a block (nvcc -DSW_WARPS=w on the root's sources, into
             its build/torch_kernels/sweep/), hold them to the built
             kernel's bytes and time them beside it.
@@ -38,6 +38,8 @@ REPO = Path(__file__).resolve().parents[2]
 B = 8192
 REPS = 20
 WARPS = (1, 2, 4)
+# The kernels on the core and the bytes a lane of their first output.
+HASH_KERNELS = {"sha512_mod_l": 32, "frontend_rlc": 32, "sha512_batch": 64}
 
 
 def _chip_smoke():
@@ -53,9 +55,11 @@ def shapes(torch, dev):
     """(label, lanes, rows, lens): the main path's 256-byte rows at B and
     2B; the 0-1296-byte bucket; rows of stride 1299 (off every 4- and
     16-byte boundary but one in four); full rows of stride 1296 and 1299
-    (11 blocks each, aligned against odd); and rows of 0 and 239 bytes
-    (1 and 2 blocks) at stride 1296, which with the 256-byte rows (3) and
-    the full rows (11) give the cost by blocks a row."""
+    (11 blocks each, aligned against odd); rows of 0 and 239 bytes (1 and
+    2 blocks) at stride 1296, which with the 256-byte rows (3) and the
+    full rows (11) give the cost by blocks a row; and signing's
+    R || pub || msg rows of the 1280-byte bucket (stride 1344, lengths
+    0-1344)."""
     rng = np.random.RandomState(23)
 
     def rows(n, stride):
@@ -66,6 +70,7 @@ def shapes(torch, dev):
         return torch.from_numpy(np.asarray(v, np.int32)).to(dev)
 
     r256, r1296, r1299 = rows(2 * B, 256), rows(B, 1296), rows(B, 1299)
+    r1344 = rows(B, 1344)
     return [
         ("256-byte rows", B, r256[:B], lens(np.full(B, 256))),
         ("256-byte rows", 2 * B, r256, lens(np.full(2 * B, 256))),
@@ -76,6 +81,8 @@ def shapes(torch, dev):
         ("stride 1299, 1299-byte rows", B, r1299, lens(np.full(B, 1299))),
         ("stride 1296, 0-byte rows", B, r1296, lens(np.zeros(B))),
         ("stride 1296, 239-byte rows", B, r1296, lens(np.full(B, 239))),
+        ("stride 1344, lengths 0-1344", B, r1344,
+         lens(rng.randint(0, 1345, B))),
     ]
 
 
@@ -86,13 +93,13 @@ def built_warps(build) -> int:
 
 
 def sweep_fns(torch, build, warps):
-    """Both kernels' C entries built at each of warps warps a block,
+    """The kernels' C entries built at each of warps warps a block,
     wrapped like frontend_cuda's *_cuda: {(name, w): fn}."""
     out_dir = build.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
     procs = {}
-    for name in ("sha512_mod_l", "frontend_rlc"):
+    for name in HASH_KERNELS:
         for w in warps:
             lib = out_dir / f"lib{name}-w{w}-{build.stamp()}.so"
             cmd = [nvcc, *build.NVCC_FLAGS, f"-DSW_WARPS={w}", "-I",
@@ -112,14 +119,14 @@ def sweep_fns(torch, build, warps):
         print(f"ptxas {name} at {w} warps a block: {' | '.join(regs)}",
               flush=True)
         cdll = ctypes.CDLL(str(lib))
-        if name == "sha512_mod_l":
-            c = cdll.fd_sha512_mod_l
+        if name != "frontend_rlc":
+            c = getattr(cdll, f"fd_{name}")
             c.argtypes, c.restype = [v, ll, v, v, ll, v], ctypes.c_int
 
-            def fn(m, ln, z, s, c=c):
-                out = torch.empty(m.shape[0], 32, dtype=torch.uint8,
-                                  device=m.device)
-                build.check_rc("fd_sha512_mod_l", c(
+            def fn(m, ln, z, s, c=c, name=name):
+                out = torch.empty(m.shape[0], HASH_KERNELS[name],
+                                  dtype=torch.uint8, device=m.device)
+                build.check_rc(f"fd_{name}", c(
                     m.data_ptr(), m.shape[1], ln.data_ptr(), out.data_ptr(),
                     m.shape[0], torch.cuda.current_stream().cuda_stream))
                 return out
@@ -167,7 +174,9 @@ def main() -> int:
     kernels = {
         "sha512_mod_l": (lambda m, ln, z, s: fc.sha512_mod_l_cuda(m, ln),
                          lambda m, ln, z, s: fc.sha512_mod_l_ref(m, ln)),
-        "frontend_rlc": (fc.frontend_rlc_cuda, fc.frontend_rlc_ref)}
+        "frontend_rlc": (fc.frontend_rlc_cuda, fc.frontend_rlc_ref),
+        "sha512_batch": (lambda m, ln, z, s: fc.sha512_batch_cuda(m, ln),
+                         lambda m, ln, z, s: fc.sha512_batch_ref(m, ln))}
     built = built_warps(build) if args.sweep else None
     others = [w for w in WARPS if w != built]
     variants = sweep_fns(torch, build, others) if args.sweep else {}

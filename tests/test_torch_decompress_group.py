@@ -1,7 +1,8 @@
 """The decompress core of the port's CUDA kernels (csrc/decompress_core.cuh:
 five threads a lane, thread j holding radix-2^51 limb j of every field
-element, six lanes a warp) transcribed thread by thread in Python
-integers, with its shuffles.
+element, six lanes a warp; run by decompress_so.cu, decompress_niels.cu
+and compress.cu) transcribed thread by thread in Python integers, with
+its shuffles.
 
 No compiler runs here, so the transcription is the CPU's check of the
 kernels' arithmetic and thread map: every warp is a list of 32 thread
@@ -10,9 +11,9 @@ the CUDA code relies on is asserted at every step (26-bit halves and
 32-bit factored halves into 64-bit partial sums, 64-bit carries, limbs
 back under 2^52). It is held against
 the port's plain field ops (ops/fe25519.py), against Python integers,
-and, kernel grid and all, against the plain decompress versions, whose
-outputs the kernels must equal limb for limb (chip_smoke.py holds the
-kernels to them on the card).
+and, kernel grid and all, against the plain decompress and compress
+versions, whose outputs the kernels must equal limb for limb and byte
+for byte (chip_smoke.py holds the kernels to them on the card).
 """
 
 import re
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from firedancer_tpu_torch.ballet.ed25519 import corpus
+from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
 from firedancer_tpu_torch.ops import curve_cuda
 from firedancer_tpu_torch.ops import fe25519 as fe
 
@@ -32,11 +33,13 @@ ROOT = Path(__file__).resolve().parents[1]
 CORE = ROOT / "firedancer_tpu_torch" / "ops" / "csrc" / "decompress_core.cuh"
 P = fe.P
 M51 = (1 << 51) - 1
+M64 = (1 << 64) - 1
 M26, M25 = (1 << 26) - 1, (1 << 25) - 1
 GROUP, LANES = curve_cuda.GROUP, curve_cuda.LANES_PER_WARP
 WARPS = int(re.search(r"#define DC_WARPS (\d+)", CORE.read_text()).group(1))
 FOUR_P = ((1 << 53) - 76, (1 << 53) - 4)   # limb 0, limbs 1-4
 SENTINEL = -7
+SENTINEL_BYTE = 0xA5
 
 
 def _limbs(v: int):
@@ -187,8 +190,8 @@ class _Warp:
         return [x if c else y for c, x, y in zip(cond, a, b)]
 
 
-def _pow22523(w, z):
-    """decompress_core.cuh lg_pow22523."""
+def _pow_ladder(w, z):
+    """decompress_core.cuh lg_pow_ladder: z^(2^250 - 1) and z^11."""
     z2 = w.sq(z)
     z9 = w.mul(w.sqn(z2, 2), z)
     z11 = w.mul(z9, z2)
@@ -199,8 +202,19 @@ def _pow22523(w, z):
     z_50_0 = w.mul(w.sqn(z_40_0, 10), z_10_0)
     z_100_0 = w.mul(w.sqn(z_50_0, 50), z_50_0)
     z_200_0 = w.mul(w.sqn(z_100_0, 100), z_100_0)
-    z250 = w.mul(w.sqn(z_200_0, 50), z_50_0)
+    return w.mul(w.sqn(z_200_0, 50), z_50_0), z11
+
+
+def _pow22523(w, z):
+    """decompress_core.cuh lg_pow22523."""
+    z250, _ = _pow_ladder(w, z)
     return w.mul(w.sqn(z250, 2), z)
+
+
+def _invert(w, z):
+    """decompress_core.cuh lg_invert: z^(p - 2), 0 for z = 0."""
+    z250, z11 = _pow_ladder(w, z)
+    return w.mul(w.sqn(z250, 5), z11)
 
 
 def _decompress(w, enc):
@@ -371,6 +385,27 @@ def test_group_pow22523_ladder(seed):
         assert w.value(got, g) % P == want == plain[g], g
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_group_invert_ladder(seed):
+    """lg_pow_ladder and lg_invert on the group (a warp of six seeded
+    elements, 0, 1 and p - 1 among them, limbs up to 2^52 - 1): the
+    ladder gives z^(2^250 - 1) and z^11, the inversion Python's
+    pow(z, p - 2, p) and the plain fe_invert (0 for z = 0)."""
+    els = _elements("random", 20 + seed)
+    els[4] = [(1 << 52) - 1] * 5
+    w, z = _warp_of(els)
+    z250, z11 = _pow_ladder(w, z)
+    got = _invert(w, z)
+    zi = _ints(els)
+    plain = _plain(fe.fe_invert, zi)
+    for g in range(LANES):
+        v = zi[g] % P
+        assert w.value(z250, g) % P == pow(v, (1 << 250) - 1, P), g
+        assert w.value(z11, g) % P == pow(v, 11, P), g
+        assert w.value(got, g) % P == pow(v, P - 2, P) == plain[g], g
+    assert w.value(got, 2) == 0          # els[2] is zero
+
+
 def test_group_sources_cover_each_group():
     """lg_make: every thread reads only its own group's five lanes (never
     threads 30-31), each gather source list is a permutation of them, the
@@ -423,12 +458,123 @@ def test_kernel_grid_transcription_matches_the_plain_versions(n):
 
 def test_group_width_matches_the_wrapper():
     """The core's group width and lanes a warp are the wrappers'
-    (curve_cuda.GROUP, LANES_PER_WARP), and both kernels launch on it."""
+    (curve_cuda.GROUP, LANES_PER_WARP), and the three kernels launch on
+    it (compress through lg_invert, not the one-thread fe_invert)."""
     src = CORE.read_text()
     assert f"#define DC_GROUP {curve_cuda.GROUP}" in src
     assert "#define DC_LANES_PER_WARP (32 / DC_GROUP)" in src
     assert curve_cuda.LANES_PER_WARP == 32 // curve_cuda.GROUP == 6
-    for name in ("decompress_so", "decompress_niels"):
+    comp = (CORE.parent / "compress.cu").read_text()
+    assert "lg_invert(g, Z)" in comp and "fe_invert" not in comp
+    for name in ("decompress_so", "decompress_niels", "compress"):
         kern = (CORE.parent / f"{name}.cu").read_text()
         assert '#include "decompress_core.cuh"' in kern
         assert "<<<dc_blocks(n), DC_THREADS" in kern
+
+
+
+def _compress_grid(pt: np.ndarray):
+    """compress_kernel over its grid of ceil(n / DC_LANES) blocks: thread
+    j of a live group loads limb j of its lane's X, Y and Z (pt + 5 coords
+    lane + {0, 5, 10} + j), the group runs lg_invert and the two
+    multiplies, every thread gathers the canonical y and the parity of x,
+    and threads j = 0..3 of a live group store 64-bit word j of the
+    encoding (thread 3 with the sign in bit 63) into a sentinel-filled
+    output with a grid's room past n. Returns the output, how often each
+    word was written and every load's flat index. Warps with no live
+    group run the chain on zeros and store nothing; they are skipped."""
+    n, coords = pt.shape[:2]
+    flat = pt.reshape(-1)
+    blocks = -(-n // (WARPS * LANES))
+    room = blocks * WARPS * LANES
+    out = np.full((room, 32), SENTINEL_BYTE, np.uint8)
+    writes = np.zeros((room, 4), np.int64)
+    loads = []
+    for warp in range(blocks * WARPS):
+        w = _Warp(warp, n)
+        if not any(th.live for th in w.t):
+            continue
+        xyz = [[0] * 32 for _ in range(3)]
+        for c in range(3):
+            for t, th in enumerate(w.t):
+                if th.live:
+                    addr = 5 * coords * th.lane + 5 * c + th.j
+                    loads.append(addr)
+                    xyz[c][t] = int(flat[addr])
+        zinv = _invert(w, xyz[2])
+        ax, ay = w.mul(xyz[0], zinv), w.mul(xyz[1], zinv)
+        for th, c, sign in zip(w.t, w.canonical(ay), w.is_negative(ax)):
+            words = [(c[0] | c[1] << 51) & M64,
+                     (c[1] >> 13 | c[2] << 38) & M64,
+                     (c[2] >> 26 | c[3] << 25) & M64,
+                     c[3] >> 39 | c[4] << 12]
+            assert words[3] < 1 << 63
+            words[3] |= sign << 63
+            if th.live and th.j < 4:
+                out[th.lane, 8 * th.j:8 * th.j + 8] = np.frombuffer(
+                    words[th.j].to_bytes(8, "little"), np.uint8)
+                writes[th.lane, th.j] += 1
+    return out, writes, loads
+
+
+
+def _compress_points(n: int, seed: int):
+    """(n, coords, 5) limbs: points (x lam : y lam : lam) of random
+    decodable encodings (the identity among them) at Z = 1 and random
+    lam, with their X, Y, Z as canonical limbs or as canonical + p (every
+    limb in [2^51, 2^52)); Z = 0 lanes; and lanes of every limb
+    2^52 - 1. Returns the limbs and the affine point of each point lane
+    (None elsewhere). coords = 4 on odd n (K3's outputs carry T, which
+    compress must not read), else 3."""
+    rng = np.random.RandomState(seed)
+    coords = 3 + n % 2
+    pt = rng.randint(0, 1 << 62, (n, coords, 5)).astype(np.int64)
+    affine = []
+    plus_p = [(1 << 51) - 19] + [(1 << 51) - 1] * 4
+    for i in range(n):
+        kind = i % 5
+        aff = None
+        if kind == 3:
+            vals = [int.from_bytes(rng.bytes(32), "little") % P
+                    for _ in range(2)] + [0]
+            limbs = [_limbs(v) for v in vals]
+        elif kind == 4:
+            limbs = [[(1 << 52) - 1] * 5] * 3
+        else:
+            while aff is None:
+                aff = (oracle.point_decompress(rng.bytes(32)) if i else
+                       (0, 1))
+            lam = 1 if kind == 0 else int.from_bytes(rng.bytes(32),
+                                                     "little") % (P - 1) + 1
+            vals = [aff[0] * lam % P, aff[1] * lam % P, lam]
+            limbs = [_limbs(v) for v in vals]
+            if kind == 2:
+                limbs = [[v + q for v, q in zip(lb, plus_p)] for lb in limbs]
+                assert all(1 << 51 <= v < 1 << 52 for lb in limbs for v in lb)
+        pt[i, :3] = np.array(limbs, np.int64)
+        affine.append(aff)
+    return pt, affine
+
+
+@pytest.mark.parametrize("n", [1, 5, 6, 7, 31])
+def test_compress_grid_transcription_matches_plain_and_oracle(n):
+    """compress_kernel's grid at ragged n (six lanes a warp, 24 a block):
+    each live lane's 15 limbs of X, Y, Z loaded once (T never), each of
+    its four words stored once, nothing past n; the bytes equal
+    compress_ref's on every lane (Z = 0 to zero bytes, limbs up to
+    2^52 - 1, non-canonical X, Y, Z) and the oracle's encoding on the
+    point lanes."""
+    pt, affine = _compress_points(n, seed=100 + n)
+    out, writes, loads = _compress_grid(pt)
+    coords = pt.shape[1]
+    assert sorted(loads) == sorted(5 * coords * i + 5 * c + j for i in range(n)
+                                   for c in range(3) for j in range(5))
+    assert (writes[:n] == 1).all() and (writes[n:] == 0).all()
+    assert (out[n:] == SENTINEL_BYTE).all()
+    want = curve_cuda.compress_ref(torch.from_numpy(pt)).numpy()
+    np.testing.assert_array_equal(out[:n], want)
+    for i, aff in enumerate(affine):
+        if aff is not None:
+            assert out[i].tobytes() == oracle.point_compress(aff), i
+        elif i % 5 == 3:
+            assert not out[i].any(), i

@@ -1,6 +1,6 @@
 """The warp-staged SHA-512 core of the port's hash kernels
-(csrc/sha512_warp.cuh, run by csrc/sha512_mod_l.cu and
-csrc/frontend_rlc.cu) transcribed warp by warp in Python.
+(csrc/sha512_warp.cuh, run by csrc/sha512_mod_l.cu, csrc/frontend_rlc.cu
+and csrc/sha512_batch.cu) transcribed warp by warp in Python.
 
 No compiler runs here, so the transcription is the CPU's check of the
 kernels' grid: which thread of which warp loads which bytes of which row
@@ -10,9 +10,9 @@ left where nothing was read); each lane's padding and length word, the
 warp's block count and the finished-lane select; the stores. Every load
 is asserted to start below its row's clamped length and end inside the
 row (below max_len), to be aligned to its width and coalesced across the
-warp; lanes past n store nothing. The outputs are held byte for byte to hashlib and to the plain
-versions (sha512_mod_l_ref, frontend_rlc_ref), which chip_smoke.py holds
-the kernels to on the card.
+warp; lanes past n store nothing. The outputs are held byte for byte to
+hashlib and to the plain versions (sha512_mod_l_ref, frontend_rlc_ref,
+sha512_batch_ref), which chip_smoke.py holds the kernels to on the card.
 """
 
 import hashlib
@@ -166,16 +166,18 @@ class Warp:
 
 
 def kernel_grid(msgs, lens, n, stride, base, warps, z=None, s=None,
-                seed=0):
+                seed=0, digest=False):
     """The launch: ceil(n / 32 W) blocks of W warps; a warp wholly past n
     returns at once; each live lane stores h (and m, zs for the RLC
-    front half) into sentinel-filled outputs with room past n. Returns
-    the outputs, the digests and every load."""
+    front half; or, with digest, as sha512_batch.cu does, its 64-byte
+    digest as eight 8-byte stores of the byte-swapped state words) into
+    sentinel-filled outputs with room past n. Returns the outputs, the
+    digests and every load."""
     rng = np.random.RandomState(seed)
     mem = msgs.reshape(-1)
     blocks = -(-n // (32 * warps))
-    outs = [np.full((n + 32 * warps, 32), SENTINEL, np.uint8)
-            for _ in range(1 if z is None else 3)]
+    outs = [np.full((n + 32 * warps, 64 if digest else 32), SENTINEL,
+                    np.uint8) for _ in range(1 if z is None else 3)]
     digests = np.zeros((n, 64), np.uint8)
     loads = []
     for g in range(blocks * warps):
@@ -190,6 +192,14 @@ def kernel_grid(msgs, lens, n, stride, base, warps, z=None, s=None,
                 continue
             dig = b"".join(int(v).to_bytes(8, "big") for v in st[:, lane])
             digests[i] = np.frombuffer(dig, np.uint8)
+            if digest:
+                for q in range(8):
+                    # sha512_digest_le: word q byte-swapped, stored LE.
+                    sw = int.from_bytes(int(st[q, lane]).to_bytes(8, "big"),
+                                        "little")
+                    outs[0][i, 8 * q:8 * q + 8] = np.frombuffer(
+                        sw.to_bytes(8, "little"), np.uint8)
+                continue
             h = int.from_bytes(dig, "little") % L
             vals = [h]
             if z is not None:
@@ -354,3 +364,47 @@ def test_padding_at_every_length_of_up_to_three_blocks():
     np.testing.assert_array_equal(outs[0][:n], want)
     assert (outs[0][n:] == SENTINEL).all()
     _check_coalesced(loads)
+
+
+@pytest.mark.parametrize("stride,base", [
+    (32, 0), (32, 1), (224, 3), (256, 0), (256, 5), (1299, 7), (1344, 0),
+    (1344, 9)])
+def test_digest_grid_matches_hashlib_and_sha512_batch_ref(stride, base):
+    """sha512_batch.cu's grid (the core with the digest stores) at
+    signing's seed rows (32), prefix || msg at (s1) (224), the main
+    path's 256-byte rows, stride 1299 and signing's 1344-byte rows, on
+    aligned and odd base addresses, n = 33 with the ragged lengths, 0,
+    max_len and out-of-range lengths: each live lane's 64 bytes equal
+    hashlib's digest and sha512_batch_ref's, nothing is stored past n,
+    and every load stays inside its row below its clamped length."""
+    n = 33
+    msgs, lens, _, _ = _batch(n, stride, seed=stride + base)
+    outs, digests, loads = kernel_grid(msgs, lens, n, stride, base=base,
+                                       warps=WARPS, digest=True)
+    out = outs[0]
+    assert len(outs) == 1 and (out[n:] == SENTINEL).all()
+    np.testing.assert_array_equal(out[:n], digests)
+    for i in range(n):
+        ln = min(max(int(lens[i]), 0), stride)
+        assert out[i].tobytes() == hashlib.sha512(
+            msgs[i, :ln].tobytes()).digest()
+    want = frontend_cuda.sha512_batch_ref(torch.from_numpy(msgs),
+                                          torch.from_numpy(lens)).numpy()
+    np.testing.assert_array_equal(out[:n], want)
+    _check_coalesced(loads)
+    widths = {w for *_, w in loads}
+    assert widths and widths <= ({16} if (base | stride) % 16 == 0
+                                 else {4, 1})
+
+
+def test_hash_kernels_run_the_warp_core():
+    """K1, frontend_rlc and sha512_batch are entries over sw_hash, launched
+    on sw_blocks(n) blocks of SW_WARPS warps; no one-thread SHA-512 is
+    left in sha512.cuh."""
+    for name in ("sha512_mod_l", "frontend_rlc", "sha512_batch"):
+        src = (CSRC / f"{name}.cu").read_text()
+        assert '#include "sha512_warp.cuh"' in src, name
+        assert "sw_hash(stage + wid * SW_STAGE" in src, name
+        assert "<<<sw_blocks(n), 32 * SW_WARPS" in src, name
+    common = (CSRC / "sha512.cuh").read_text()
+    assert "sha512_row" not in common and "sha512_block" not in common
