@@ -14,7 +14,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    registers and spills, K3's window loop, the decompress core's
    squaring loop (in K2 and in compress) and the SHA-512 core's round
    loop in SASS (instructions
-   a thread an iteration and their opcode mix, from cuobjdump).
+   a thread an iteration and their opcode mix, from cuobjdump); the
+   scalar kernels' whole functions, and the shared Barrett sc_reduce512
+   and mul256 alone in a probe built against sha512.cuh.
 3. Kernel parity: each of the fifteen kernels against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
    agree exactly (canonical bytes, limbs and masks). The bucket fill and
@@ -58,7 +60,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    signing path's four: sc_reduce64 on 8192 64-byte values with the edges
    0, L - 1, L, 2^255 - 1 and 2^512 - 1 planted; sc_muladd with c != 0
    (signing's h a + r, a clamped) and c = 0 (the staged pass's stacked
-   z || z times h || s); fe_pow, both chains, on 8192 lanes; compress (the
+   z || z times h || s); both scalar kernels (blocks of 64 lanes staged
+   through shared memory) also at n = 1, 31, 33, 8192 - 3, 8192 and
+   2 x 8192, with every input a view at byte offset 0, 8 and 1 (16-byte,
+   8-byte and byte staging) and the edges planted, byte for byte, each
+   timed by the trace at n = 1, 8192 and 2 x 8192, with 0 stack and 0
+   spills; fe_pow, both chains, on 8192 lanes; compress (the
    decompress core's five threads a lane, through its inversion chain) on
    K3's outputs with the edge points planted (the identity, the torsion
    points and y within 19 of p, at Z = 1 and Z != 1; Z = 0 lanes; the
@@ -150,6 +157,12 @@ FILL_SWEEP = (4, 8, 16, 32)
 RAGGED = (1, 5, 6, 7, 31)
 # Ragged batches of the warp-staged hash kernels (32 lanes a warp).
 HASH_RAGGED = (1, 31, 33, B - 1)
+# Lanes and byte offsets of phase 3's scalar-kernel launches (blocks of
+# SC_THREADS lanes; a base 16-, 8-byte or 1-byte aligned picks the
+# staging's access width), and the lanes it times them at by the trace.
+SC_RAGGED = (1, 31, 33, B - 3, B, 2 * B)
+SC_OFFSETS = (0, 8, 1)
+SC_TIMED = (1, B, 2 * B)
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -197,8 +210,10 @@ def _sha512_ops(lens: np.ndarray, row_bytes: int) -> int:
     return int(nblocks.sum()) * (80 * 34 + 64 * 22 + 16)
 
 
-# A Barrett reduction mod L of a 512-bit value: 5 x 5 + 14 64-bit
-# products (sha512.cuh sc_reduce512); a 256 x 256-bit product: 16.
+# A Barrett reduction mod L of a 512-bit value, counted in 64 x 64-bit
+# products (HAC 14.42 at b = 2^64): 5 x 5 for q1 mu and 14 for q3 L; a
+# 256 x 256-bit product: 16. sha512.cuh runs the same work in 32-bit
+# halves on carry chains (sc_reduce512, mul256).
 BARRETT_PRODUCTS, MUL256_PRODUCTS = 39, 16
 
 
@@ -334,14 +349,20 @@ def _op(t) -> str:
     return (t[1] if t[0].startswith("@") else t[0]).split(".")[0]
 
 
+def function_sass(sass: str, function: str) -> list:
+    """The instructions of a function in cuobjdump -sass output, as
+    (address, tokens) pairs."""
+    body = sass[sass.index(f"Function : {function}"):]
+    end = body.find("Function :", 10)
+    return [(int(a, 16), t.split()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[:end] if end > 0 else body)]
+
+
 def inner_loops(sass: str, function: str) -> list:
     """The innermost backward branches of a function in cuobjdump -sass
     output, each as a list of its instructions' token lists (a thread's
     instructions an iteration)."""
-    body = sass[sass.index(f"Function : {function}"):]
-    end = body.find("Function :", 10)
-    ins = [(int(a, 16), t.split()) for a, t in re.findall(
-        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[:end] if end > 0 else body)]
+    ins = function_sass(sass, function)
     loops = []
     for a, toks in ins:
         if "BRA" in toks and int(toks[-1], 16) < a:
@@ -351,16 +372,21 @@ def inner_loops(sass: str, function: str) -> list:
     return [[t for a, t in ins if lo <= a <= hi] for lo, hi in inner]
 
 
+def cuobjdump_sass(path) -> str | None:
+    """cuobjdump -sass of a library or cubin; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return None
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def sass_loop(lib, function: str, pick):
     """Phase 2: the innermost loop of a kernel that pick (max or min with
     a key) selects from inner_loops, from cuobjdump -sass on its library;
     None without cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.access(tool, os.X_OK):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    return pick(inner_loops(sass, function))
+    sass = cuobjdump_sass(lib)
+    return None if sass is None else pick(inner_loops(sass, function))
 
 
 def loop_mix(loop) -> str:
@@ -374,9 +400,9 @@ def loop_mix(loop) -> str:
 def sass_loops(build) -> None:
     """Phase 2: K3's window loop (the largest), the decompress core's
     squaring loop in K2 and in compress (the smallest: lg_sqn's loop is
-    not unrolled, one squaring an iteration) and the SHA-512 core's round
+    not unrolled, one squaring an iteration), the SHA-512 core's round
     loop (the one with the most funnel shifts SHF: sw_rounds, 16 rounds
-    an iteration)."""
+    an iteration) and the scalar kernels (scalar_sass)."""
     k3 = sass_loop(build.lib_path("double_scalarmult"), "_Z10dsm_kernel",
                    lambda lps: max(lps, key=len))
     if k3 is None:
@@ -397,6 +423,68 @@ def sass_loops(build) -> None:
                         _op(t) == "SHF" for t in lp)))
     say(f"SHA-512 core SASS round loop (K1), 16 rounds: "
         f"{loop_mix(sha)}")
+    scalar_sass(build)
+
+
+# A probe of the shared scalar chains alone: sha512.cuh's sc_reduce512
+# and mul256 between 8-byte loads and stores, built for sm_90a and read
+# in SASS, so that two checkouts' chains compare on the same frame.
+CHAIN_PROBE = r"""#include "sha512.cuh"
+__global__ void probe_sc_reduce512(const u64 *in, u64 *out) {
+  const int i = threadIdx.x;
+  u64 x[8], r[4];
+#pragma unroll
+  for (int k = 0; k < 8; k++) x[k] = in[8 * i + k];
+  sc_reduce512(x, r);
+#pragma unroll
+  for (int k = 0; k < 4; k++) out[4 * i + k] = r[k];
+}
+__global__ void probe_mul256(const u64 *in, u64 *out) {
+  const int i = threadIdx.x;
+  u64 a[4], b[4], p[8];
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    a[k] = in[8 * i + k];
+    b[k] = in[8 * i + 4 + k];
+  }
+  mul256(a, b, p);
+#pragma unroll
+  for (int k = 0; k < 8; k++) out[8 * i + k] = p[k];
+}
+"""
+# Opcodes of the probe's frame, not of the chain.
+PROBE_FRAME = ("LDG", "STG", "S2R", "EXIT", "BRA", "NOP")
+# The scalar kernels' symbols: straight-line code, the staging and the
+# carry chains of sha512.cuh (no loop but the byte path's).
+SC_SYMBOLS = {"sc_reduce64": "_Z18sc_reduce64_kernel",
+              "sc_muladd": "_Z16sc_muladd_kernel"}
+
+
+def scalar_sass(build) -> None:
+    """Phase 2: the scalar kernels' whole functions in SASS (staging,
+    muladd256 and sc_reduce512), then CHAIN_PROBE built against build's
+    sources: each chain's instructions (the probe's loads, stores, index
+    and exit left out). Instruction counts and opcode mixes; "not
+    measured" without cuobjdump."""
+    sass = cuobjdump_sass(build.lib_path("sc_reduce"))
+    if sass is None:
+        say("scalar kernels SASS: cuobjdump not found (not measured)")
+        return
+    for name, sym in SC_SYMBOLS.items():
+        say(f"{name} SASS, the whole kernel: " + loop_mix(
+            [t for _, t in function_sass(sass, sym) if _op(t) != "NOP"]))
+    src = build.BUILD_DIR / "chain_probe.cu"
+    src.write_text(CHAIN_PROBE)
+    cubin = src.with_suffix(".cubin")
+    subprocess.run([build.find_nvcc(), "-cubin", "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-I",
+                    str(build.CSRC), "-o", str(cubin), str(src)], check=True,
+                   capture_output=True)
+    sass = cuobjdump_sass(cubin)
+    for name in ("sc_reduce512", "mul256"):
+        ins = [t for _, t in function_sass(
+            sass, f"_Z{6 + len(name)}probe_{name}") if _op(t) not in PROBE_FRAME]
+        say(f"{name} chain SASS ({build.CSRC}): {loop_mix(ins)}")
 
 
 def ptxas_line(build, name: str) -> str:
@@ -885,6 +973,75 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
     say("signing kernels: sc_reduce64, sc_muladd, fe_pow, compress and K3 "
         "with h = 0 equal their plain versions; the edge lanes equal "
         "Python's integers and the oracle")
+
+
+def _at_offset(torch, arr: np.ndarray, off: int, dev):
+    """arr's bytes as a contiguous view off bytes into a flat uint8
+    buffer on dev (the allocator's base is 16-byte aligned)."""
+    flat = torch.zeros(off + arr.size, dtype=torch.uint8, device=dev)
+    flat[off:] = torch.from_numpy(np.ascontiguousarray(arr).ravel()).to(dev)
+    return flat[off:].view(arr.shape)
+
+
+def sc_grid_parity(torch, parity, dev) -> None:
+    """Phase 3, the scalar kernels' grid: sc_reduce64 and sc_muladd (with
+    c and with c = None) at every n of SC_RAGGED, each input a contiguous
+    view at each byte offset of SC_OFFSETS into a flat buffer (the
+    staging's 16-byte, 8-byte and byte accesses), the edges planted at
+    the start and in the last block of B - 3, B and 2B lanes; every
+    launch byte for byte against its plain version. Then each kernel's
+    device time by the trace at the n of SC_TIMED (n = 1: the launch's
+    fixed cost) and each offset, beside its CUDA-event time."""
+    from firedancer_tpu_torch.ballet.ed25519 import oracle
+    from firedancer_tpu_torch.ops import sc_cuda
+
+    L = oracle.L
+    rng = np.random.RandomState(31)
+    n_all = max(SC_RAGGED)
+    red = [0, 1, L - 1, L, L + 1, 2 * L, 3 * L, 2**252, 2**255 - 1,
+           2**256 - 1, L * L, 2**511, 2**512 - 1, (2**512 - 1) // L * L]
+    mx = [0, 1, L - 1, L, 2**255 - 1, 2**256 - 1]
+    trip = [(a, b, c) for a in mx for b in mx for c in mx]
+    x = rng.randint(0, 256, (n_all, 64), dtype=np.uint8)
+    abc = [rng.randint(0, 256, (n_all, 32), dtype=np.uint8)
+           for _ in range(3)]
+    x[:len(red)] = _le(red, 64)
+    for k in range(3):
+        abc[k][:len(trip)] = _le([t[k] for t in trip], 32)
+    for end in (B - 3, B, 2 * B):
+        x[end - len(red):end] = _le(red, 64)
+        for k in range(3):
+            abc[k][end - len(trip):end] = _le([t[k] for t in trip], 32)
+    kernels = {
+        "sc_reduce64": (1, sc_cuda.sc_reduce64_cuda,
+                        sc_cuda.sc_reduce64_ref, "sc_reduce64_kernel"),
+        "sc_muladd with c": (3, sc_cuda.sc_muladd_cuda,
+                             sc_cuda.sc_muladd_ref, "sc_muladd_kernel"),
+        "sc_muladd c = 0": (2, sc_cuda.sc_muladd_cuda,
+                            sc_cuda.sc_muladd_ref, "sc_muladd_kernel")}
+    for off in SC_OFFSETS:
+        views = [_at_offset(torch, v, off, dev) for v in (x, *abc)]
+        for name, (k, kern, plain, sym) in kernels.items():
+            args = views[:1] if k == 1 else views[1:1 + k]
+            for n in SC_RAGGED:
+                cut = [v[:n] for v in args]
+                parity(f"{name} ({n} lanes at offset {off})", kern(*cut),
+                       plain(*cut))
+            for n in SC_TIMED:
+                cut = [v[:n] for v in args]
+
+                def fn(cut=cut, kern=kern):
+                    return kern(*cut)
+
+                say(f"  {name} {n} lanes at offset {off}: "
+                    f"{time_ms(torch, fn, REPS):.4f} ms by CUDA events"
+                    f"{_device_note(torch, fn, sym)} by the trace")
+    say(f"scalar kernels: sc_reduce64 and sc_muladd (c given and c = 0) "
+        f"equal their plain versions byte for byte at n = "
+        f"{', '.join(map(str, SC_RAGGED))}, inputs at byte offsets "
+        f"{', '.join(map(str, SC_OFFSETS))}, {len(red)} reduction and "
+        f"{len(trip)} product edges planted at the start and in the last "
+        f"block")
 
 
 def signing_path(torch, gpu, rows, card) -> None:
@@ -1725,6 +1882,8 @@ def main() -> int:
 
     sign_kernel_parity(torch, gpu, parity, record, rng)
     check_no_stack(build, "compress")
+    sc_grid_parity(torch, parity, dev)
+    check_no_stack(build, "sc_reduce")
 
     # Traffic (oracle signing on the host), for phases 3 to 5.
     t0 = time.perf_counter()

@@ -9,9 +9,10 @@
 // (8, B/8) byte-limb layout so that its Barrett and 32x32 schoolbook
 // convolutions are full-width vector ops. Here K1's warp-staged core
 // (sha512_warp.cuh) hashes 32 lanes a warp; then each thread keeps its
-// lane's chain in registers: sc_reduce512, then z h and z s as 4x4
-// 64-bit-limb products (mul256, HAC 14.12) reduced by the same Barrett
-// (sha512.cuh), z and s read and h, m, zs written as 8-byte words. z
+// lane's chain in registers: sc_reduce512, then z h and z s as 8 x 8
+// 32-bit-word products on PTX carry chains (mul256, HAC 14.12) reduced
+// by the same Barrett (sha512.cuh), z and s read and h, m, zs written as
+// 8-byte words. z
 // carries the caller's live-lane masking: a dead lane has z = 0, so
 // m = zs = 0, as in the JAX kernel (frontend_pallas.py:304-306).
 //

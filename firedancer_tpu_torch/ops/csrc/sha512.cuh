@@ -2,11 +2,15 @@
 // by the front-half kernels (K1 sha512_mod_l.cu, frontend_rlc.cu and
 // sha512_batch.cu, which hash on the warp-staged core of sha512_warp.cuh:
 // the round constants, the IV, the rotate and the digest) and by
-// sc_reduce.cu (the Barrett reduction, the 256-bit product, the 32-byte
-// loads and stores).
-// sc_reduce512 reduces a 512-bit little-endian integer mod L by Barrett
-// with b = 2^64, k = 4 (HAC 14.42): mu = floor(2^512 / L) has five limbs,
-// r < 3L before the final two conditional subtractions.
+// sc_reduce.cu: the Barrett reduction sc_reduce512 and the 256-bit
+// product muladd256 / mul256, the one copy of each, and the 32-byte byte
+// loads and stores of the hash core's unaligned scalars.
+//
+// The scalar arithmetic runs in radix 2^32 on PTX carry chains
+// (mad.lo.cc, madc.hi.cc, addc, sub.cc): a half of a 32 x 32-bit
+// product with its carries is one instruction a step, so no carry is
+// written out in compares and adds. tests/test_torch_sc_grid.py
+// transcribes every chain step in Python.
 #pragma once
 
 #include "fe25519.cuh"
@@ -45,101 +49,158 @@ __device__ __constant__ u64 SHA512_IV[8] = {
     0xa54ff53a5f1d36f1ULL, 0x510e527fade682d1ULL, 0x9b05688c2b3e6c1fULL,
     0x1f83d9abfb41bd6bULL, 0x5be0cd19137e2179ULL};
 
-// L = 2^252 + 27742317777372353535851937790883648493 and
-// mu = floor(2^512 / L), little-endian 64-bit limbs.
-__device__ __constant__ u64 SC_L[4] = {0x5812631a5cf5d3edULL,
-                                       0x14def9dea2f79cd6ULL,
-                                       0x0000000000000000ULL,
-                                       0x1000000000000000ULL};
-__device__ __constant__ u64 SC_MU[5] = {0xed9ce5a30a2c131bULL,
-                                        0x2106215d086329a7ULL,
-                                        0xffffffffffffffebULL,
-                                        0xffffffffffffffffULL,
-                                        0x000000000000000fULL};
-
 __device__ __forceinline__ u64 rotr64(u64 x, int n) {
   return (x >> n) | (x << (64 - n));
 }
 
-// x (8 limbs, < 2^512) mod L -> 4 limbs.
-__device__ __forceinline__ void sc_reduce512(const u64 x[8], u64 r_out[4]) {
-  // q2 = floor(x / 2^192) * mu; q3 = floor(q2 / 2^320).
-  u64 q2[10];
-#pragma unroll
-  for (int k = 0; k < 10; k++) q2[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 5; i++) {
-    u128 carry = 0;
-#pragma unroll
-    for (int j = 0; j < 5; j++) {
-      u128 t = (u128)x[i + 3] * SC_MU[j] + q2[i + j] + carry;
-      q2[i + j] = (u64)t;
-      carry = t >> 64;
-    }
-    q2[i + 5] = (u64)carry;
+// ---- Scalar arithmetic mod L in radix 2^32 on PTX carry chains.
+//
+// L = 2^252 + 27742317777372353535851937790883648493 as eight 32-bit
+// words (words 4-6 are zero, word 7 is 2^28) and mu = floor(2^512 / L)
+// as nine, little-endian: Barrett with b = 2^32, k = 8 (HAC 14.42).
+__device__ __constant__ uint32_t SC_L[8] = {
+    0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x10000000u};
+__device__ __constant__ uint32_t SC_MU[9] = {
+    0x0a2c131bu, 0xed9ce5a3u, 0x086329a7u, 0x2106215du, 0xffffffebu,
+    0xffffffffu, 0xffffffffu, 0xffffffffu, 0x0000000fu};
+
+// Step k of an m-step carry chain on the word d: d += the low (hi false)
+// or high half of a b, or 0 for the chain's carry word (carry), plus the
+// carry in (none at step 0); the carry out is set at step 0 and every
+// later step but the chain's last, whose carry is either zero (sc_mac
+// says why) or beyond the words kept. One PTX instruction a step; after
+// unrolling, k, m, hi and carry are constants, so only that instruction
+// is left.
+__device__ __forceinline__ void sc_step(uint32_t &d, uint32_t a, uint32_t b,
+                                        bool hi, bool carry, int k, int m) {
+  const bool last = k == m - 1;
+  if (carry) {
+    asm volatile("addc.u32 %0, %0, 0;" : "+r"(d));
+  } else if (k == 0) {
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
+  } else if (hi) {
+    if (last)
+      asm volatile("madc.hi.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
+    else
+      asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;"
+                   : "+r"(d) : "r"(a), "r"(b));
+  } else {
+    if (last)
+      asm volatile("madc.lo.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
+    else
+      asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;"
+                   : "+r"(d) : "r"(a), "r"(b));
   }
-  // r2 = q3 * L mod 2^320.
-  u64 r2[5] = {0, 0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 5; i++) {
-    u128 carry = 0;
-#pragma unroll
-    for (int j = 0; j < 4; j++) {
-      if (i + j < 5) {
-        u128 t = (u128)q2[5 + i] * SC_L[j] + r2[i + j] + carry;
-        r2[i + j] = (u64)t;
-        carry = t >> 64;
-      }
-    }
-    if (i + 4 < 5) r2[i + 4] += (u64)carry;
-  }
-  // r = x - r2 mod 2^320, in [0, 3L).
-  u64 r[5];
-  u64 borrow = 0;
-#pragma unroll
-  for (int k = 0; k < 5; k++) {
-    u64 d1 = x[k] - r2[k];
-    u64 b1 = x[k] < r2[k];
-    r[k] = d1 - borrow;
-    borrow = b1 | (d1 < borrow);
-  }
-#pragma unroll
-  for (int it = 0; it < 2; it++) {
-    u64 d[5];
-    u64 bw = 0;
-#pragma unroll
-    for (int k = 0; k < 5; k++) {
-      u64 lk = k < 4 ? SC_L[k] : 0;
-      u64 d1 = r[k] - lk;
-      u64 b1 = r[k] < lk;
-      d[k] = d1 - bw;
-      bw = b1 | (d1 < bw);
-    }
-    if (!bw) {
-#pragma unroll
-      for (int k = 0; k < 5; k++) r[k] = d[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 4; k++) r_out[k] = r[k];
 }
 
-// a * b for 256-bit a, b: eight 64-bit limbs.
+// p[0, NO) = (p + a b) mod 2^(32 NO) for a of NA words and b of NB words,
+// with p < 2^(32 NB) on entry (its words NB and up zero). Row by row
+// (HAC 14.12): row i adds a_i b at word i as two chains, one over b's
+// even words and one over its odd words. The low and high halves of one
+// parity's products fill consecutive words without overlapping, so each
+// chain's steps write words i + par, i + par + 1, ...; the chain that
+// ends below word i + NB carries into it (zero before row i, since p
+// was below 2^(32 (i + NB))). No carry leaves word i + NB: after row i
+// the sum is below 2^(32 (i + 1 + NB)). Steps at word NO and up are
+// dropped.
+template <int NA, int NB, int NO>
+__device__ __forceinline__ void sc_mac(const uint32_t *a, const uint32_t *b,
+                                       uint32_t *p) {
+#pragma unroll
+  for (int i = 0; i < NA; i++) {
+#pragma unroll
+    for (int par = 0; par < 2; par++) {
+      const int w0 = i + par;
+      const int prods = (NB - par + 1) / 2;
+      const int full = 2 * prods + (par + 2 * prods == NB ? 1 : 0);
+      const int m = full < NO - w0 ? full : NO - w0;
+#pragma unroll
+      for (int k = 0; k < m; k++)
+        sc_step(p[w0 + k], a[i], k < 2 * prods ? b[par + 2 * (k >> 1)] : 0u,
+                k & 1, k >= 2 * prods, k, m);
+    }
+  }
+}
+
+// d = a - b over eight words; returns 0xffffffff when a < b, else 0.
+__device__ __forceinline__ uint32_t sc_sub8(const uint32_t a[8],
+                                            const uint32_t b[8],
+                                            uint32_t d[8]) {
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d[0]) : "r"(a[0]), "r"(b[0]));
+#pragma unroll
+  for (int k = 1; k < 8; k++)
+    asm volatile("subc.cc.u32 %0, %1, %2;"
+                 : "=r"(d[k]) : "r"(a[k]), "r"(b[k]));
+  uint32_t bw;
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(bw));
+  return bw;
+}
+
+// x (eight 64-bit limbs, < 2^512) mod L -> four limbs, canonical.
+__device__ __forceinline__ void sc_reduce512(const u64 x64[8],
+                                             u64 r_out[4]) {
+  uint32_t x[16];
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    x[2 * k] = (uint32_t)x64[k];
+    x[2 * k + 1] = (uint32_t)(x64[k] >> 32);
+  }
+  // q2 = q1 mu with q1 = floor(x / 2^224), words 7-15 of x; q3 =
+  // floor(q2 / 2^288), words 9-17 of q2.
+  uint32_t q2[18];
+#pragma unroll
+  for (int k = 0; k < 18; k++) q2[k] = 0;
+  sc_mac<9, 9, 18>(x + 7, SC_MU, q2);
+  const uint32_t *q3 = q2 + 9;
+  // r2 = q3 L mod 2^256: L's words 0-3 by the chains, its word 7 (2^28)
+  // by a shift.
+  uint32_t r2[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) r2[k] = 0;
+  sc_mac<4, 9, 8>(SC_L, q3, r2);
+  r2[7] += q3[0] << 28;
+  // r = x - q3 L lies in [0, 3L), and 3L < 2^256: x - r2 mod 2^256 is
+  // r. Then at most two subtractions of L.
+  uint32_t r[8], d[8];
+  sc_sub8(x, r2, r);
+#pragma unroll
+  for (int it = 0; it < 2; it++) {
+    const uint32_t bw = sc_sub8(r, SC_L, d);
+#pragma unroll
+    for (int k = 0; k < 8; k++) r[k] = bw ? r[k] : d[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; k++)
+    r_out[k] = (u64)r[2 * k] | ((u64)r[2 * k + 1] << 32);
+}
+
+// a b + c for 256-bit a, b, c: eight 64-bit limbs (< 2^512), the addend
+// entering as the product's initial words.
+__device__ __forceinline__ void muladd256(const u64 a[4], const u64 b[4],
+                                          const u64 c[4], u64 p[8]) {
+  uint32_t aw[8], bw[8], pw[16];
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    aw[2 * k] = (uint32_t)a[k];
+    aw[2 * k + 1] = (uint32_t)(a[k] >> 32);
+    bw[2 * k] = (uint32_t)b[k];
+    bw[2 * k + 1] = (uint32_t)(b[k] >> 32);
+    pw[2 * k] = (uint32_t)c[k];
+    pw[2 * k + 1] = (uint32_t)(c[k] >> 32);
+    pw[8 + 2 * k] = pw[9 + 2 * k] = 0;
+  }
+  sc_mac<8, 8, 16>(aw, bw, pw);
+#pragma unroll
+  for (int k = 0; k < 8; k++)
+    p[k] = (u64)pw[2 * k] | ((u64)pw[2 * k + 1] << 32);
+}
+
+// a b for 256-bit a, b: eight 64-bit limbs.
 __device__ __forceinline__ void mul256(const u64 a[4], const u64 b[4],
                                        u64 p[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; k++) p[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 4; i++) {
-    u128 carry = 0;
-#pragma unroll
-    for (int j = 0; j < 4; j++) {
-      u128 t = (u128)a[i] * b[j] + p[i + j] + carry;
-      p[i + j] = (u64)t;
-      carry = t >> 64;
-    }
-    p[i + 4] = (u64)carry;
-  }
+  const u64 zero[4] = {0, 0, 0, 0};
+  muladd256(a, b, zero, p);
 }
 
 // Digest bytes are the state words big-endian; as a little-endian

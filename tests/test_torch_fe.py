@@ -160,7 +160,8 @@ def _c_array(path: Path, name: str) -> list[int]:
     src = path.read_text()
     body = re.search(rf"{name}\[[^\]]*\](?:\[[^\]]*\])*\s*=\s*\{{(.*?)\}};",
                      src, re.S).group(1)
-    return [int(v, 0) for v in re.findall(r"(0x[0-9a-fA-F]+|\d+)ULL", body)]
+    return [int(v, 0) for v in re.findall(r"(0x[0-9a-fA-F]+|\d+)(?:ULL|u)\b",
+                                          body)]
 
 
 def _radix51(limbs) -> int:
@@ -178,9 +179,9 @@ def test_kernel_field_constants(name, value):
 
 @pytest.mark.parametrize("name,want", [
     ("K512", sha512.K), ("SHA512_IV", sha512.IV),
-    ("SC_L", [(sc25519.L >> (64 * i)) & (2**64 - 1) for i in range(4)]),
-    ("SC_MU", [((1 << 512) // sc25519.L >> (64 * i)) & (2**64 - 1)
-               for i in range(5)])])
+    ("SC_L", [(sc25519.L >> (32 * i)) & (2**32 - 1) for i in range(8)]),
+    ("SC_MU", [((1 << 512) // sc25519.L >> (32 * i)) & (2**32 - 1)
+               for i in range(9)])])
 def test_kernel_sha512_constants(name, want):
     assert _c_array(CSRC / "sha512.cuh", name) == want
 
