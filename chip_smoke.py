@@ -38,6 +38,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (their wrappers' host path is longer than the kernels;
    firedancer_tpu_torch/tools/hash_times.py times them by shape and warps
    a block), as do point_eq, sc_reduce64, sc_muladd, fe_pow and compress.
+   point_eq (the same five-thread group) on six kinds of lanes (equal
+   at Z = 1 and Z != 1, only X or only Y differing, every limb in
+   [2^51 - 19, 2^52), another lane's point) at the n of fe_pow, with aff
+   of 2 and 4 and proj of 3 and 4 coordinates, byte for byte, timed by
+   the trace at n = 1, 8192 and 2 x 8192, with 0 stack and 0 spills.
    Both decompress kernels (one core, five threads
    a lane, six lanes a warp) also run at n = 1, 5, 6, 7, 31 and
    2 x 8192 - 3 lanes; K2 is
@@ -65,7 +70,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    2 x 8192, with every input a view at byte offset 0, 8 and 1 (16-byte,
    8-byte and byte staging) and the edges planted, byte for byte, each
    timed by the trace at n = 1, 8192 and 2 x 8192, with 0 stack and 0
-   spills; fe_pow, both chains, on 8192 lanes; compress (the
+   spills; fe_pow, both chains on the decompress core's five threads a
+   lane, on 8192 lanes and at n = 1, 5, 6, 7, 31, 128, 8192 - 3, 8192
+   and 2 x 8192 with z = 0, 1, p - 1, values in [p, 2^255), limbs in
+   [2^51, 2^52) and every limb 2^52 - 1 planted, limb for limb, timed by
+   the trace at n = 1, 128, 8192 and 2 x 8192, with 0 stack and 0
+   spills; compress (the
    decompress core's five threads a lane, through its inversion chain) on
    K3's outputs with the edge points planted (the identity, the torsion
    points and y within 19 of p, at Z = 1 and Z != 1; Z = 0 lanes; the
@@ -163,6 +173,12 @@ HASH_RAGGED = (1, 31, 33, B - 1)
 SC_RAGGED = (1, 31, 33, B - 3, B, 2 * B)
 SC_OFFSETS = (0, 8, 1)
 SC_TIMED = (1, B, 2 * B)
+# Lane counts of fe_pow and point_eq on the five-thread group (six lanes a
+# warp, 24 a block), and those each is timed at: n = 1 is the launch's
+# fixed cost, 128 the JAX package's root inversion at B (B / 64 lanes).
+GROUP_RAGGED = (1, 5, 6, 7, 31, 128, B - 3, B, 2 * B)
+POW_TIMED = (1, 128, B, 2 * B)
+EQ_TIMED = (1, B, 2 * B)
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -822,18 +838,133 @@ def k3_edges(torch, gpu, parity, a_pt, h, s) -> None:
         "version limb for limb; 16 equal the oracle")
 
 
+def fe_pow_parity(torch, parity, record, rng, dev) -> None:
+    """Phase 3, fe_pow (off the paths): both chains on B lanes of values
+    below 2^255 with the edges planted (the row's times), then on 2B
+    lanes at every n of GROUP_RAGGED, cut from lane 0 and from where the
+    edges meet random lanes, limb for limb; the trace's device time a
+    launch at each n of POW_TIMED. Edges: z = 0, 1, 2, p - 1; p, p + 1,
+    p + 18 and 2^255 - 1 (limbs below 2^51); 0, 1, p - 1 and a random
+    value with every limb in [2^51, 2^52); every limb 2^52 - 1."""
+    from firedancer_tpu_torch.ballet.ed25519 import oracle
+    from firedancer_tpu_torch.ops import pow_cuda
+
+    P = oracle.P
+    pe = [0, 1, 2, P - 1, P, P + 1, P + 18, 2**255 - 1]
+    zv = [int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(B)]
+    zv[:len(pe)] = pe
+    high = torch.tensor([_high_limbs(v) for v in (0, 1, P - 1, zv[-1])]
+                        + [[(1 << 52) - 1] * 5], dtype=torch.int64,
+                        device=dev)
+    n_edge = len(pe) + high.shape[0]
+    own = np.random.RandomState(23)
+    z2 = torch.cat([_limbs51(torch, zv, dev), _limbs51(torch, [
+        int.from_bytes(own.bytes(32), "little") >> 1 for _ in range(B)],
+        dev)])
+    z2[len(pe):n_edge] = high
+    zl = z2[:B]
+    chains = (("invert", pow_cuda.fe_invert_cuda, pow_cuda.fe_invert_ref),
+              ("pow22523", pow_cuda.fe_pow22523_cuda,
+               pow_cuda.fe_pow22523_ref))
+    kernel_pass(torch, parity, record, "fe_pow", [
+        (f"{name} {B} lanes", lambda k=k: k(zl), lambda r=r: r(zl),
+         bound_fe_pow(B, name == "invert")) for name, k, r in chains],
+        "firedancer_tpu/ops/pow_pallas.py:148",
+        "firedancer_tpu_torch/ops/csrc/fe_pow.cu", "fe_pow_kernel")
+    for name, kern, plain in chains:
+        for n in GROUP_RAGGED:
+            for off in sorted({0, min(n_edge - 3, 2 * B - n)}):
+                cut = z2[off:off + n]
+                parity(f"fe_pow {name} ({n} lanes from lane {off})",
+                       kern(cut), plain(cut))
+        for n in POW_TIMED:
+            t = traced_ms(torch, lambda k=kern, n=n: k(z2[:n]),
+                          "fe_pow_kernel")
+            say(f"  fe_pow {name} at {n} lanes: device "
+                f"{'not measured' if t is None else f'{t:.4f} ms'}, bound "
+                f"{bound_fe_pow(n, name == 'invert')[0]:.6f} ms")
+    say(f"fe_pow: both chains equal on {n_edge} planted edge lanes at n = "
+        f"{', '.join(map(str, GROUP_RAGGED))}")
+
+
+def point_eq_inputs(torch, gpu, a_pt, lam):
+    """(aff (2B, 4, 5), proj (2B, 3, 5)) limbs for point_eq: lane i holds
+    the decoded point a_pt[i mod B] as (X, Y, 1, T), against
+    (x Z : y Z : Z) by kind (its own seed; about half equal): equal at
+    Z = 1; equal at Z = lam; only X differs (X + 1); only Y differs
+    (Y + 1, Z = 1); equal with every limb of all five coordinates
+    canonical + p (limbs in [2^51 - 19, 2^52)); the previous lane's
+    point (both differ)."""
+    from firedancer_tpu_torch.ops import fe25519 as fe
+
+    dev = a_pt.device
+    n = 2 * B
+    own = np.random.RandomState(29)
+    kind = gpu(own.randint(0, 6, n))
+    pts = a_pt[torch.arange(n, device=dev) % B]
+    lam2 = torch.cat([lam, fe.fe_from_bytes(gpu(own.randint(
+        0, 256, (B, 32), dtype=np.uint8)))])
+    one = fe.fe_from_limbs51(torch.tensor([1, 0, 0, 0, 0], dtype=torch.int64,
+                                          device=dev).expand(n, 5))
+
+    def pick(mask, a, b):
+        return torch.where(mask[:, None], a, b)
+
+    z = pick((kind == 0) | (kind == 3), one, lam2)
+    x, y = (fe.fe_from_limbs51(pts[:, c]) for c in (0, 1))
+    X, Y = fe.fe_mul(x, z), fe.fe_mul(y, z)
+    X = pick(kind == 2, fe.fe_add(X, one), X)
+    Y = pick(kind == 3, fe.fe_add(Y, one), Y)
+    proj = torch.stack([fe.fe_to_limbs51(c) for c in (X, Y, z)], dim=1)
+    aff = torch.where((kind == 5)[:, None, None], pts.roll(1, 0), pts)
+    plus_p = torch.tensor([(1 << 51) - 19] + [(1 << 51) - 1] * 4,
+                          dtype=torch.int64, device=dev)
+    high = (kind == 4)[:, None, None]
+    aff[:, :2] = torch.where(high, aff[:, :2] + plus_p, aff[:, :2])
+    proj = torch.where(high, proj + plus_p, proj)
+    return aff.contiguous(), proj.contiguous()
+
+
+def point_eq_parity(torch, parity, aff4, proj3) -> None:
+    """Phase 3, point_eq on the five-thread group: at every n of
+    GROUP_RAGGED with aff of 2 and 4 coordinates and proj of 3 and 4
+    (T: another lane's limbs, not read), byte for byte; the trace's
+    device time a launch at each n of EQ_TIMED."""
+    from firedancer_tpu_torch.ops import curve_cuda
+
+    affs = {2: aff4[:, :2].contiguous(), 4: aff4}
+    projs = {3: proj3, 4: torch.cat([proj3, aff4[:, 3:]], dim=1)}
+    for n in GROUP_RAGGED:
+        for ac, a in affs.items():
+            for pc, q in projs.items():
+                parity(f"point_eq ({n} lanes, aff {ac}, proj {pc} "
+                       f"coordinates)", curve_cuda.point_eq_affine_cuda(
+                           a[:n], q[:n]),
+                       curve_cuda.point_eq_affine_ref(a[:n], q[:n]))
+    for n in EQ_TIMED:
+        t = traced_ms(torch, lambda n=n: curve_cuda.point_eq_affine_cuda(
+            aff4[:n], proj3[:n]), "point_eq_kernel")
+        say(f"  point_eq at {n} lanes: device "
+            f"{'not measured' if t is None else f'{t:.4f} ms'}, bound "
+            f"{bound_point_eq(n)[0]:.6f} ms")
+    say(f"point_eq: equal at n = {', '.join(map(str, GROUP_RAGGED))} with "
+        f"aff of 2 and 4 and proj of 3 and 4 coordinates; "
+        f"{int(curve_cuda.point_eq_affine_cuda(aff4, proj3).sum())}/{2 * B} "
+        f"lanes equal")
+
+
 def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
     """Phase 3, the signing path's kernels at a signing call's shapes
     (B = 8192): sc_reduce64 (two launches), sc_muladd (one, c = r), fe_pow
-    (both chains, off the paths), compress (two, on K3's outputs); K3 with
-    h = 0 and clamped scalars; sha512_batch on 1344-byte rows; and
-    sc_muladd at the staged pass's shape (2B lanes, c = 0)."""
+    (both chains, off the paths: fe_pow_parity), compress (two, on K3's
+    outputs); K3 with h = 0 and clamped scalars; sha512_batch on 1344-byte
+    rows; and sc_muladd at the staged pass's shape (2B lanes, c = 0)."""
     from firedancer_tpu_torch import convert
     from firedancer_tpu_torch.ballet.ed25519 import oracle
     from firedancer_tpu_torch.ops import (curve_cuda, dsm_cuda, frontend_cuda,
-                                          pow_cuda, sc_cuda, sign)
+                                          sc_cuda, sign)
 
-    L, P = oracle.L, oracle.P
+    L = oracle.L
 
     def timed(label, kern, plain, bound=None, trace=None):
         """A launch outside a pass row: parity and time (with trace, also
@@ -894,20 +1025,7 @@ def sign_kernel_parity(torch, gpu, parity, record, rng) -> None:
           lambda: sc_cuda.sc_muladd_ref(zz, hs), bound_sc_muladd(2 * B, False),
           "sc_muladd_kernel")
 
-    # fe_pow: both chains on 8192 lanes of values < 2^255 (edges planted).
-    pe = [0, 1, 2, P - 1, P, P + 1, 2**255 - 1]
-    zv = [int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(B)]
-    zv[:len(pe)] = pe
-    zl = _limbs51(torch, zv, dev)
-    kernel_pass(torch, parity, record, "fe_pow", [
-        (f"{name} {B} lanes", lambda f=f: f[0](zl), lambda f=f: f[1](zl),
-         bound_fe_pow(B, name == "invert"))
-        for name, f in (("invert", (pow_cuda.fe_invert_cuda,
-                                    pow_cuda.fe_invert_ref)),
-                        ("pow22523", (pow_cuda.fe_pow22523_cuda,
-                                      pow_cuda.fe_pow22523_ref)))],
-        "firedancer_tpu/ops/pow_pallas.py:148",
-        "firedancer_tpu_torch/ops/csrc/fe_pow.cu", "fe_pow_kernel")
+    fe_pow_parity(torch, parity, record, rng, dev)
 
     # K3 as signing calls it (h = 0, the base point, clamped a and r < L),
     # then compress on its outputs with the edge points planted (Z = 0 and
@@ -1763,21 +1881,25 @@ def main() -> int:
         f"columns + {info['static_shared_bytes']} B B table), "
         f"{info['blocks_per_sm']} blocks an SM; ptxas above gives spills")
 
-    # K4: affine points against projective (lam X : lam Y : lam), half of
-    # the lanes holding the next lane's point instead.
+    # K4: affine points against projective (x Z : y Z : Z) of six kinds,
+    # about half of the lanes equal (point_eq_inputs); B lanes for the
+    # row, then the ragged n and coordinate counts (point_eq_parity).
     lam = fe25519.fe_from_bytes(gpu(rng.randint(0, 256, (B, 32),
                                                 dtype=np.uint8)))
-    x, y = (fe25519.fe_from_limbs51(a_pt[:, c]) for c in (0, 1))
-    proj = torch.stack([fe25519.fe_to_limbs51(c) for c in
-                        (fe25519.fe_mul(lam, x), fe25519.fe_mul(lam, y),
-                         lam)], dim=1)
-    swap = gpu(rng.randint(0, 2, B).astype(bool))
-    aff = torch.where(swap[:, None, None], a_pt.roll(1, 0), a_pt).contiguous()
+    # The swap mask's draw, which point_eq_inputs no longer takes from
+    # rng: it keeps the inputs of the phases below those of earlier trees,
+    # so an A/B against them times the same data.
+    rng.randint(0, 2, B)
+    aff4, proj3 = point_eq_inputs(torch, gpu, a_pt, lam)
+    aff, proj = aff4[:B], proj3[:B]
     k4 = curve_cuda.point_eq_affine_cuda(aff, proj)
     err = parity("point_eq", k4, curve_cuda.point_eq_affine_ref(aff, proj))
     say(f"point_eq: {int(k4.sum())}/{B} lanes equal")
     if not 0.4 * B < int(k4.sum()) < 0.6 * B:
         fail("point_eq: expected about half of the lanes equal")
+    point_eq_parity(torch, parity, aff4, proj3)
+    check_no_stack(build, "point_eq")
+
     def k4_fn():
         return curve_cuda.point_eq_affine_cuda(aff, proj)
 
@@ -1881,6 +2003,7 @@ def main() -> int:
            "firedancer_tpu_torch/ops/csrc/decompress_niels.cu")
 
     sign_kernel_parity(torch, gpu, parity, record, rng)
+    check_no_stack(build, "fe_pow")
     check_no_stack(build, "compress")
     sc_grid_parity(torch, parity, dev)
     check_no_stack(build, "sc_reduce")

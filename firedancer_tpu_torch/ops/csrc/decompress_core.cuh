@@ -1,6 +1,8 @@
 // Point decompression on a group of five threads a lane, the core of K2
-// (decompress_so.cu) and decompress_niels.cu; its field chain on the
-// group, with the inversion lg_invert, is also compress.cu's.
+// (decompress_so.cu) and decompress_niels.cu; its field ops on the
+// group are also those of compress.cu (the inversion lg_invert),
+// fe_pow.cu (lg_invert and lg_pow22523) and point_eq.cu (lg_mul_halves,
+// lg_sub, lg_is_zero).
 //
 // Per lane, donna's decompression as K2 always ran it: y from the
 // encoding with bit 255 masked, u = y^2 - 1, v = d y^2 + 1,
@@ -253,7 +255,7 @@ __device__ __forceinline__ void lg_store_canonical(const limb_group &g,
 }
 
 // The curve25519 addition-chain prefix on the group: z^(2^250 - 1) and
-// z^11 (fe25519.cuh fe_pow_ladder).
+// z^11 (firedancer_tpu/ops/pow_pallas.py _ladder:85).
 __device__ __forceinline__ void lg_pow_ladder(const limb_group &g, u64 z,
                                               u64 *z250, u64 *z11) {
   const u64 z2 = lg_sq(g, z);
@@ -270,7 +272,7 @@ __device__ __forceinline__ void lg_pow_ladder(const limb_group &g, u64 z,
   *z11 = z11_;
 }
 
-// z^((p-5)/8) = z^(2^252 - 3) (fe25519.cuh fe_pow22523).
+// z^((p-5)/8) = z^(2^252 - 3) (pow_pallas.py pow22523_chain:107).
 __device__ __forceinline__ u64 lg_pow22523(const limb_group &g, u64 z) {
   u64 z250, z11;
   lg_pow_ladder(g, z, &z250, &z11);
@@ -278,7 +280,7 @@ __device__ __forceinline__ u64 lg_pow22523(const limb_group &g, u64 z) {
 }
 
 // z^(p-2) = z^(2^255 - 21), the inverse of a nonzero z, and 0 for z = 0
-// (fe25519.cuh fe_invert).
+// (pow_pallas.py invert_chain:101).
 __device__ __forceinline__ u64 lg_invert(const limb_group &g, u64 z) {
   u64 z250, z11;
   lg_pow_ladder(g, z, &z250, &z11);

@@ -125,11 +125,6 @@ __device__ __forceinline__ fe fe_sq(const fe &a) {
   return fe_reduce_wide(t0, t1, t2, t3, t4);
 }
 
-__device__ __forceinline__ fe fe_sqn(fe a, int n) {
-  for (int i = 0; i < n; i++) a = fe_sq(a);
-  return a;
-}
-
 // Canonical representative: value < p, limbs < 2^51.
 __device__ __forceinline__ fe fe_canonical(const fe &a) {
   fe t = fe_carry(fe_carry(a));
@@ -151,10 +146,6 @@ __device__ __forceinline__ fe fe_canonical(const fe &a) {
 __device__ __forceinline__ int fe_is_zero(const fe &a) {
   fe c = fe_canonical(a);
   return (c.v[0] | c.v[1] | c.v[2] | c.v[3] | c.v[4]) == 0;
-}
-
-__device__ __forceinline__ int fe_eq(const fe &a, const fe &b) {
-  return fe_is_zero(fe_sub(a, b));
 }
 
 __device__ __forceinline__ int fe_is_negative(const fe &a) {
@@ -223,36 +214,6 @@ __device__ __forceinline__ fe fe_shfl_idx(const fe &a, int src,
   return r;
 }
 
-// The curve25519 addition-chain prefix: z^(2^250 - 1) and z^11.
-__device__ __forceinline__ void fe_pow_ladder(const fe &z, fe *z250, fe *z11) {
-  fe z2 = fe_sq(z);
-  fe z9 = fe_mul(fe_sqn(z2, 2), z);
-  fe z11_ = fe_mul(z9, z2);
-  fe z_5_0 = fe_mul(fe_sq(z11_), z9);
-  fe z_10_0 = fe_mul(fe_sqn(z_5_0, 5), z_5_0);
-  fe z_20_0 = fe_mul(fe_sqn(z_10_0, 10), z_10_0);
-  fe z_40_0 = fe_mul(fe_sqn(z_20_0, 20), z_20_0);
-  fe z_50_0 = fe_mul(fe_sqn(z_40_0, 10), z_10_0);
-  fe z_100_0 = fe_mul(fe_sqn(z_50_0, 50), z_50_0);
-  fe z_200_0 = fe_mul(fe_sqn(z_100_0, 100), z_100_0);
-  *z250 = fe_mul(fe_sqn(z_200_0, 50), z_50_0);
-  *z11 = z11_;
-}
-
-// z^((p-5)/8) = z^(2^252 - 3).
-__device__ __forceinline__ fe fe_pow22523(const fe &z) {
-  fe z250, z11;
-  fe_pow_ladder(z, &z250, &z11);
-  return fe_mul(fe_sqn(z250, 2), z);
-}
-
-// z^(p-2) = z^(2^255 - 21), the inverse of a nonzero z.
-__device__ __forceinline__ fe fe_invert(const fe &z) {
-  fe z250, z11;
-  fe_pow_ladder(z, &z250, &z11);
-  return fe_mul(fe_sqn(z250, 5), z11);
-}
-
 // ------------------------------------------------------------------ points
 // Extended twisted Edwards coordinates (X:Y:Z:T), a = -1.
 struct ge {
@@ -276,11 +237,4 @@ __device__ __forceinline__ ge ge_double(const ge &p, bool need_t) {
   r.Z = fe_mul(f, g);
   r.T = need_t ? fe_mul(e, h) : fe_zero();
   return r;
-}
-
-// Launch geometry shared by the one-thread-per-lane kernels.
-#define FD_THREADS 128
-
-static inline unsigned fd_blocks(long long n) {
-  return (unsigned)((n + FD_THREADS - 1) / FD_THREADS);
 }

@@ -9,11 +9,12 @@ Points cross as canonical int64 ``(B, k, 5)`` radix-2^51 limbs (X, Y,
 Z, T), niels forms as ``(B, 3, 5)``. Each op launches its CUDA kernel
 (``csrc/decompress_so.cu``, ``csrc/decompress_niels.cu``,
 ``csrc/point_eq.cu``, ``csrc/compress.cu``) for CUDA tensors and runs its
-plain version for CPU tensors. Both decompress kernels and compress run
-one core (``csrc/decompress_core.cuh``): a lane's field chain on GROUP
-threads, thread j holding limb j of every field element, LANES_PER_WARP
-lanes a warp; donna's inversion-free square root for decompress, the
-inversion z^(p - 2) for compress.
+plain version for CPU tensors. All four run one core
+(``csrc/decompress_core.cuh``): a lane's field ops on GROUP threads,
+thread j holding limb j of every field element, LANES_PER_WARP lanes a
+warp; donna's inversion-free square root for decompress, the inversion
+z^(p - 2) for compress, two multiplies and two zero tests for the point
+compare.
 """
 
 from __future__ import annotations
@@ -122,7 +123,9 @@ def point_eq_affine_ref(aff: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
 
 
 def point_eq_affine_cuda(aff: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
-    """The kernel: same contract as point_eq_affine_ref."""
+    """The kernel: same contract as point_eq_affine_ref, every limb of
+    ax, ay, X, Y and Z in [0, 2^52) (the group's multiply takes 26-bit
+    halves; the direct path passes canonical limbs)."""
     backend.check_tensor("aff", aff, torch.int64, (None, None, 5))
     n = aff.shape[0]
     backend.check_tensor("proj", proj, torch.int64, (n, None, 5))

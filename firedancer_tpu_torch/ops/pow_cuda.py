@@ -3,9 +3,11 @@
 ``fe_pow22523_pallas``:164, body ``_pow_kernel``:113).
 
 ``fe_invert`` (z^(p - 2); 0 for z = 0) and ``fe_pow22523``
-(z^((p - 5)/8)) take (B, 5) int64 radix-2^51 limbs, each in [0, 2^52),
-the kernels' layout, and return canonical limbs. Both run
-``csrc/fe_pow.cu`` for CUDA tensors and their plain versions (the
+(z^((p - 5)/8); 0 for z = 0) take (B, 5) int64 radix-2^51 limbs, each in
+[0, 2^52), the kernels' layout, and return canonical limbs. Both run
+``csrc/fe_pow.cu`` for CUDA tensors (the chains ``lg_invert`` and
+``lg_pow22523`` of ``csrc/decompress_core.cuh`` on its group of GROUP
+threads a lane, thread j holding limb j) and their plain versions (the
 chains of ``fe25519``, through ``fe_from_limbs51``/``fe_to_limbs51``)
 for CPU tensors. Nothing on the port's paths calls them: the kernels that
 need a chain run it inside themselves (``decompress_so``,
@@ -57,7 +59,7 @@ def fe_invert_ref(z: torch.Tensor) -> torch.Tensor:
 
 
 def fe_invert_cuda(z: torch.Tensor) -> torch.Tensor:
-    """The kernel: same contract as fe_invert_ref."""
+    """The kernel: same contract as fe_invert_ref, limbs in [0, 2^52)."""
     return _pow_cuda(z, True)
 
 
@@ -72,7 +74,7 @@ def fe_pow22523_ref(z: torch.Tensor) -> torch.Tensor:
 
 
 def fe_pow22523_cuda(z: torch.Tensor) -> torch.Tensor:
-    """The kernel: same contract as fe_pow22523_ref."""
+    """The kernel: same contract as fe_pow22523_ref, limbs in [0, 2^52)."""
     return _pow_cuda(z, False)
 
 

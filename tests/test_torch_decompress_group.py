@@ -1,8 +1,8 @@
 """The decompress core of the port's CUDA kernels (csrc/decompress_core.cuh:
 five threads a lane, thread j holding radix-2^51 limb j of every field
-element, six lanes a warp; run by decompress_so.cu, decompress_niels.cu
-and compress.cu) transcribed thread by thread in Python integers, with
-its shuffles.
+element, six lanes a warp; run by decompress_so.cu, decompress_niels.cu,
+compress.cu, fe_pow.cu and point_eq.cu) transcribed thread by thread in
+Python integers, with its shuffles.
 
 No compiler runs here, so the transcription is the CPU's check of the
 kernels' arithmetic and thread map: every warp is a list of 32 thread
@@ -13,18 +13,25 @@ back under 2^52). It is held against
 the port's plain field ops (ops/fe25519.py), against Python integers,
 and, kernel grid and all, against the plain decompress and compress
 versions, whose outputs the kernels must equal limb for limb and byte
-for byte (chip_smoke.py holds the kernels to them on the card).
+for byte (chip_smoke.py holds the kernels to them on the card). The
+power chains' and the point compare's grids are also held to the JAX
+package's fe_invert, fe_pow22523 and point_eq_affine_xla.
 """
 
 import re
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from firedancer_tpu.ops import curve25519 as jge
+from firedancer_tpu.ops import fe25519 as jfe
+from firedancer_tpu_torch import convert
 from firedancer_tpu_torch.ballet.ed25519 import corpus, oracle
-from firedancer_tpu_torch.ops import curve_cuda
+from firedancer_tpu_torch.ops import curve_cuda, pow_cuda
 from firedancer_tpu_torch.ops import fe25519 as fe
 
 torch.set_num_threads(1)
@@ -578,3 +585,246 @@ def test_compress_grid_transcription_matches_plain_and_oracle(n):
             assert out[i].tobytes() == oracle.point_compress(aff), i
         elif i % 5 == 3:
             assert not out[i].any(), i
+
+
+RAGGED = (1, 5, 6, 7, 31)
+HIGH = (1 << 52) - 1
+
+
+def _high(v: int):
+    """Limbs of a value congruent to v mod p, every limb in [2^51, 2^52):
+    2^51 plus the canonical limbs of v - S mod p, S the value of five
+    limbs of 2^51 (chip_smoke.py _high_limbs)."""
+    r = (v - sum(1 << (51 * i + 51) for i in range(5))) % P
+    return [(1 << 51) + x for x in _limbs(r)]
+
+
+def _pow_inputs(n: int):
+    """(n, 5) limbs of the power chains' edges, then random values, in an
+    order shuffled by n: z = 0, 1 and p - 1; p, p + 1, p + 18 and
+    2^255 - 1 (values in [p, 2^255) as limbs below 2^51); 0, 1, p - 1 and
+    a random value with every limb in [2^51, 2^52); every limb 2^52 - 1;
+    then random values below 2^255, every third with high limbs."""
+    rng = np.random.RandomState(200 + n)
+    edge = [_limbs(v) for v in (0, 1, P - 1, P, P + 1, P + 18, 2**255 - 1)]
+    edge += [_high(v) for v in (0, 1, P - 1, P // 3)] + [[HIGH] * 5]
+    rows = []
+    for i in range(max(n, len(edge))):
+        v = int.from_bytes(rng.bytes(32), "little") >> 1
+        rows.append(edge[i] if i < len(edge) else
+                    _high(v) if i % 3 == 0 else _limbs(v))
+    return np.array(rows, np.int64)[rng.permutation(len(rows))[:n]]
+
+
+def _fe_pow_grid(z: np.ndarray, invert: bool):
+    """fe_pow_kernel over its grid of ceil(n / DC_LANES) blocks: thread j
+    of a live group loads limb j of its lane's row (z + 5 lane + j), the
+    group runs lg_invert or lg_pow22523 (every limb range asserted in
+    _Warp), and lg_store_canonical stores limb j of the canonical result
+    into a sentinel-filled output with a grid's room past n. Returns the
+    output, how often each limb was written and every load's flat index.
+    Warps with no live group run the chain on zeros and store nothing;
+    they are skipped."""
+    n = z.shape[0]
+    flat = z.reshape(-1)
+    blocks = -(-n // (WARPS * LANES))
+    room = blocks * WARPS * LANES
+    out = np.full((room, 5), SENTINEL, np.int64)
+    writes = np.zeros((room, 5), np.int64)
+    loads = []
+    for warp in range(blocks * WARPS):
+        w = _Warp(warp, n)
+        if not any(th.live for th in w.t):
+            continue
+        x = [0] * 32
+        for t, th in enumerate(w.t):
+            if th.live:
+                loads.append(5 * th.lane + th.j)
+                x[t] = int(flat[5 * th.lane + th.j])
+                assert 0 <= x[t] < 1 << 52
+        r = (_invert if invert else _pow22523)(w, x)
+        for th, c in zip(w.t, w.canonical(r)):
+            if th.live:
+                out[th.lane, th.j] = c[th.j]
+                writes[th.lane, th.j] += 1
+    return out, writes, loads
+
+
+def _point_eq_values(n: int):
+    """Per lane the values (ax, ay, X, Y, Z) and whether each coordinate
+    is given as high limbs, by lane kind (i mod 6): equal at Z = 1; equal
+    at a random Z; only X differs; only Y differs (Z = 1); equal with
+    every limb of all five in [2^51, 2^52); ax and ay swapped (both
+    differ). About half the lanes are equal."""
+    rng = np.random.RandomState(300 + n)
+    kinds = rng.permutation(np.arange(max(n, 6)) % 6)[:n]
+    lanes = []
+    for kind in kinds:
+        ax, ay = (int.from_bytes(rng.bytes(32), "little") % P
+                  for _ in range(2))
+        z = 1 if kind in (0, 3) else int.from_bytes(
+            rng.bytes(32), "little") % (P - 1) + 1
+        x, y = ax * z % P, ay * z % P
+        if kind == 2:
+            x = (x + 1) % P
+        elif kind == 3:
+            y = (y + P - 1) % P
+        elif kind == 5:
+            ax, ay = ay, ax
+        lanes.append(((ax, ay, x, y, z), kind == 4))
+    return lanes
+
+
+def _point_eq_inputs(n: int, aff_coords: int, proj_coords: int):
+    """(aff (n, aff_coords, 5), proj (n, proj_coords, 5)) limbs of
+    _point_eq_values, the columns past (ax, ay) and (X, Y, Z) random
+    limbs that the kernel must not read."""
+    rng = np.random.RandomState(400 + n)
+    aff = rng.randint(0, 1 << 52, (n, aff_coords, 5)).astype(np.int64)
+    proj = rng.randint(0, 1 << 52, (n, proj_coords, 5)).astype(np.int64)
+    for i, (vals, high) in enumerate(_point_eq_values(n)):
+        rows = [(_high if high else _limbs)(v) for v in vals]
+        aff[i, :2], proj[i, :3] = rows[:2], rows[2:]
+    return aff, proj
+
+
+def _point_eq_grid(aff: np.ndarray, proj: np.ndarray):
+    """point_eq_kernel over its grid: thread j of a live group loads limb
+    j of ax, ay (aff + 5 aff_coords lane + {0, 5} + j) and of X, Y, Z
+    (proj + 5 proj_coords lane + {0, 5, 10} + j); the group forms ax Z
+    and ay Z (Z's halves gathered once, the values w.mul gathers), tests
+    ax Z - X and ay Z - Y for zero at canonical form, and thread 0 of a
+    live group stores the lane's byte into a sentinel-filled output.
+    Returns the output, how often each byte was written and the loads'
+    flat indices into aff and proj."""
+    n, aff_coords = aff.shape[:2]
+    proj_coords = proj.shape[1]
+    flats = (aff.reshape(-1), proj.reshape(-1))
+    blocks = -(-n // (WARPS * LANES))
+    room = blocks * WARPS * LANES
+    out = np.full(room, SENTINEL_BYTE, np.uint8)
+    writes = np.zeros(room, np.int64)
+    loads = ([], [])
+    for warp in range(blocks * WARPS):
+        w = _Warp(warp, n)
+        if not any(th.live for th in w.t):
+            continue
+        vals = [[0] * 32 for _ in range(5)]
+        for c, (src, coords, row) in enumerate((
+                (0, aff_coords, 0), (0, aff_coords, 1), (1, proj_coords, 0),
+                (1, proj_coords, 1), (1, proj_coords, 2))):
+            for t, th in enumerate(w.t):
+                if th.live:
+                    addr = 5 * coords * th.lane + 5 * row + th.j
+                    loads[src].append(addr)
+                    vals[c][t] = int(flats[src][addr])
+                    assert 0 <= vals[c][t] < 1 << 52
+        ax, ay, x, y, z = vals
+        eq_x = w.is_zero(w.sub(w.mul(ax, z), x))
+        eq_y = w.is_zero(w.sub(w.mul(ay, z), y))
+        for t, th in enumerate(w.t):
+            if th.live and th.j == 0:
+                out[th.lane] = eq_x[t] & eq_y[t]
+                writes[th.lane] += 1
+    return out, writes, loads
+
+
+def _jax_fe(values):
+    """Field values as JAX (32, B) limbs: the bytes of each value below
+    2^255 as they stand (non-canonical ones too), the rest mod p."""
+    return jfe.fe_from_bytes(jnp.asarray(np.array([list(
+        (v if v < 1 << 255 else v % P).to_bytes(32, "little"))
+        for v in values], np.uint8)))
+
+
+@pytest.fixture(scope="module")
+def jax_outputs():
+    """The JAX package's fe_invert, fe_pow22523 (jitted, one shape) and
+    point_eq_affine_xla on the inputs of every n of RAGGED at once, as
+    canonical port limbs and bools, split back by n."""
+    zs = np.concatenate([_pow_inputs(n) for n in RAGGED])
+    jz = _jax_fe(_ints(zs.tolist()))
+    chains = {name: convert.fe_from_jax_limbs(jax.jit(fn)(jz)).numpy()
+              for name, fn in (("invert", jfe.fe_invert),
+                               ("pow22523", jfe.fe_pow22523))}
+    lanes = [v for n in RAGGED for v, _ in _point_eq_values(n)]
+    cols = [_jax_fe([v[c] for v in lanes]) for c in range(5)]
+    eq = np.asarray(jge.point_eq_affine_xla(
+        (cols[0], cols[1]), (cols[2], cols[3], cols[4], None)))
+    ends = np.cumsum((0,) + RAGGED)
+    return {n: ({k: v[a:b] for k, v in chains.items()}, eq[a:b])
+            for n, a, b in zip(RAGGED, ends[:-1], ends[1:])}
+
+
+@pytest.mark.parametrize("chain", ["invert", "pow22523"])
+@pytest.mark.parametrize("n", RAGGED)
+def test_fe_pow_grid_transcription_matches_plain_and_jax(n, chain,
+                                                         jax_outputs):
+    """fe_pow_kernel's grid at ragged n (six lanes a warp, 24 a block):
+    each live lane's five limbs loaded once and stored once, nothing past
+    n; the limbs equal the plain version's (pow_cuda.*_ref), Python's pow
+    and the JAX package's chain on every lane: z = 0 to 0, 1, p - 1,
+    values in [p, 2^255), limbs in [2^51, 2^52) and every limb
+    2^52 - 1."""
+    z = _pow_inputs(n)
+    invert = chain == "invert"
+    out, writes, loads = _fe_pow_grid(z, invert)
+    assert sorted(loads) == list(range(5 * n))
+    assert (writes[:n] == 1).all() and (writes[n:] == 0).all()
+    assert (out[n:] == SENTINEL).all()
+    ref = pow_cuda.fe_invert_ref if invert else pow_cuda.fe_pow22523_ref
+    np.testing.assert_array_equal(out[:n], ref(torch.from_numpy(z)).numpy())
+    np.testing.assert_array_equal(out[:n], jax_outputs[n][0][chain])
+    e = P - 2 if invert else (P - 5) // 8
+    assert [sum(v << (51 * i) for i, v in enumerate(r)) for r in
+            out[:n].tolist()] == [pow(v % P, e, P) for v in _ints(z.tolist())]
+
+
+@pytest.mark.parametrize("coords", [(2, 3), (4, 4)])
+@pytest.mark.parametrize("n", RAGGED)
+def test_point_eq_grid_transcription_matches_plain_and_jax(n, coords,
+                                                           jax_outputs):
+    """point_eq_kernel's grid at ragged n with aff of 2 and 4 and proj of
+    3 and 4 coordinates: each live lane's 25 limbs of ax, ay, X, Y and Z
+    loaded once (no other column), its byte stored once, nothing past n;
+    the bytes equal point_eq_affine_ref's and the JAX package's
+    point_eq_affine_xla on every lane (equal lanes at Z = 1 and random Z,
+    only X or only Y differing, limbs in [2^51, 2^52))."""
+    aff, proj = _point_eq_inputs(n, *coords)
+    out, writes, loads = _point_eq_grid(aff, proj)
+    assert sorted(loads[0]) == sorted(5 * coords[0] * i + 5 * c + j
+                                      for i in range(n) for c in range(2)
+                                      for j in range(5))
+    assert sorted(loads[1]) == sorted(5 * coords[1] * i + 5 * c + j
+                                      for i in range(n) for c in range(3)
+                                      for j in range(5))
+    assert (writes[:n] == 1).all() and (writes[n:] == 0).all()
+    assert (out[n:] == SENTINEL_BYTE).all()
+    want = curve_cuda.point_eq_affine_ref(torch.from_numpy(aff),
+                                          torch.from_numpy(proj)).numpy()
+    np.testing.assert_array_equal(out[:n], want)
+    np.testing.assert_array_equal(out[:n].astype(bool), jax_outputs[n][1])
+    kinds = [int(v[2] == v[0] * v[4] % P and v[3] == v[1] * v[4] % P)
+             for v, _ in _point_eq_values(n)]
+    assert out[:n].tolist() == kinds
+
+
+def test_fe_pow_and_point_eq_run_on_the_group():
+    """fe_pow.cu and point_eq.cu launch on the core's grid with its group
+    functions and return nowhere before a shuffle; fe25519.cuh keeps no
+    one-thread power chain or compare, and no one-thread launch
+    geometry."""
+    for name, calls in (("fe_pow", ("lg_invert(g, x)", "lg_pow22523(g, x)",
+                                    "lg_store_canonical(")),
+                        ("point_eq", ("lg_mul_halves(g, ax", "lg_mul_halves"
+                                      "(g, ay", "lg_is_zero(g, lg_sub("))):
+        src = (CORE.parent / f"{name}.cu").read_text()
+        body = src[src.index("__global__"):src.index('extern "C"')]
+        assert '#include "decompress_core.cuh"' in src
+        assert "<<<dc_blocks(n), DC_THREADS" in src
+        assert "lg_make(n)" in body and "return" not in body
+        assert all(c in body for c in calls), name
+    one = (CORE.parent / "fe25519.cuh").read_text()
+    for gone in ("fe_invert", "fe_pow22523", "fe_pow_ladder", "fe_eq",
+                 "fe_sqn", "fd_blocks", "FD_THREADS"):
+        assert gone not in one, gone
