@@ -9,9 +9,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 1. Card: print the card's name and power limit (nvidia-smi) and its
    compute capability; require CUDA with capability 9.x.
-2. Build: compile every kernel from firedancer_tpu_torch/ops/csrc with
-   nvcc into build/torch_kernels/, print the seconds and ptxas's
-   registers and spills, K3's window loop, the decompress core's
+2. Build: the ring library build/libfdtango.so (make -C native) on a
+   thread beside nvcc, which compiles every kernel from
+   firedancer_tpu_torch/ops/csrc into build/torch_kernels/; print the
+   seconds and ptxas's registers and spills, K3's window loop, the decompress core's
    squaring loop (in K2 and in compress) and the SHA-512 core's round
    loop in SASS (instructions
    a thread an iteration and their opcode mix, from cuobjdump); the
@@ -121,7 +122,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
    must verify through EngineSpec("direct") (every status 0) and
    EngineSpec("rlc") (batch_ok True, no fallback). Then signatures/s by
    CUDA events and by the host clock, and the device time by kernel.
-7. Output: the card line, one JSON line of per-kernel numbers, and the
+7. Verify tile: the port's mainnet_corpus(n=32768, seed=42) built and
+   signed on the card, the 67 mainnet fixtures (tests/fixtures/
+   transaction*.bin, txn_pack/*.bin) at its front; replay -> verify ->
+   sink threads on build_topology(depth=32768) rings, the sink reading
+   verify_dedup, VerifyTile(backend="gpu", batch=8192, inflight=2,
+   tcache_depth=4096) in four runs: (1) direct, native drain; (2) rlc
+   fused, native drain; (3) direct, frag by frag in Python; (4) rlc
+   fused on the corpus built with no duplicate, corrupt or truncated
+   traffic. Each run must account exactly (the sink's distinct digests
+   are the valid set, no BAD_SIG or BAD_PARSE payload reaches it,
+   SV_FILT_CNT = #BAD_SIG + #BAD_PARSE, HA_FILT_CNT plus the duplicates
+   at the sink = #DUP, the fixtures publish as the oracle's statuses
+   say), launch each kernel batches x its launches a batch (plus the
+   direct rows once a fallback), run no plain version, and give each
+   batch the verdict its fill allows (a full flush holds at least
+   B - MAX_SIG_CNT + 1 lanes, every other flush fewer than B); run (4)
+   must not fall back. Prints each run's txn/s and signature lanes/s
+   (host clock, first publish to last sink frag), the p50/p99 latency
+   from each txn's publish to its sink frag on the full 64-bit tick
+   count, batches, fill ratio, flush verdicts, fallbacks and the
+   device's busy share (torch.profiler).
+8. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -179,6 +201,14 @@ SC_TIMED = (1, B, 2 * B)
 GROUP_RAGGED = (1, 5, 6, 7, 31, 128, B - 3, B, 2 * B)
 POW_TIMED = (1, 128, B, 2 * B)
 EQ_TIMED = (1, B, 2 * B)
+# The tile phase: a mainnet-mix corpus of TILE_N unique transactions
+# (signed in batches of TILE_SIGN_B), rings TILE_DEPTH deep (a full batch
+# holds ~6,800 txns, and inflight 2 plus one filling ~20,500 unacked) in
+# a workspace of TILE_WKSP bytes for the four links' ~42 MB dcaches.
+TILE_N = 32768
+TILE_SIGN_B = 4096
+TILE_DEPTH = 32768
+TILE_WKSP = 1 << 28
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -1726,6 +1756,209 @@ def tails_parity(torch, gpu, parity, record, aggs, batch_t, z, u) -> None:
         f"memory a block; ptxas above gives spills")
 
 
+# ------------------------------------------------------------- tile
+
+def tile_traffic(torch, n: int):
+    """The tile phase's corpora, built and signed on the card (dirty:
+    the published mix; clean: the same with no duplicate, corrupt or
+    truncated traffic), each with the mainnet fixtures at the front,
+    and the fixtures' oracle statuses."""
+    from firedancer_tpu_torch.ballet.ed25519 import oracle
+    from firedancer_tpu_torch.ballet.txn import parse_txn
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+
+    fx_dir = os.path.join(REPO, "tests", "fixtures")
+    paths = sorted(os.path.join(fx_dir, f) for f in os.listdir(fx_dir)
+                   if f.startswith("transaction") and f.endswith(".bin"))
+    pack = os.path.join(fx_dir, "txn_pack")
+    paths += sorted(os.path.join(pack, f) for f in os.listdir(pack)
+                    if f.endswith(".bin"))
+    fixtures = [open(f, "rb").read() for f in paths]
+    fx_ok = []
+    for p in fixtures:
+        items = parse_txn(p).verify_items(p)
+        fx_ok.append(all(oracle.verify(m, sg, pk) == 0 for sg, pk, m in items))
+    out = {}
+    for name, rates in (("dirty", {}), ("clean", {
+            "dup_rate": 0.0, "corrupt_rate": 0.0, "parse_err_rate": 0.0})):
+        t0 = time.perf_counter()
+        c = dcorpus.mainnet_corpus(n=n, seed=42, sign_batch_size=TILE_SIGN_B,
+                                   **rates)
+        torch.cuda.synchronize()
+        classes = collections.Counter(int(e) for e in c.expected)
+        say(f"tile corpus {name}: {len(c.payloads)} payloads {dict(classes)} "
+            f"(0 OK, 1 DUP, 2 BAD_SIG, 3 BAD_PARSE) + {len(fixtures)} "
+            f"mainnet fixtures ({sum(fx_ok)} verify by the oracle), built "
+            f"and signed on the card in {time.perf_counter() - t0:.1f} s")
+        out[name] = c
+    return fixtures, fx_ok, out
+
+
+def tile_want_launches(mode: str, batches: int, fallbacks: int) -> dict:
+    """Each kernel's launches in a tile run: a direct batch launches the
+    direct rows once; an rlc batch runs the fused pass, and a batch that
+    falls back the direct rows once more."""
+    if mode == "direct":
+        return {k: batches for k in DIRECT_KERNELS}
+    want = {k: v * batches for k, v in
+            {**FRONT_LAUNCHES["fused"], **RLC_PASS}.items()}
+    if fallbacks:
+        want.update({k: fallbacks for k in DIRECT_KERNELS})
+    return want
+
+
+def tile_run(torch, card, label, mode, native_drain, corpus, fixtures,
+             fx_ok, batch):
+    """One replay -> verify -> sink run on the card: its exact
+    accounting, launches, counters and numbers (tile_phase)."""
+    import hashlib
+
+    from firedancer_tpu_torch.ballet.txn import MAX_SIG_CNT
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco import pipeline, tiles
+    from firedancer_tpu_torch.ops import backend
+    from firedancer_tpu_torch.tango.rings import Workspace
+    from torch.profiler import ProfilerActivity, profile
+
+    payloads = fixtures + corpus.payloads
+    path = os.path.join(REPO, "build", "tile_smoke.wksp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    topo = pipeline.build_topology(path, depth=TILE_DEPTH,
+                                   wksp_sz=TILE_WKSP)
+    w = Workspace.join(topo.wksp_path)
+    try:
+        replay = tiles.ReplayTile(w, "replay.cnc",
+                                  pipeline.out_link(w, "replay_verify"),
+                                  payloads=payloads)
+        verify = tiles.VerifyTile(
+            w, "verify.cnc", pipeline.in_link(w, "replay_verify"),
+            pipeline.out_link(w, "verify_dedup"), backend="gpu",
+            batch=batch, inflight=2, tcache_depth=4096, verify_mode=mode,
+            native_drain=native_drain)
+        sink = tiles.SinkTile(w, "sink.cnc",
+                              pipeline.in_link(w, "verify_dedup"),
+                              record_digests=True)
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = pipeline.run_tiles(
+                [replay, verify, sink],
+                lambda: pipeline.chain_quiesced(replay, verify, sink),
+                timeout_s=600.0)
+            torch.cuda.synchronize()
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+        sv = verify.cnc.diag(tiles.CNC_DIAG_SV_FILT_CNT)
+        ha = verify.cnc.diag(tiles.CNC_DIAG_HA_FILT_CNT)
+    finally:
+        w.leave()
+        os.remove(path)
+
+    v = verify
+    cls = collections.Counter(int(e) for e in corpus.expected)
+    digests = collections.Counter(sink.digests)
+    valid = set(dcorpus.expected_sink_digests(corpus))
+    fx_d = [hashlib.sha256(p).digest() for p in fixtures]
+    valid |= {d for d, ok in zip(fx_d, fx_ok) if ok}
+    bad = {hashlib.sha256(p).digest()
+           for p, e in zip(corpus.payloads, corpus.expected)
+           if e in (dcorpus.BAD_SIG, dcorpus.BAD_PARSE)}
+    sink_dups = sink.recv_cnt - len(digests)
+    problems = []
+    if set(digests) != valid:
+        problems.append(f"sink set differs from the valid set: "
+                        f"{len(valid - set(digests))} missing, "
+                        f"{len(set(digests) - valid)} unexpected")
+    if bad & set(digests):
+        problems.append(f"{len(bad & set(digests))} BAD_SIG/BAD_PARSE "
+                        "payloads reached the sink")
+    if sv != cls[dcorpus.BAD_SIG] + cls[dcorpus.BAD_PARSE]:
+        problems.append(f"SV_FILT_CNT {sv} != #BAD_SIG + #BAD_PARSE "
+                        f"{cls[dcorpus.BAD_SIG] + cls[dcorpus.BAD_PARSE]}")
+    if ha + sink_dups != cls[dcorpus.DUP]:
+        problems.append(f"HA_FILT_CNT {ha} + sink duplicates {sink_dups} "
+                        f"!= #DUP {cls[dcorpus.DUP]}")
+    for d, ok in zip(fx_d, fx_ok):
+        if (d in digests) != ok:
+            problems.append("a mainnet fixture published against its "
+                            "oracle status")
+            break
+    want = tile_want_launches(mode, v.stat_batches, v.stat_rlc_fallback)
+    if launches != want:
+        problems.append(f"launches {launches} != batches x rows {want}")
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    # A full flush leaves no room for the next txn (at most MAX_SIG_CNT
+    # lanes); a deadline, starved, ring or halt flush is partial.
+    misfiled = [(lanes, verdict) for lanes, verdict in v.batch_log
+                if (lanes <= batch - MAX_SIG_CNT
+                    if verdict == tiles.FLUSH_FULL
+                    else lanes >= batch)]
+    if misfiled:
+        problems.append(f"{len(misfiled)} batches flushed under a verdict "
+                        f"their fill contradicts, first {misfiled[0]}")
+    if label.startswith("4") and v.stat_rlc_fallback:
+        problems.append(f"{v.stat_rlc_fallback} RLC fallbacks on the clean "
+                        "corpus")
+
+    span = (sink.t_last - replay.pub_ticks[0]) / 1e9
+    lat = tiles.latencies_ns(replay, sink).astype(np.float64) / 1e6
+    busy = 0.0
+    kernels = 0
+    from torch.autograd import DeviceType
+
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            busy += dev_us / 1e6
+            kernels += ev.count
+    share = (f"device busy {busy * 1e3:.1f} ms of {span * 1e3:.1f} = "
+             f"{100 * busy / span:.1f}%, idle {100 - 100 * busy / span:.1f}% "
+             f"({kernels} device operations, torch.profiler)"
+             if busy > 0 else "device busy share not measured (the trace "
+             "shows no device time)")
+    say(f"tile run {label}: {len(payloads)} txns in {span:.3f} s from the "
+        f"first publish to the last sink frag = {len(payloads) / span:.0f} "
+        f"txn/s, {v.stat_lanes} signature lanes = "
+        f"{v.stat_lanes / span:.0f} lanes/s (host clock; run_tiles "
+        f"{wall:.3f} s) [{card}]")
+    say(f"tile run {label}: sink {sink.recv_cnt} frags ({len(digests)} "
+        f"distinct, {sink_dups} duplicates past the HA filter), latency "
+        f"p50 {np.percentile(lat, 50):.3f} ms, p99 "
+        f"{np.percentile(lat, 99):.3f} ms over {len(lat)} samples; "
+        f"SV_FILT {sv}, HA_FILT {ha} [{card}]")
+    say(f"tile run {label}: host CPU by thread (thread_time) replay "
+        f"{replay.cpu_ns / 1e9:.3f} s, verify {v.cpu_ns / 1e9:.3f} s (engine "
+        f"calls {v.stat_dispatch_ns / 1e9:.3f} s, completions with their "
+        f"publishes {v.stat_complete_ns / 1e9:.3f} s, wall), sink "
+        f"{sink.cpu_ns / 1e9:.3f} s, of {wall:.3f} s of wall [{card}]")
+    say(f"tile run {label}: {v.stat_batches} batches of B={batch}, fill "
+        f"{v.stat_lanes / max(1, v.stat_batches * batch):.4f}, flushes "
+        f"{v.stat_flush}, inflight stalls {v.stat_inflight_stall}, RLC "
+        f"fallbacks {v.stat_rlc_fallback}; launches {launches}, plain "
+        f"{plain}; "
+        f"{share} [{card}]")
+    if problems:
+        fail(f"tile run {label}: " + "; ".join(problems))
+    say(f"tile run {label}: accounting exact, launches = batches x rows, "
+        f"no plain call, every flush verdict matches its fill")
+
+
+def tile_phase(torch, card, n: int = TILE_N, batch: int = B) -> None:
+    """Phase 7: the verify tile on the card, replay -> verify -> sink,
+    in four runs (direct and rlc fused with the native drain, direct
+    frag by frag, rlc fused on the clean corpus)."""
+    fixtures, fx_ok, corpora = tile_traffic(torch, n)
+    for label, mode, nd, name in (
+            ("1 direct, native drain", "direct", True, "dirty"),
+            ("2 rlc fused, native drain", "rlc", True, "dirty"),
+            ("3 direct, per-frag Python path", "direct", False, "dirty"),
+            ("4 rlc fused, clean corpus", "rlc", True, "clean")):
+        tile_run(torch, card, label, mode, nd, corpora[name], fixtures,
+                 fx_ok, batch)
+
+
 def main() -> int:
     import torch
 
@@ -1752,11 +1985,29 @@ def main() -> int:
         fail(f"need compute capability 9.x, found {cap}")
     dev = torch.device("cuda", 0)
 
-    # 2. Build.
+    # 2. Build: the ring library (make -C native) beside the kernels.
+    import threading
+
+    from firedancer_tpu_torch.tango import rings
+
     t0 = time.perf_counter()
+    native_err = []
+
+    def build_native():
+        try:
+            rings.ensure_native_built()
+            rings.require_drain()
+        except Exception as e:  # noqa: BLE001 - failed below
+            native_err.append(e)
+
+    native = threading.Thread(target=build_native)
+    native.start()
     build.build_all()
+    native.join()
+    if native_err:
+        fail(f"native ring library: {native_err[0]!r}")
     say(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(stamp {build.stamp()}, {build.BUILD_DIR})")
+        f"(stamp {build.stamp()}, {build.BUILD_DIR}; {rings.LIB_PATH})")
     for name in build.ptxas_report():
         say(f"ptxas {name}: {ptxas_line(build, name)}")
     sass_loops(build)
@@ -2123,8 +2374,9 @@ def main() -> int:
     rlc_path(torch, gpu, rows, card, (batch_a, batch_b, batch_t),
              (expect_a, expect_b), direct_b, zcash_pass, entry)
     signing_path(torch, gpu, rows, card)
+    tile_phase(torch, card)
 
-    # 7. Output.
+    # 8. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

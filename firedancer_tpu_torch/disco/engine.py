@@ -51,6 +51,53 @@ class EngineSpec:
     def key(self) -> str:
         return f"{self.mode}:B{self.batch}:fe{self.frontend}:{self.msm}"
 
+    @classmethod
+    def for_tile(cls, backend: str, verify_mode: str,
+                 batch: int) -> "EngineSpec":
+        """The spec a VerifyTile's dispatches are keyed by: the resolved
+        verify mode on the card's backend ("gpu"), the backend's name on
+        a host backend ("oracle"), as the JAX package's
+        ``EngineSpec.for_tile``:120 keys them."""
+        return cls(verify_mode if backend == "gpu" else backend, batch)
+
+
+# The verify tile's backends: "gpu" dispatches batches to an engine of
+# this registry, "oracle" verifies each transaction on the host with the
+# port's copy of the oracle.
+TILE_BACKENDS = ("gpu", "oracle")
+
+
+def default_verify_mode() -> str:
+    """The verify mode "auto" resolves to on the card: "direct" at every
+    batch size. At B = 8192 (H100 80GB HBM3, 700 W; chip_smoke.py
+    phases 4-5, PERF.md section 5) a clean RLC pass keeps the device
+    busy 2.71-2.72 ms, 2.2x a whole direct batch (1.24-1.25 ms by CUDA
+    events), and its host clock with the read-back ran 20-27 ms against
+    direct's 1.25. A batch-size sweep may revise this per B."""
+    return "direct"
+
+
+def resolve_verify_mode(backend: str, verify_mode: str) -> str:
+    """A VerifyTile's verify mode. "auto" resolves to
+    default_verify_mode() ("direct"); "direct" and "rlc" stand as given.
+    Raises on an unknown mode or backend, and on "rlc" with the
+    "oracle" backend, which has no batch engine for the RLC pass to run
+    on: the one genuinely unsupported combination."""
+    if verify_mode not in ("auto", "direct", "rlc"):
+        raise ValueError(f"unknown verify_mode {verify_mode!r} "
+                         "(want auto|direct|rlc)")
+    if backend not in TILE_BACKENDS:
+        raise ValueError(f"unknown verify backend {backend!r} "
+                         f"(want {'|'.join(TILE_BACKENDS)})")
+    if verify_mode == "auto":
+        return default_verify_mode()
+    if verify_mode == "rlc" and backend != "gpu":
+        raise ValueError(
+            "verify_mode='rlc' requires backend='gpu' (the host oracle "
+            "has no batch engine for the RLC pass: the one genuinely "
+            "unsupported combination)")
+    return verify_mode
+
 
 class EngineEntry:
     """One prepared verify engine on one device. ``fn`` is the verify

@@ -1,0 +1,976 @@
+"""disco tiles over the tango rings, the counterpart of
+``firedancer_tpu/disco/tiles.py`` (``meta_sig``:118, ``LinkNames``:126,
+``InLink``:134, ``OutLink``:195, ``Tile``:324, ``ReplayTile``:709,
+``_txn_batch_arrays``:773, ``_InflightBatch``:790, ``VerifyTile``:858,
+``SinkTile``:3571). ``_DeviceBatch`` gives a direct engine's statuses
+the async surface of ``_ReadyBatch``:817, and ``latencies_ns`` reads the
+chain's end-to-end latencies from the replay's and the sink's records.
+
+Tiles are threads joined to the native shared-memory rings
+(``tango.rings``); the payloads of the replay -> verify link are whole
+Solana transactions, which the verify tile parses, filters, verifies on
+an engine of ``disco.engine.registry()`` and publishes downstream.
+
+``VerifyTile`` has two backends: ``"gpu"`` (the JAX package's
+``"tpu"``), which stages batches of signature lanes and dispatches them
+asynchronously to the engine on ``device`` (the card unless the caller
+passes ``device="cpu"``), and ``"oracle"``, which verifies each
+transaction on the host with the port's copy of the oracle. The gpu
+backend takes batches of at least ``MAX_SIG_CNT`` lanes and MTU-wide
+rows, so every transaction that parses fits a batch and nothing of it
+is verified on the host. It ingests through the native drain
+(``fd_verify_drain``: one C call polls, parses and stages a round of
+frags) or, with ``native_drain=False``, frag by frag in Python
+(``on_frag``). Both share the flush policy, the in-order
+completion and the held-back ack cursor, and write the same cnc diag
+slots. Plain counters (``stat_*``) stand in for the JAX package's flight
+lane. An engine error propagates out of the tile's thread; nothing
+re-verifies on the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+from dataclasses import dataclass
+from hashlib import sha256 as _sha256
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ballet.ed25519 import oracle
+from ..ballet.txn import MAX_SIG_CNT, TxnParseError, parse_txn
+from ..tango import rings, tempo
+from ..tango.fctl import make_fctl_for_fseqs
+from ..tango.rings import (
+    CNC_BOOT,
+    CNC_HALT,
+    CNC_RUN,
+    CTL_ERR,
+    DIAG_OVRNR_CNT,
+    DIAG_PUB_CNT,
+    DIAG_PUB_SZ,
+    Cnc,
+    DCache,
+    FSeq,
+    Frag,
+    MCache,
+    Workspace,
+)
+from ..tango.tcache import TCache
+from ..utils.rng import Rng
+from . import engine as fd_engine
+from .feed.policy import (
+    FLUSH_DEADLINE,
+    FLUSH_FULL,
+    FLUSH_STARVED,
+    AdaptiveFlush,
+)
+
+# cnc diag slots (frank/fd_frank.h:20-36 ABI analog), the JAX package's.
+CNC_DIAG_IN_BACKP = 0
+CNC_DIAG_BACKP_CNT = 1
+CNC_DIAG_HA_FILT_CNT = 2
+CNC_DIAG_HA_FILT_SZ = 3
+CNC_DIAG_SV_FILT_CNT = 4
+CNC_DIAG_SV_FILT_SZ = 5
+# Gauge: consumed-but-unverified frags the verify tile holds its ack for.
+CNC_DIAG_UNACKED = 6
+
+CTL_SOM_EOM = 3
+FD_TPU_MTU = 1232  # disco/quic/fd_quic.h:46-47
+# The adaptive flush's deadline when the caller passes no max_wait_us
+# (the JAX package's FD_FEED_DEADLINE_US default).
+DEFAULT_DEADLINE_US = 25_000
+# Flushes that are not a verdict of the adaptive policy: the held-back
+# ack about to exhaust the producer's credits, and the halt.
+FLUSH_RING = "ring"
+FLUSH_HALT = "halt"
+
+_U64 = (1 << 64) - 1
+
+
+def idle_pause(idle_spins: int) -> float:
+    """Seconds an idle tile sleeps after idle_spins empty polls: the
+    JAX package's 20 us (FD_SPIN_PAUSE analog) after 64 spins, doubling
+    every 8 sleeps up to 1 ms. Each wake takes the GIL, and the verify
+    thread must take it back after every PyTorch op of a batch (about 50
+    a direct batch, 700 an RLC pass, where a JAX batch is one call), so
+    a tile that stays idle wakes less often."""
+    if idle_spins <= 64:
+        return 0.0
+    return min(20e-6 * (1 << min((idle_spins - 65) // 8, 6)), 1e-3)
+
+
+def meta_sig(payload: bytes) -> int:
+    """Frag meta sig: the first 8 bytes of the txn's first signature
+    (byte 0 is the compact signature count)."""
+    return int.from_bytes(payload[1:9], "little") if len(payload) > 8 else 0
+
+
+@dataclass
+class LinkNames:
+    """Workspace object names of one mcache/dcache/fseq link."""
+
+    mcache: str
+    dcache: str
+    fseq: str
+
+
+class InLink:
+    """Consumer side of a link; resumes from the published fseq."""
+
+    def __init__(self, wksp: Workspace, names: LinkNames):
+        self.mcache = MCache(wksp, names.mcache)
+        self.dcache = DCache(wksp, names.dcache)
+        self.fseq = FSeq(wksp, names.fseq)
+        self.seq = self.fseq.query()
+
+    def housekeep(self) -> None:
+        self.fseq.update(self.seq)
+
+
+class OutLink:
+    """Producer side: dcache chunk walk, mcache publish, credit control."""
+
+    def __init__(self, wksp: Workspace, names: LinkNames,
+                 mtu: int = FD_TPU_MTU,
+                 reliable_fseqs: Optional[Sequence[FSeq]] = None):
+        self.mcache = MCache(wksp, names.mcache)
+        self.dcache = DCache(wksp, names.dcache)
+        self.mtu = mtu
+        self.seq = self.mcache.seq_next()
+        # Resume the chunk walk after the last published frag, so a
+        # restarted producer never overwrites unconsumed payloads.
+        self.chunk = 0
+        if self.seq > 0:
+            r, last = self.mcache.poll(self.seq - 1)
+            if r == rings.POLL_FRAG and last is not None:
+                self.chunk = self.dcache.next_chunk(last.chunk, last.sz, mtu)
+        self.fctl = make_fctl_for_fseqs(self.mcache.depth,
+                                        reliable_fseqs or [], cr_burst=1)
+        self.cr_avail = 0
+
+    def housekeep(self) -> None:
+        self.cr_avail = self.fctl.tx_cr_update(self.cr_avail, self.seq)
+
+    def can_publish(self) -> bool:
+        if self.cr_avail > 0:
+            return True
+        self.housekeep()
+        return self.cr_avail > 0
+
+    def publish(self, payload: bytes, sig: int, tsorig: int = 0,
+                ctl: int = CTL_SOM_EOM) -> None:
+        """Copy payload into the dcache and publish its frag meta."""
+        if len(payload) > self.mtu:
+            # A payload past the MTU would trample the next frag's chunk.
+            raise ValueError(f"payload of {len(payload)} bytes exceeds the "
+                             f"link MTU ({self.mtu})")
+        self.dcache.write(self.chunk, payload)
+        tspub = tempo.tickcount() & 0xFFFFFFFF
+        self.mcache.publish(self.seq, sig, self.chunk, len(payload), ctl,
+                            tsorig, tspub)
+        self.chunk = self.dcache.next_chunk(self.chunk, len(payload), self.mtu)
+        self.seq += 1
+        self.cr_avail = max(0, self.cr_avail - 1)
+
+
+class Tile:
+    """Generic run loop: housekeeping on jittered intervals and the bulk
+    frag drain. Subclasses implement on_frag(frag, payload) and
+    optionally on_idle(), on_housekeep(), on_halt(), done() and step()."""
+
+    name = "tile"
+    # Frags a bulk drain (fd_frag_drain) takes per in-link per round.
+    BULK_FRAGS = 64
+
+    def __init__(self, wksp: Workspace, cnc_name: str,
+                 in_link: Optional[InLink] = None,
+                 out_link: Optional[OutLink] = None,
+                 lazy_ns: Optional[int] = None, seed: int = 0):
+        self.wksp = wksp
+        self.cnc_name = cnc_name
+        self.cnc = Cnc(wksp, cnc_name)
+        self.in_links: List[InLink] = [in_link] if in_link is not None else []
+        self.in_link = in_link
+        self.in_cur = in_link  # link of the frag being processed
+        self.out_link = out_link
+        self.rng = Rng(seq=seed)
+        depth = (in_link.mcache.depth if in_link is not None else
+                 out_link.mcache.depth if out_link is not None else 128)
+        lazy = lazy_ns if lazy_ns is not None else tempo.lazy_default(depth)
+        self._async_min = tempo.async_min(lazy)
+        self._last_in_backp = 0
+        self.halted = False
+        self.error: Optional[BaseException] = None
+        self.cpu_ns = 0  # CPU time of the tile's thread in run()
+        self._bulk: dict = {}
+        if self.in_links:
+            rings.require_drain()
+
+    # -- overridables ----------------------------------------------------
+
+    def on_frag(self, frag: Frag, payload: bytes) -> None:
+        raise NotImplementedError
+
+    def on_idle(self) -> None:
+        """Called when the inputs are empty (flush partial batches)."""
+
+    def on_housekeep(self) -> None:
+        """Extra per-tile housekeeping."""
+
+    def on_halt(self) -> None:
+        """Tile-specific teardown."""
+
+    def done(self) -> bool:
+        """Source tiles return True when exhausted."""
+        return False
+
+    def step(self) -> None:
+        """Source tiles (no in-link) override."""
+        time.sleep(50e-6)
+
+    # -- input -----------------------------------------------------------
+
+    def _bulk_state(self, il: InLink) -> dict:
+        st = self._bulk.get(id(il))
+        if st is None:
+            n = self.BULK_FRAGS
+            # Any frag fits the buffer alone (sz is u16, below
+            # n * FD_TPU_MTU) and the per-frag cap is the u16 ceiling:
+            # the drain defers a frag that does not fit the room left,
+            # and never truncates one.
+            st = {"pay": np.zeros(n * FD_TPU_MTU, np.uint8),
+                  "offs": np.zeros(n, np.uint32),
+                  "lens": np.zeros(n, np.uint32),
+                  "sigs": np.zeros(n, np.uint64),
+                  "ts": np.zeros(n, np.uint32),
+                  "seqs": np.zeros(n, np.uint64),
+                  "ctls": np.zeros(n, np.uint16),
+                  "tspubs": np.zeros(n, np.uint32),
+                  "ctr": np.zeros(2, np.uint64)}
+            self._bulk[id(il)] = st
+        return st
+
+    def poll_inputs(self):
+        """One bulk drain round over the in-links: (progressed, overrun).
+        The consumed cursor advances only after the round's frags were
+        handled, so housekeeping never acks an unhandled frag."""
+        lib = rings.lib()
+        progressed = overrun = False
+        for il in self.in_links:
+            st = self._bulk_state(il)
+            seq = ctypes.c_uint64(il.seq)
+            ovr0 = int(st["ctr"][1])
+            n = lib.fd_frag_drain(
+                il.mcache._mem, ctypes.addressof(il.dcache._buf),
+                ctypes.byref(seq), self.BULK_FRAGS, 0xFFFF,
+                st["pay"].ctypes.data, st["pay"].nbytes,
+                st["offs"].ctypes.data, st["lens"].ctypes.data,
+                st["sigs"].ctypes.data, st["ts"].ctypes.data,
+                st["seqs"].ctypes.data, st["ctls"].ctypes.data,
+                st["tspubs"].ctypes.data, st["ctr"].ctypes.data)
+            d_ovr = int(st["ctr"][1]) - ovr0
+            if d_ovr:
+                il.fseq.diag_add(DIAG_OVRNR_CNT, d_ovr)
+                overrun = True
+            if n > 0:
+                self.in_cur = il
+                pay, offs, lens = st["pay"], st["offs"], st["lens"]
+                for i in range(n):
+                    off, ln = int(offs[i]), int(lens[i])
+                    frag = Frag(seq=int(st["seqs"][i]), sig=int(st["sigs"][i]),
+                                chunk=0, sz=ln, ctl=int(st["ctls"][i]),
+                                tsorig=int(st["ts"][i]),
+                                tspub=int(st["tspubs"][i]))
+                    self.on_frag(frag, pay[off:off + ln].tobytes())
+                progressed = True
+            il.seq = seq.value
+        return progressed, overrun
+
+    # -- run loop --------------------------------------------------------
+
+    def _housekeep_out(self) -> None:
+        """Out-link credit refresh and the backpressure gauge."""
+        if self.out_link:
+            self.out_link.housekeep()
+            backp = 1 if self.out_link.fctl.in_backpressure else 0
+            if backp != self._last_in_backp:
+                self.cnc.diag_add(CNC_DIAG_IN_BACKP,
+                                  (backp - self._last_in_backp) & _U64)
+                self._last_in_backp = backp
+
+    def housekeep(self, now: int) -> None:
+        self.cnc.heartbeat(now)
+        for il in self.in_links:
+            il.housekeep()
+        self._housekeep_out()
+        self.on_housekeep()
+
+    def run(self, max_ns: int = 30_000_000_000) -> None:
+        """Run until HALT, done() with HALT, or max_ns of wall time. An
+        exception is kept in self.error and raised again; on_halt and
+        the last housekeeping run either way."""
+        t0 = time.thread_time_ns()
+        try:
+            self._run_loop(max_ns)
+        except BaseException as e:
+            self.error = e
+            raise
+        finally:
+            try:
+                self.on_halt()
+            finally:
+                self.halted = True
+                try:
+                    self.housekeep(tempo.tickcount())
+                finally:
+                    self.cnc.signal(CNC_BOOT)
+                    self.cpu_ns = time.thread_time_ns() - t0
+
+    def _run_loop(self, max_ns: int) -> None:
+        self.cnc.signal(CNC_RUN)
+        start = tempo.tickcount()
+        then = start
+        idle_spins = 0
+        while True:
+            now = tempo.tickcount()
+            if now >= then:
+                self.housekeep(now)
+                if self.cnc.signal_query() == CNC_HALT:
+                    break
+                if now - start > max_ns:
+                    break
+                then = now + tempo.async_reload(self.rng, self._async_min)
+            if self.done():
+                if self.cnc.signal_query() == CNC_HALT:
+                    break
+                idle_spins += 1
+                time.sleep(idle_pause(idle_spins + 64))
+                continue
+            if not self.in_links:
+                self.step()
+                continue
+            progressed, overrun = self.poll_inputs()
+            if progressed or overrun:
+                idle_spins = 0
+            else:
+                self.on_idle()
+                idle_spins += 1
+                if idle_spins > 64:
+                    time.sleep(idle_pause(idle_spins))
+
+    def publish_backp(self, payload: bytes, sig: int, tsorig: int = 0,
+                      count_diag: bool = True) -> bool:
+        """Publish downstream, spinning through backpressure (counted in
+        the BACKP diag) until credits arrive or HALT. False when HALT
+        came first and the frag was dropped."""
+        while not self.out_link.can_publish():
+            if self.cnc.signal_query() == CNC_HALT:
+                return False
+            self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
+            time.sleep(20e-6)
+        self.out_link.publish(payload, sig, tsorig=tsorig)
+        if count_diag and self.in_cur is not None:
+            self.in_cur.fseq.diag_add(DIAG_PUB_CNT, 1)
+            self.in_cur.fseq.diag_add(DIAG_PUB_SZ, len(payload))
+        return True
+
+
+class ReplayTile(Tile):
+    """Source: publishes a list of payloads with flow control
+    (disco/replay/fd_replay.c analog). pub_ticks holds the full tick
+    count of each publish, by payload index; a frag's tsorig carries its
+    low 32 bits."""
+
+    name = "replay"
+
+    def __init__(self, wksp, cnc_name, out_link: OutLink,
+                 payloads: Sequence[bytes] = (), **kw):
+        super().__init__(wksp, cnc_name, out_link=out_link, **kw)
+        self.payloads = payloads
+        self.pos = 0
+        self.pub_cnt = 0
+        self.pub_ticks: list = []
+
+    def done(self) -> bool:
+        return self.pos >= len(self.payloads)
+
+    def step(self) -> None:
+        if not self.out_link.can_publish():
+            self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
+            time.sleep(20e-6)
+            return
+        payload = self.payloads[self.pos]
+        now = tempo.tickcount()
+        self.pub_ticks.append(now)
+        self.out_link.publish(payload, meta_sig(payload),
+                              tsorig=now & 0xFFFFFFFF)
+        self.pos += 1
+        self.pub_cnt += 1
+
+
+def _txn_batch_arrays(items, max_len: int):
+    """Pack (sig, pub, msg) tuples into the engine's padded arrays."""
+    n = len(items)
+    msgs = np.zeros((n, max_len), np.uint8)
+    lens = np.zeros(n, np.int32)
+    sigs = np.zeros((n, 64), np.uint8)
+    pubs = np.zeros((n, 32), np.uint8)
+    for i, (sig, pub, msg) in enumerate(items):
+        m = np.frombuffer(msg, np.uint8)[:max_len]
+        msgs[i, :len(m)] = m
+        lens[i] = len(m)
+        sigs[i] = np.frombuffer(sig, np.uint8)
+        pubs[i] = np.frombuffer(pub, np.uint8)
+    return msgs, lens, sigs, pubs
+
+
+@dataclass
+class _InflightBatch:
+    """One dispatched batch awaiting completion (the software analog of
+    a wiredancer DMA slot, wd_f1.c:327-408)."""
+
+    out: object          # is_ready() / np.asarray() / used_fallback
+    todo: list           # [(payload or None, n_lanes, tsorig, seq_end)]
+    t_dispatch: int      # tick count at dispatch
+
+
+class _DeviceBatch:
+    """A direct engine's statuses tensor with the async-batch surface: a
+    CUDA event recorded after the launches answers is_ready() without
+    blocking, and np.asarray reads the statuses back (a CPU tensor is
+    ready when returned)."""
+
+    def __init__(self, statuses: torch.Tensor):
+        self._t = statuses
+        self._ev = None
+        if statuses.device.type == "cuda":
+            self._ev = torch.cuda.Event()
+            self._ev.record(torch.cuda.current_stream(statuses.device))
+
+    def is_ready(self) -> bool:
+        return self._ev is None or self._ev.query()
+
+    def __array__(self, dtype=None, copy=None):
+        out = self._t.cpu().numpy()
+        return out.astype(dtype) if dtype is not None else out
+
+
+class VerifyTile(Tile):
+    """Sigverify: parse each txn in the tile, drop HA duplicates, verify
+    its signatures, publish the verified txns (the verify tile of
+    app/frank/fd_frank_verify.c). See the module docstring for the
+    backends and ingest paths.
+
+    Up to ``inflight`` batches are on the device while the tile keeps
+    draining; completions retire in dispatch order. A partial batch is
+    flushed by the adaptive policy (deadline ``max_wait_us``, or starved
+    input with an idle device), or when the held-back ack cursor is
+    about to exhaust the producer's credits. Parse errors, bad
+    signatures and CTL_ERR frags count in the SV filter slots, HA
+    duplicates in the HA slots.
+    """
+
+    name = "verify"
+
+    def __init__(
+        self,
+        wksp,
+        cnc_name,
+        in_link,
+        out_link,
+        backend: str = "gpu",
+        batch: int = 128,
+        max_msg_len: int = FD_TPU_MTU,
+        tcache_depth: int = 4096,
+        inflight: int = 2,
+        max_wait_us: Optional[int] = None,
+        native_drain: bool = True,
+        verify_mode: str = "auto",
+        device="cuda",
+        **kw,
+    ):
+        self.verify_mode = fd_engine.resolve_verify_mode(backend, verify_mode)
+        if backend == "gpu" and (batch < MAX_SIG_CNT
+                                 or max_msg_len < FD_TPU_MTU):
+            # A txn that parses has at most MAX_SIG_CNT signatures and a
+            # message of at most FD_TPU_MTU bytes: anything narrower
+            # could not verify every txn on the device.
+            raise ValueError(
+                f"backend='gpu' needs batch >= {MAX_SIG_CNT} and "
+                f"max_msg_len >= {FD_TPU_MTU}, got batch={batch}, "
+                f"max_msg_len={max_msg_len}")
+        super().__init__(wksp, cnc_name, in_link=in_link, out_link=out_link,
+                         **kw)
+        self.backend = backend
+        self.batch = batch
+        self.max_msg_len = max_msg_len
+        self.ha_tcache = TCache(tcache_depth)
+        self.inflight_max = max(1, inflight)
+        deadline_us = (max_wait_us if max_wait_us is not None
+                       else DEFAULT_DEADLINE_US)
+        self.max_wait_ns = deadline_us * 1_000
+        self.flush_policy = AdaptiveFlush(self.max_wait_ns)
+        self._pending: list = []       # [(payload, items|n, tsorig, seq_end)]
+        self._pending_lanes = 0
+        self._pending_since = 0        # tick count of the oldest pending txn
+        self._inflight: list = []      # FIFO of _InflightBatch
+        # The fseq published to the producer is held back to the last
+        # seq whose txn is fully verified, so a crash between consume and
+        # verify leaves the frags re-readable.
+        self._acked_seq = self.in_link.seq if self.in_link else 0
+        self._last_unacked = int(self.cnc.diag(CNC_DIAG_UNACKED))
+        # (lanes, verdict) of every batch dispatched, in order.
+        self.batch_log: list = []
+        self.stat_inflight_stall = 0
+        self.stat_rlc_fallback = 0
+        self.stat_ctl_err = 0
+        # Wall ns of the engine calls (copies in, launches) and of the
+        # completions (read-back wait, publishes).
+        self.stat_dispatch_ns = 0
+        self.stat_complete_ns = 0
+        self._engine_entry = None
+        self._verify_batch_fn = None
+        self.device = None
+        if backend == "gpu":
+            entry, _ = fd_engine.registry().acquire(
+                fd_engine.EngineSpec.for_tile(backend, self.verify_mode,
+                                              batch),
+                warm=True, device=device, max_msg_len=max_msg_len)
+            self._engine_entry = entry
+            self._verify_batch_fn = entry.fn
+            self.device = entry.device
+        self._nd = backend == "gpu" and native_drain and in_link is not None
+        if self._nd:
+            self._nd_setup()
+
+    @property
+    def stat_batches(self) -> int:
+        return len(self.batch_log)
+
+    @property
+    def stat_lanes(self) -> int:
+        return sum(lanes for lanes, _ in self.batch_log)
+
+    @property
+    def stat_flush(self) -> dict:
+        """Batches by flush verdict."""
+        out = dict.fromkeys((FLUSH_FULL, FLUSH_DEADLINE, FLUSH_STARVED,
+                             FLUSH_RING, FLUSH_HALT), 0)
+        for _, verdict in self.batch_log:
+            out[verdict] += 1
+        return out
+
+    @property
+    def stat_flush_timeout(self) -> int:
+        return self.stat_flush[FLUSH_DEADLINE]
+
+    @property
+    def stat_flush_starved(self) -> int:
+        return self.stat_flush[FLUSH_STARVED]
+
+    # -- native drain ----------------------------------------------------
+
+    def _nd_setup(self) -> None:
+        self._nd_lib = rings.lib()
+        # {drained_ok, parse_err, overrun, oversize, parse_err_bytes,
+        #  oversize_bytes, ctl_err, ctl_err_bytes}
+        self._nd_counters = np.zeros(8, np.uint64)
+        self._nd_prev = np.zeros(8, np.uint64)
+        b, mtu = self.batch, self.max_msg_len
+        self._nd_msgs = np.zeros((b, mtu), np.uint8)
+        self._nd_lens = np.zeros(b, np.uint32)
+        self._nd_sigs = np.zeros((b, 64), np.uint8)
+        self._nd_pubs = np.zeros((b, 32), np.uint8)
+        self._nd_pay = np.zeros(b * FD_TPU_MTU, np.uint8)
+        self._nd_offs = np.zeros(b, np.uint32)
+        self._nd_plens = np.zeros(b, np.uint32)
+        self._nd_psigs = np.zeros(b, np.uint64)
+        self._nd_tlanes = np.zeros(b, np.uint32)
+        self._nd_tsorig = np.zeros(b, np.uint32)
+        self._nd_tspub = np.zeros(b, np.uint32)
+        self._nd_hash = np.zeros(b, np.uint64)
+        self._nd_pay_fill = 0
+
+    def _nd_account(self, il: InLink) -> bool:
+        """Fold a drain round's counter deltas into the diag slots
+        (parse errors, oversize and CTL_ERR drops to the SV filter);
+        True when the round crossed an overrun."""
+        d = self._nd_counters - self._nd_prev
+        self._nd_prev = self._nd_counters.copy()
+        if d[1] or d[3]:
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, int(d[1] + d[3]))
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[4] + d[5]))
+        if d[6]:
+            self.stat_ctl_err += int(d[6])
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, int(d[6]))
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[7]))
+        if d[2]:
+            il.fseq.diag_add(DIAG_OVRNR_CNT, int(d[2]))
+            return True
+        return False
+
+    def poll_inputs(self):
+        if not self._nd:
+            return super().poll_inputs()
+        il = self.in_link
+        room_lanes = self.batch - self._pending_lanes
+        if room_lanes <= 0:
+            self._dispatch(FLUSH_FULL)
+            self._complete(block=False)
+            return False, False
+        lane0 = self._pending_lanes
+        mtu = self.max_msg_len
+        seq = ctypes.c_uint64(il.seq)
+        n = self._nd_lib.fd_verify_drain(
+            il.mcache._mem, ctypes.addressof(il.dcache._buf),
+            ctypes.byref(seq),
+            self.batch - len(self._pending), room_lanes, self.batch, mtu,
+            self._nd_msgs.ctypes.data + lane0 * mtu,
+            self._nd_lens.ctypes.data + lane0 * 4,
+            self._nd_sigs.ctypes.data + lane0 * 64,
+            self._nd_pubs.ctypes.data + lane0 * 32,
+            self._nd_pay.ctypes.data + self._nd_pay_fill,
+            self._nd_pay.nbytes - self._nd_pay_fill,
+            self._nd_offs.ctypes.data, self._nd_plens.ctypes.data,
+            self._nd_psigs.ctypes.data,
+            self._nd_tlanes.ctypes.data, self._nd_tsorig.ctypes.data,
+            self._nd_tspub.ctypes.data, self._nd_hash.ctypes.data,
+            self._nd_counters.ctypes.data)
+        overrun = self._nd_account(il)
+        if n <= 0:
+            il.seq = seq.value
+            if not self._pending and not self._inflight:
+                self._acked_seq = il.seq  # everything consumed is done
+            return False, overrun
+        if not self._pending:
+            self._pending_since = tempo.tickcount()
+        drain_end = seq.value
+        base = self._nd_pay_fill
+        for i in range(n):
+            off = base + int(self._nd_offs[i])
+            ln = int(self._nd_plens[i])
+            payload = self._nd_pay[off:off + ln].tobytes()
+            cnt = int(self._nd_tlanes[i])
+            # Only the round's last txn carries the post-round seq: the
+            # ack must not pass a batch boundary inside the round.
+            seq_end = drain_end if i == n - 1 else 0
+            if self.ha_tcache.insert(hash(payload)):
+                self.cnc.diag_add(CNC_DIAG_HA_FILT_CNT, 1)
+                self.cnc.diag_add(CNC_DIAG_HA_FILT_SZ, ln)
+                # Its lanes stay staged; completion skips it (None).
+                self._pending.append((None, cnt, 0, seq_end))
+            else:
+                self._pending.append(
+                    (payload, cnt, int(self._nd_tsorig[i]), seq_end))
+            self._nd_pay_fill = off + ln
+            self._pending_lanes += cnt
+        # The consumed cursor moves after the txns are in _pending.
+        il.seq = seq.value
+        if self._pending_lanes >= self.batch:
+            self._dispatch(FLUSH_FULL)
+        elif self._ring_starved():
+            self._dispatch(FLUSH_RING)
+        self._complete(block=False)
+        return True, overrun
+
+    def _engine_args(self, msgs, lens, sigs, pubs):
+        """The engine's inputs: lens as int32. EngineEntry.fn copies
+        numpy arrays from pageable memory to the card before it returns,
+        so the staging buffers are free to refill; on the CPU the
+        tensors would share the buffers (and a lazy RLC fallback reads
+        them later), so they are copied."""
+        arrs = (msgs, lens.astype(np.int32), sigs, pubs)
+        if self.device.type == "cpu":
+            arrs = tuple(a.copy() for a in arrs)
+        return arrs
+
+    def _launch(self, msgs, lens, sigs, pubs):
+        t0 = time.perf_counter_ns()
+        out = self._verify_batch_fn(*self._engine_args(msgs, lens, sigs,
+                                                       pubs))
+        if isinstance(out, torch.Tensor):
+            out = _DeviceBatch(out)
+        self.stat_dispatch_ns += time.perf_counter_ns() - t0
+        return out
+
+    def _dispatch_native(self, verdict: str) -> None:
+        if not self._pending:
+            return
+        while len(self._inflight) >= self.inflight_max:
+            self.stat_inflight_stall += 1
+            self._complete(block=True)
+        lanes = self._pending_lanes
+        if lanes < self.batch:
+            # Rows past the staged lanes verify as pad lanes (zero sig,
+            # pub and len), not as the previous batch's signatures:
+            # under rlc a stale lane would fail the batch equation.
+            self._nd_lens[lanes:] = 0
+            self._nd_sigs[lanes:] = 0
+            self._nd_pubs[lanes:] = 0
+        out = self._launch(self._nd_msgs, self._nd_lens, self._nd_sigs,
+                           self._nd_pubs)
+        self._inflight.append(_InflightBatch(
+            out=out, todo=self._pending, t_dispatch=tempo.tickcount()))
+        self.batch_log.append((lanes, verdict))
+        self._pending = []
+        self._pending_lanes = 0
+        self._nd_pay_fill = 0
+
+    # -- per-frag path ---------------------------------------------------
+
+    def _ack_inline(self, frag: Frag) -> None:
+        """A frag handled to completion in on_frag is ackable at once,
+        when nothing older is still staged or in flight."""
+        if not self._pending and not self._inflight:
+            self._acked_seq = frag.seq + 1
+
+    def _filter(self, frag: Frag, payload: bytes, cnt_slot: int,
+                sz_slot: int) -> None:
+        self.cnc.diag_add(cnt_slot, 1)
+        self.cnc.diag_add(sz_slot, len(payload))
+        self._ack_inline(frag)
+        # A stream of filtered frags never goes idle: check the staged
+        # batch's deadline here too.
+        self._flush_if_due()
+
+    def on_frag(self, frag: Frag, payload: bytes) -> None:
+        if frag.ctl & CTL_ERR:
+            self.stat_ctl_err += 1
+            self._filter(frag, payload, CNC_DIAG_SV_FILT_CNT,
+                         CNC_DIAG_SV_FILT_SZ)
+            return
+        try:
+            txn = parse_txn(payload)
+        except TxnParseError:
+            self._filter(frag, payload, CNC_DIAG_SV_FILT_CNT,
+                         CNC_DIAG_SV_FILT_SZ)
+            return
+        # The HA tag covers the whole payload: before sigverify, a
+        # corrupted copy of a pending txn must not shadow the original.
+        if self.ha_tcache.insert(hash(payload)):
+            self._filter(frag, payload, CNC_DIAG_HA_FILT_CNT,
+                         CNC_DIAG_HA_FILT_SZ)
+            return
+        items = txn.verify_items(payload)
+        if self.backend == "oracle":
+            ok = all(oracle.verify(msg, sig, pub) == 0
+                     for (sig, pub, msg) in items)
+            self._finish(payload, ok, tsorig=frag.tsorig)
+            self._ack_inline(frag)
+            return
+        if not self._pending:
+            self._pending_since = tempo.tickcount()
+        self._pending.append((payload, items, frag.tsorig, frag.seq + 1))
+        self._pending_lanes += len(items)
+        self._flush_if_due()
+        self._complete(block=False)
+
+    def _dispatch_py(self, verdict: str) -> None:
+        """Ship pending txns as fixed-shape batches of whole txns (a
+        txn's signatures never straddle two batches). Unless forced, a
+        trailing partial batch stays pending."""
+        force = verdict != FLUSH_FULL
+        while self._pending and (force or self._pending_lanes >= self.batch):
+            take, flat = 0, []
+            for _, items, _, _ in self._pending:
+                if len(flat) + len(items) > self.batch:
+                    break
+                flat.extend(items)
+                take += 1
+            todo = [(payload, len(items), tsorig, seq_end)
+                    for payload, items, tsorig, seq_end in self._pending[:take]]
+            while len(self._inflight) >= self.inflight_max:
+                self.stat_inflight_stall += 1
+                self._complete(block=True)
+            pad = [(bytes(64), bytes(32), b"")] * (self.batch - len(flat))
+            out = self._launch(*_txn_batch_arrays(flat + pad,
+                                                  self.max_msg_len))
+            self._inflight.append(_InflightBatch(
+                out=out, todo=todo, t_dispatch=tempo.tickcount()))
+            # A batch cut because the next txn does not fit is full.
+            self.batch_log.append((len(flat), FLUSH_FULL
+                                   if self._pending_lanes >= self.batch
+                                   else verdict))
+            del self._pending[:take]
+            self._pending_lanes -= len(flat)
+            if self._pending:
+                self._pending_since = tempo.tickcount()
+
+    # -- shared: flush, completion, housekeeping --------------------------
+
+    def _dispatch(self, verdict: str) -> None:
+        if self._nd:
+            self._dispatch_native(verdict)
+        else:
+            self._dispatch_py(verdict)
+
+    def _ring_starved(self) -> bool:
+        """The held-back ack is about to exhaust the producer's credits:
+        a partial batch beats a stalled pipeline."""
+        il = self.in_link
+        return il is not None and (
+            il.seq - self._acked_seq >= max(1, il.mcache.depth - 64))
+
+    def _flush_if_due(self, starved: bool = False) -> None:
+        """Dispatch the staged batch when it is full, when the ring is
+        about to starve, or when the adaptive policy says so (deadline,
+        or starved input with an idle device)."""
+        if not self._pending:
+            return
+        if self._pending_lanes >= self.batch:
+            self._dispatch(FLUSH_FULL)
+            return
+        if self._ring_starved():
+            self._dispatch(FLUSH_RING)
+            return
+        verdict = self.flush_policy.due(
+            tempo.tickcount(), self._pending_lanes, self.batch,
+            self._pending_since, starved=starved,
+            device_idle=not self._inflight,
+            backpressured=bool(self.out_link.fctl.in_backpressure)
+            if self.out_link else False)
+        if verdict in (FLUSH_DEADLINE, FLUSH_STARVED):
+            self._dispatch(verdict)
+
+    def on_idle(self) -> None:
+        if self._inflight:
+            self._complete(block=False)
+        self._flush_if_due(starved=True)
+
+    def housekeep(self, now: int) -> None:
+        # Publish the VERIFIED cursor, not the consumed one.
+        self.cnc.heartbeat(now)
+        for il in self.in_links:
+            il.fseq.update(min(self._acked_seq, il.seq))
+        self._publish_unacked()
+        self._housekeep_out()
+        self.on_housekeep()
+
+    def _publish_unacked(self) -> None:
+        unacked = sum(max(0, il.seq - self._acked_seq)
+                      for il in self.in_links)
+        if unacked != self._last_unacked:
+            self.cnc.diag_add(CNC_DIAG_UNACKED,
+                              (unacked - self._last_unacked) & _U64)
+            self._last_unacked = unacked
+
+    def on_housekeep(self) -> None:
+        # The latency backstop while the drain never goes idle.
+        if self._inflight:
+            self._complete(block=False)
+        self._flush_if_due()
+
+    def on_halt(self) -> None:
+        """Dispatch what is staged and retire every batch in flight, so
+        no device work outlives the tile; after an error, neither."""
+        if self.error is not None:
+            return
+        if self._pending and self.backend == "gpu":
+            self._dispatch(FLUSH_HALT)
+        self._complete(block=True, drain_all=True)
+
+    def _complete(self, block: bool, drain_all: bool = False) -> None:
+        """Retire finished batches in dispatch order and publish their
+        verified txns. An engine error propagates."""
+        while self._inflight:
+            ib = self._inflight[0]
+            if not block and not ib.out.is_ready():
+                return
+            t0 = time.perf_counter_ns()
+            statuses = np.asarray(ib.out)
+            if getattr(ib.out, "used_fallback", False):
+                self.stat_rlc_fallback += 1
+            if self._engine_entry is not None:
+                self._engine_entry.note_service(
+                    tempo.tickcount() - ib.t_dispatch)
+            off = 0
+            batch_ack = 0
+            for payload, cnt, tsorig, seq_end in ib.todo:
+                batch_ack = max(batch_ack, seq_end)
+                if payload is not None:  # None: HA-filtered when staged
+                    ok = cnt > 0 and bool((statuses[off:off + cnt] == 0).all())
+                    self._finish(payload, ok, tsorig=tsorig)
+                off += cnt
+            # Pop after publishing: a quiescence check reading
+            # _inflight from another thread must not see a gap.
+            self._inflight.pop(0)
+            self.stat_complete_ns += time.perf_counter_ns() - t0
+            self._acked_seq = max(self._acked_seq, batch_ack)
+            if not self._pending and not self._inflight and self.in_link:
+                self._acked_seq = self.in_link.seq
+            if not drain_all:
+                return  # retire at most one a call; keep the loop hot
+
+    def _finish(self, payload: bytes, ok: bool, tsorig: int = 0) -> None:
+        if not ok:
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, 1)
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, len(payload))
+            return
+        self.publish_backp(payload, meta_sig(payload), tsorig=tsorig)
+
+    def run(self, max_ns: int = 30_000_000_000) -> None:
+        """The run loop with the engine's device current in this thread:
+        the tile's CUDA work is launched from its own thread only."""
+        if self.device is not None and self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return super().run(max_ns)
+        return super().run(max_ns)
+
+
+class SinkTile(Tile):
+    """Terminal consumer (bank stub): counts what it receives and, when
+    record_digests, keeps for each frag the sha256 of its payload, its
+    tsorig and the full tick count it arrived at (latencies_ns reads
+    them). t_last is the tick count of its last frag."""
+
+    name = "sink"
+
+    def __init__(self, wksp, cnc_name, in_link, record_digests: bool = False,
+                 **kw):
+        super().__init__(wksp, cnc_name, in_link=in_link, **kw)
+        self.recv_cnt = 0
+        self.record_digests = record_digests
+        self.digests: list = []
+        self.recv_tsorig: list = []
+        self.recv_ticks: list = []
+        self.t_last = 0
+
+    def on_frag(self, frag: Frag, payload: bytes) -> None:
+        self.recv_cnt += 1
+        now = tempo.tickcount()
+        self.t_last = now
+        if self.record_digests:
+            self.digests.append(_sha256(payload).digest())
+            self.recv_tsorig.append(frag.tsorig)
+            self.recv_ticks.append(now)
+        self.in_cur.fseq.diag_add(DIAG_PUB_CNT, 1)
+        self.in_cur.fseq.diag_add(DIAG_PUB_SZ, frag.sz)
+        # Publish the cursor with the count, so a restart re-reads at
+        # most this one frag.
+        self.in_cur.fseq.update(frag.seq + 1)
+
+
+def latencies_ns(replay: ReplayTile, sink: SinkTile) -> np.ndarray:
+    """End-to-end latency of every frag the sink recorded (record_digests),
+    in ns from the replay's publish to the sink's receipt, on the full
+    64-bit tick count: a 32-bit tsorig alone wraps after 4.29 s. Each
+    receipt is matched to the publish of the same payload whose low 32
+    bits equal its tsorig; raises when a receipt matches no publish or
+    more than one."""
+    pubs: dict = {}
+    for payload, tick in zip(replay.payloads, replay.pub_ticks):
+        pubs.setdefault(_sha256(payload).digest(), []).append(tick)
+    out = np.empty(len(sink.digests), np.int64)
+    for i, (d, ts, now) in enumerate(zip(sink.digests, sink.recv_tsorig,
+                                         sink.recv_ticks)):
+        match = [t for t in pubs.get(d, ())
+                 if t & 0xFFFFFFFF == ts and t <= now]
+        if len(match) != 1:
+            raise ValueError(f"sink frag {i} matches {len(match)} replay "
+                             "publishes by payload and tsorig")
+        out[i] = now - match[0]
+    return out
