@@ -18,7 +18,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    a thread an iteration and their opcode mix, from cuobjdump); the
    scalar kernels' whole functions, and the shared Barrett sc_reduce512
    and mul256 alone in a probe built against sha512.cuh.
-3. Kernel parity: each of the fifteen kernels against its plain PyTorch
+3. Kernel parity: each of the fifteen kernels of the verify and signing
+   paths (pack_schedule in phase 8) against its plain PyTorch
    version on the same CUDA tensors, at the main paths' shapes; they must
    agree exactly (canonical bytes, limbs and masks). The bucket fill and
    aggregation split a lane's slots and a column's buckets over a warp:
@@ -143,7 +144,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
    from each txn's publish to its sink frag on the full 64-bit tick
    count, batches, fill ratio, flush verdicts, fallbacks and the
    device's busy share (torch.profiler).
-8. Output: the card line, one JSON line of per-kernel numbers, and the
+8. Pack: (a) pack_gc.cu's pack_schedule (the graph coloring of
+   ops/pack_gc.py; one block of 256 threads, the lock sets in 66 KB of
+   dynamic shared memory) against pack_schedule_ref on the same CUDA
+   tensors, lane for lane, on six blocks (the mainnet mix of phase 7's
+   dirty corpus and the fixtures as the pack tile sees them,
+   conflict-heavy, disjoint, capped by CUs, equal scores, padding) at
+   n = 1, 31, 1024, 2048 and 4096, with C = 64 colors, H = 4096 buckets,
+   35 + 35 bucket columns; times at 1024 and 2048 (CUDA events, the
+   trace's device time, the chain's floor from the same block's step
+   skeleton, the plain version). (b) run_pipeline on the card, replay ->
+   verify (direct, B = 8192) -> dedup -> pack -> sink on phase 7's dirty
+   corpus and the fixtures (depth 32768, a dedup window of 2^18 that
+   spans the corpus, as bench.py's replay gate sets it), with
+   pack_scheduler "greedy", then "gc". Each run must deliver exactly the
+   valid txns (the sink's digest multiset), count every other txn in a
+   filter (HA + SV + the dedup and pack links' filters = DUP + BAD_SIG +
+   BAD_PARSE + the fixtures the oracle rejects), reach more than one
+   bank, launch each direct kernel once a verify batch and, on gc,
+   pack_schedule once a block, with device-accepted blocks + fallbacks =
+   blocks, and run no plain version. Prints txn/s (host clock), p50/p99
+   latency from publish to sink, each link's publish count, the filters,
+   thread CPU by tile, the device's busy share and, on gc, blocks,
+   accepted schedules and fallbacks.
+9. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -209,6 +233,17 @@ TILE_N = 32768
 TILE_SIGN_B = 4096
 TILE_DEPTH = 32768
 TILE_WKSP = 1 << 28
+# The pack phase: pack_schedule's blocks (lanes) and the tile's
+# parameters (ops/pack_gc.py: C colors, H buckets, the CU cap a wave;
+# ballet/txn.py MAX_ACCT_CNT bucket columns each of writes and reads).
+PACK_N = (1, 31, 1024, 2048, 4096)
+PACK_TIMED = (1024, 2048)
+PACK_C, PACK_H, PACK_CAP, PACK_A = 64, 4096, 12_000_000, 35
+# The pipeline runs' dedup window (the verify tile's HA filter and the
+# dedup tile): it must span the corpus for the sink to get each valid
+# txn once, as the JAX bench's replay gate sets it (bench.py:309); at
+# 4096 a duplicate more than 4096 unique txns after its original passes.
+PIPE_TCACHE = 1 << 18
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -621,6 +656,22 @@ def traced_ms(torch, fn, kernel: str, reps: int = REPS) -> float | None:
             fn()
         torch.cuda.synchronize()
     return trace_device_ms(prof, kernel)
+
+
+def trace_busy(prof) -> tuple[float, int]:
+    """Seconds of device time and device operations in a torch.profiler
+    trace."""
+    from torch.autograd import DeviceType
+
+    busy, ops = 0.0, 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            busy += dev_us / 1e6
+            ops += ev.count
+    return busy, ops
 
 
 def profile_batches(torch, fn, batch_ms: float, n: int = 3) -> None:
@@ -1902,17 +1953,7 @@ def tile_run(torch, card, label, mode, native_drain, corpus, fixtures,
 
     span = (sink.t_last - replay.pub_ticks[0]) / 1e9
     lat = tiles.latencies_ns(replay, sink).astype(np.float64) / 1e6
-    busy = 0.0
-    kernels = 0
-    from torch.autograd import DeviceType
-
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) == DeviceType.CUDA:
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            busy += dev_us / 1e6
-            kernels += ev.count
+    busy, kernels = trace_busy(prof)
     share = (f"device busy {busy * 1e3:.1f} ms of {span * 1e3:.1f} = "
              f"{100 * busy / span:.1f}%, idle {100 - 100 * busy / span:.1f}% "
              f"({kernels} device operations, torch.profiler)"
@@ -1945,11 +1986,13 @@ def tile_run(torch, card, label, mode, native_drain, corpus, fixtures,
         f"no plain call, every flush verdict matches its fill")
 
 
-def tile_phase(torch, card, n: int = TILE_N, batch: int = B) -> None:
+def tile_phase(torch, card, n: int = TILE_N, batch: int = B):
     """Phase 7: the verify tile on the card, replay -> verify -> sink,
     in four runs (direct and rlc fused with the native drain, direct
-    frag by frag, rlc fused on the clean corpus)."""
+    frag by frag, rlc fused on the clean corpus). Returns the fixtures,
+    their oracle statuses and the dirty corpus, phase 8's traffic."""
     fixtures, fx_ok, corpora = tile_traffic(torch, n)
+    traffic = (fixtures, fx_ok, corpora["dirty"])
     for label, mode, nd, name in (
             ("1 direct, native drain", "direct", True, "dirty"),
             ("2 rlc fused, native drain", "rlc", True, "dirty"),
@@ -1957,6 +2000,276 @@ def tile_phase(torch, card, n: int = TILE_N, batch: int = B) -> None:
             ("4 rlc fused, clean corpus", "rlc", True, "clean")):
         tile_run(torch, card, label, mode, nd, corpora[name], fixtures,
                  fx_ok, batch)
+    return traffic
+
+
+# ------------------------------------------------------------- pack
+
+def pack_blocks(fixtures, corpus) -> dict:
+    """Phase 8's blocks, each of PACK_N[-1] PackTxns: (m)'s mainnet mix
+    (the fixtures and the corpus's unique valid txns as the pack tile
+    sees them), conflict-heavy (256 accounts, up to 4 writes and 4
+    reads a txn, tests/test_pack_gc.py's _mk_txns), disjoint (one
+    account a txn), capped by CUs (1-9 M a txn), equal scores (the
+    conflict-heavy locks, one score), and padding."""
+    import random
+
+    from firedancer_tpu_torch.ballet.pack import CuEstimator, PackTxn
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco.tiles import pack_txn
+    from firedancer_tpu_torch.ops.pack_gc import PackTxnPad
+
+    n = PACK_N[-1]
+    est = CuEstimator()
+    valid = fixtures + [p for p, e in zip(corpus.payloads, corpus.expected)
+                        if e == dcorpus.OK]
+    mainnet = []
+    for p in valid:
+        t = pack_txn(p, len(mainnet), est)
+        if t is not None:
+            mainnet.append(t)
+        if len(mainnet) == n:
+            break
+    rng = random.Random(0)
+    keys = [bytes([i % 256]) * 4 + i.to_bytes(4, "little") + bytes(24)
+            for i in range(256)]
+    conflict = []
+    for i in range(n):
+        w = frozenset(rng.sample(keys, rng.randint(1, 4)))
+        r = frozenset(k for k in rng.sample(keys, rng.randint(0, 4))
+                      if k not in w)
+        conflict.append(PackTxn(i, rng.randint(1_000, 2_000_000),
+                                rng.randint(10_000, 1_400_000), w, r))
+
+    def own(i):
+        return frozenset({i.to_bytes(4, "little") + bytes(28)})
+
+    return {
+        "mainnet": mainnet,
+        "conflict": conflict,
+        "disjoint": [PackTxn(i, 1000 + i, 1000, own(i), frozenset())
+                     for i in range(n)],
+        "cu_cap": [PackTxn(i, rng.randint(1_000, 9_000), rng.randint(
+            1_000_000, 9_000_000), own(i), frozenset()) for i in range(n)],
+        "equal_scores": [PackTxn(t.txn_id, 1000, 1000, t.writable,
+                                 t.readonly) for t in conflict],
+        "padding": [PackTxnPad] * n,
+    }
+
+
+def bound_pack_schedule(w_idx: np.ndarray, r_idx: np.ndarray):
+    """Bytes: the buckets, scores and CUs read once, the colors written
+    once. Operations, as this block's buckets need them: each step
+    tests each color against each valid write bucket twice (both sets)
+    and each read bucket once, and its CU sum, then sets the chosen
+    color's bits and adds its CUs."""
+    n = w_idx.shape[0]
+    w = (w_idx >= 0).sum(axis=1).astype(np.int64)
+    r = (r_idx >= 0).sum(axis=1).astype(np.int64)
+    ops = int((PACK_C * (2 * w + r + 1) + w + r + 1).sum())
+    nbytes = w_idx.nbytes + r_idx.nbytes + 3 * 4 * n
+    return _bound(ops, nbytes)
+
+
+def pack_kernel_phase(torch, record, blocks) -> None:
+    """Phase 8 (a): pack_schedule_cuda against pack_schedule_ref on the
+    same CUDA tensors, lane for lane, on every block at every PACK_N;
+    times at PACK_TIMED (CUDA events, which include the wrapper's sort,
+    and the trace's device time), the chain's floor (the same block's
+    step skeleton, pack_chain_floor) and the plain version."""
+    from firedancer_tpu_torch.ops import build, pack_gc, pack_gc_cuda
+
+    dev = torch.device("cuda", 0)
+    kw = {"n_colors": PACK_C, "h_bits": PACK_H, "cu_cap": PACK_CAP}
+
+    def tensors(txns):
+        arrs = pack_gc.build_arrays(txns, PACK_H, max_w=PACK_A,
+                                    max_r=PACK_A)
+        return arrs, [torch.from_numpy(a).to(dev) for a in arrs]
+
+    err = 0.0
+    for name, txns in blocks.items():
+        summary = []
+        for n in PACK_N:
+            _, args = tensors(txns[:n])
+            got = pack_gc_cuda.pack_schedule_cuda(*args, **kw)
+            want = pack_gc.pack_schedule_ref(*args, **kw)
+            err = max(err, max_abs_err(torch, got, want))
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                fail(f"pack_schedule {name} n={n}: {bad} lanes differ from "
+                     f"the plain version")
+            colored = int((got >= 0).sum())
+            summary.append(f"n={n}: {colored} colored, "
+                           f"{int(got.max()) + 1} waves")
+        say(f"pack_schedule {name}: equal at every n ({'; '.join(summary)})")
+    threads, smem = pack_gc_cuda.geometry(PACK_C, PACK_H, 2 * PACK_A)
+    say(f"pack_schedule resources: one block of {threads} threads, {smem} B "
+        f"of dynamic shared memory; {ptxas_line(build, 'pack_gc')}")
+    row_ms = row_plain = None
+    for n in PACK_TIMED:
+        arrs, args = tensors(blocks["mainnet"][:n])
+
+        def kern():
+            return pack_gc_cuda.pack_schedule_cuda(*args, **kw)
+
+        k_ms = time_ms(torch, kern, REPS)
+        dev_ms = traced_ms(torch, kern, "pack_schedule_kernel")
+        floor = pack_gc_cuda.chain_floor_ms(n, threads, dev)
+        p_ms = time_ms(torch, lambda: pack_gc.pack_schedule_ref(*args, **kw),
+                       1)
+        bound = bound_pack_schedule(arrs[0], arrs[1])
+        dev_s = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        say(f"  pack_schedule mainnet n={n}: kernel {k_ms:.4f} ms (CUDA "
+            f"events, with the sort), device {dev_s} (trace), chain floor "
+            f"{floor:.4f} ms ({n} steps of a shared-memory round and two "
+            f"barriers, {1e6 * floor / n:.1f} ns a step; the kernel "
+            f"{1e6 * (dev_ms or k_ms) / n:.1f} ns a step), plain "
+            f"{p_ms:.1f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+        if n == PACK_TIMED[0]:
+            row_ms, row_plain, row_bound = k_ms, p_ms, bound
+    # The step with no bucket to test (every column -1): the loads, the
+    # shuffles, the color choice and the barriers alone.
+    _, args = tensors(blocks["padding"][:PACK_TIMED[0]])
+    pad_ms = traced_ms(torch, lambda: pack_gc_cuda.pack_schedule_cuda(
+        *args, **kw), "pack_schedule_kernel")
+    if pad_ms is not None:
+        say(f"  pack_schedule padding n={PACK_TIMED[0]}: device "
+            f"{pad_ms:.4f} ms (trace), {1e6 * pad_ms / PACK_TIMED[0]:.1f} ns "
+            f"a step with no bucket to test")
+    record("pack_schedule", err, row_ms, row_plain, row_bound,
+           "firedancer_tpu/ops/pack_gc.py:64",
+           "firedancer_tpu_torch/ops/csrc/pack_gc.cu")
+
+
+def pipeline_run(torch, card, sched, fixtures, fx_ok, corpus, batch):
+    """Phase 8 (b): run_pipeline on the card, replay -> verify (direct)
+    -> dedup -> pack (sched) -> sink; exact accounting, launches and
+    numbers. Returns the run's launches."""
+    import hashlib
+
+    from firedancer_tpu_torch.ballet.pack import CuEstimator
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco import pipeline
+    from firedancer_tpu_torch.disco.tiles import pack_txn
+    from firedancer_tpu_torch.ops import backend
+    from torch.profiler import ProfilerActivity, profile
+
+    payloads = fixtures + corpus.payloads
+    path = os.path.join(REPO, "build", "pipeline_smoke.wksp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    topo = pipeline.build_topology(path, depth=TILE_DEPTH, wksp_sz=TILE_WKSP)
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = pipeline.run_pipeline(
+                topo, payloads, verify_backend="gpu", verify_batch=batch,
+                tcache_depth=PIPE_TCACHE, record_digests=True,
+                pack_scheduler=sched, timeout_s=600.0,
+                verify_opts={"inflight": 2, "verify_mode": "direct"})
+            torch.cuda.synchronize()
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+    finally:
+        os.remove(path)
+
+    cls = collections.Counter(int(e) for e in corpus.expected)
+    want = dcorpus.expected_sink_digests(corpus)
+    # The fixtures the oracle accepts reach the pack, which drops those
+    # with a malformed compute-budget instruction or an estimate over a
+    # bank's CU budget (the corpus has neither).
+    est = CuEstimator()
+    fx_bad_budget = fx_over_cap = 0
+    for p, ok in zip(fixtures, fx_ok):
+        t = pack_txn(p, 0, est) if ok else None
+        if not ok:
+            continue
+        if t is None:
+            fx_bad_budget += 1
+        elif t.est_cus > PACK_CAP:
+            fx_over_cap += 1
+        else:
+            want[hashlib.sha256(p).digest()] += 1
+    d = res.diag
+    filt = (d["tile.verify"]["ha_filt_cnt"] + d["tile.verify"]["sv_filt_cnt"]
+            + d["link.verify_dedup"]["filt_cnt"]
+            + d["link.dedup_pack"]["filt_cnt"])
+    not_ok = (cls[dcorpus.DUP] + cls[dcorpus.BAD_SIG]
+              + cls[dcorpus.BAD_PARSE] + fx_ok.count(False) + fx_bad_budget
+              + fx_over_cap)
+    vs, ps = res.verify_stats[0], res.pack_stats
+    problems = []
+    got = collections.Counter(res.sink_digests)
+    if got != want:
+        problems.append(f"sink multiset differs: {sum((want - got).values())}"
+                        f" missing, {sum((got - want).values())} unexpected")
+    if filt != not_ok:
+        problems.append(f"filters {filt} != DUP + BAD_SIG + BAD_PARSE + "
+                        f"fixtures the oracle or the pack rejects {not_ok}")
+    if ps["cu_drop"] != fx_over_cap:
+        problems.append(f"CU-cap drops {ps['cu_drop']} != the fixtures "
+                        f"over the cap {fx_over_cap}")
+    if len(res.bank_hist) < 2:
+        problems.append(f"one bank only: {res.bank_hist}")
+    want_l = {k: vs["batches"] for k in DIRECT_KERNELS}
+    if sched == "gc":
+        if ps["block_device"] + ps["sched_fallback"] != ps["blocks"]:
+            problems.append(f"gate accounting: {ps}")
+        want_l["pack_schedule"] = ps["blocks"]
+    if launches != want_l:
+        problems.append(f"launches {launches} != {want_l}")
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+
+    busy, _ = trace_busy(prof)
+    span = res.span_s
+    share = (f"device busy {busy * 1e3:.1f} ms of {span * 1e3:.1f} = "
+             f"{100 * busy / span:.2f}% (torch.profiler)" if busy > 0
+             else "device busy share not measured (no device time traced)")
+    label = f"pipeline {sched}"
+    say(f"{label}: {len(payloads)} txns in {span:.3f} s from the first "
+        f"publish to the last sink frag = {len(payloads) / span:.0f} txn/s "
+        f"(host clock; run {res.elapsed_s:.3f} s); latency p50 "
+        f"{res.latency_p50_ns / 1e6:.3f} ms, p99 "
+        f"{res.latency_p99_ns / 1e6:.3f} ms [{card}]")
+    pubs = ", ".join(f"{k} {d['link.' + k]['tx_seq']}"
+                     for k in ("replay_verify", "verify_dedup", "dedup_pack",
+                               "pack_sink"))
+    say(f"{label}: published by link {pubs}; sink {res.recv_cnt} to banks "
+        f"{dict(sorted(res.bank_hist.items()))}; filters HA "
+        f"{d['tile.verify']['ha_filt_cnt']}, SV "
+        f"{d['tile.verify']['sv_filt_cnt']}, dedup "
+        f"{d['link.verify_dedup']['filt_cnt']}, pack "
+        f"{d['link.dedup_pack']['filt_cnt']} (CU-cap drops "
+        f"{ps['cu_drop']}: {fx_over_cap} fixtures over the cap, 0 of the "
+        f"corpus; {fx_bad_budget} fixtures with a malformed compute-budget "
+        f"instruction)")
+    cpu = ", ".join(f"{k} {v:.3f}" for k, v in res.tile_cpu_s.items())
+    say(f"{label}: thread CPU s by tile: {cpu}; verify {vs['batches']} "
+        f"batches, fill {vs['fill_ratio']}; {share} [{card}]")
+    if sched == "gc":
+        say(f"{label}: {ps['blocks']} blocks, {ps['block_device']} device "
+            f"schedules accepted ({ps['wave_device']} waves), "
+            f"{ps['sched_fallback']} fallbacks to the greedy waves; "
+            f"schedule_block {ps['gc_s']:.3f} s, gate {ps['gate_s']:.3f} s "
+            f"of the pack thread's wall")
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+    say(f"{label}: sink multiset and filter accounting exact, launches = "
+        f"{want_l}, no plain call")
+    return launches
+
+
+def pack_phase(torch, card, record, fixtures, fx_ok, corpus,
+               batch: int = B) -> int:
+    """Phase 8: the pack kernel's parity and times, then the five-tile
+    pipeline on the card with each scheduler. Returns the kernel's
+    launches in the gc run."""
+    pack_kernel_phase(torch, record, pack_blocks(fixtures, corpus))
+    pipeline_run(torch, card, "greedy", fixtures, fx_ok, corpus, batch)
+    launches = pipeline_run(torch, card, "gc", fixtures, fx_ok, corpus,
+                            batch)
+    return launches["pack_schedule"]
 
 
 def main() -> int:
@@ -2374,9 +2687,11 @@ def main() -> int:
     rlc_path(torch, gpu, rows, card, (batch_a, batch_b, batch_t),
              (expect_a, expect_b), direct_b, zcash_pass, entry)
     signing_path(torch, gpu, rows, card)
-    tile_phase(torch, card)
+    traffic = tile_phase(torch, card)
+    gc_launches = pack_phase(torch, card, record, *traffic)
+    rows["pack_schedule"]["launches"] = gc_launches
 
-    # 8. Output.
+    # 9. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

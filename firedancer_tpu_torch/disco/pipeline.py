@@ -1,22 +1,44 @@
-"""Topology of the tile graph, the counterpart of
-``firedancer_tpu/disco/pipeline.py`` (``build_topology``:64, ``LINKS``,
-``TILES``, ``Topology``).
+"""Topology of the tile graph and its in-process runner, the counterpart
+of ``firedancer_tpu/disco/pipeline.py`` (``build_topology``:64, ``LINKS``,
+``TILES``, ``Topology``, ``PipelineResult``:191, ``_run_tiles``:245,
+``run_pipeline``:483).
 
 ``build_topology`` creates the workspace file, the four links
 (mcache, dcache and fseq each) and a cnc per tile, under the JAX
 package's names, so either package's tiles can join it. Tiles join a
 link by its name (``link_names``); the producer of a link takes credits
 from the link's own fseq, which its consumer publishes.
+
+``run_pipeline`` drives replay -> verify -> dedup -> pack -> sink on
+threads until the chain has drained (``pipeline_quiesced``) and returns a
+``PipelineResult``. It is the JAX package's ``FD_FEED=0`` runner (the
+in-process step loop); the fd_feed runtime, the JAX default, is not
+ported yet. ``run_tiles`` and ``chain_quiesced`` also drive the shorter
+replay -> verify -> sink chain.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 from ..tango.rings import CNC_HALT, Cnc, DCache, FSeq, MCache, Workspace
-from .tiles import FD_TPU_MTU, InLink, LinkNames, OutLink
+from .feed.runtime import latency_percentiles, verify_tile_stats
+from .monitor import snapshot
+from .tiles import (
+    FD_TPU_MTU,
+    DedupTile,
+    InLink,
+    LinkNames,
+    OutLink,
+    PackTile,
+    ReplayTile,
+    SinkTile,
+    VerifyTile,
+    latencies_ns,
+)
 
 LINKS = ("replay_verify", "verify_dedup", "dedup_pack", "pack_sink")
 TILES = ("replay", "verify", "dedup", "pack", "sink", "quic")
@@ -76,7 +98,7 @@ def out_link(wksp: Workspace, link: str, mtu: int = FD_TPU_MTU) -> OutLink:
 def chain_quiesced(replay, verify, sink) -> bool:
     """replay -> verify -> sink has drained: the source is exhausted,
     verify consumed all of it with nothing staged or in flight, and the
-    sink consumed all verify published."""
+    sink (or any next tile) consumed all verify published."""
     return (replay.done()
             and verify.in_link.seq >= replay.out_link.seq
             and not verify._pending and not verify._inflight
@@ -117,3 +139,127 @@ def run_tiles(tiles, quiesced, timeout_s: float = 60.0) -> float:
     if not done:
         raise TimeoutError(f"tiles did not drain within {timeout_s} s")
     return elapsed
+
+
+def pipeline_quiesced(replay, verify, dedup, pack, sink) -> bool:
+    """replay -> verify -> dedup -> pack -> sink has drained: the source
+    is exhausted and each stage consumed all its producer published, with
+    nothing staged, in flight or pending (the JAX runner's check,
+    pipeline.py:345-360, and pack.drained(): every frag the pack consumed
+    was published or filtered). Each stage is read after its producer,
+    so a stage found drained gets no more input."""
+    if not chain_quiesced(replay, verify, dedup):
+        return False
+    if pack.in_link.seq < dedup.out_link.seq or not pack.drained():
+        return False
+    return sink.in_link.seq >= pack.out_link.seq
+
+
+@dataclass
+class PipelineResult:
+    recv_cnt: int
+    recv_sz: int
+    bank_hist: Dict[int, int]
+    diag: Dict[str, Dict[str, int]]
+    elapsed_s: float
+    # Seconds from the replay's first publish to the sink's last frag.
+    span_s: float = 0.0
+    # End-to-end latency (replay publish -> sink), ns, on the full tick
+    # count (tiles.latencies_ns); 0 without record_digests.
+    latency_p50_ns: int = 0
+    latency_p99_ns: int = 0
+    verify_stats: List[Dict[str, object]] = field(default_factory=list)
+    # sha256 of every payload the sink received (record_digests).
+    sink_digests: Optional[List[bytes]] = None
+    # The port's own records: thread CPU seconds by tile, and the pack
+    # tile's counters (scheduler, blocks, the gc gate, CU-cap drops).
+    tile_cpu_s: Dict[str, float] = field(default_factory=dict)
+    pack_stats: Dict[str, object] = field(default_factory=dict)
+
+
+def _pack_stats(pack: PackTile) -> Dict[str, object]:
+    return {
+        "scheduler": pack.scheduler,
+        "blocks": pack.stat_block_device + pack.stat_sched_fallback,
+        "block_device": pack.stat_block_device,
+        "wave_device": pack.stat_wave_device,
+        "sched_fallback": pack.stat_sched_fallback,
+        "cu_drop": pack.stat_cu_drop,
+        "gc_s": pack.stat_gc_ns / 1e9,
+        "gate_s": pack.stat_gate_ns / 1e9,
+    }
+
+
+def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
+               verify_batch: int, verify_max_msg_len: int, bank_cnt: int,
+               timeout_s: float, tcache_depth: int, verify_opts: dict,
+               record_digests: bool, pack_scheduler: str,
+               device) -> PipelineResult:
+    """Wire the replay tile's link through verify -> dedup -> pack ->
+    sink, run the tiles until pipeline_quiesced (raising on a tile error
+    or a timeout), snapshot the diag counters."""
+    verify = VerifyTile(wksp, "verify.cnc", in_link(wksp, "replay_verify"),
+                        out_link(wksp, "verify_dedup"),
+                        backend=verify_backend, batch=verify_batch,
+                        max_msg_len=verify_max_msg_len,
+                        tcache_depth=tcache_depth, device=device,
+                        **verify_opts)
+    dedup = DedupTile(wksp, "dedup.cnc",
+                      in_links=[in_link(wksp, "verify_dedup")],
+                      out_link=out_link(wksp, "dedup_pack"),
+                      tcache_depth=tcache_depth)
+    pack = PackTile(wksp, "pack.cnc", in_link(wksp, "dedup_pack"),
+                    out_link(wksp, "pack_sink"), bank_cnt=bank_cnt,
+                    scheduler=pack_scheduler, device=device)
+    sink = SinkTile(wksp, "sink.cnc", in_link(wksp, "pack_sink"),
+                    record_digests=record_digests)
+    tiles = [replay, verify, dedup, pack, sink]
+    elapsed = run_tiles(
+        tiles, lambda: pipeline_quiesced(replay, verify, dedup, pack, sink),
+        timeout_s=timeout_s)
+    lat = latencies_ns(replay, sink) if record_digests else []
+    res = PipelineResult(
+        recv_cnt=sink.recv_cnt,
+        recv_sz=sink.recv_sz,
+        bank_hist=dict(sink.bank_hist),
+        diag=snapshot(wksp, TILES, LINKS),
+        elapsed_s=elapsed,
+        span_s=((sink.t_last - replay.pub_ticks[0]) / 1e9
+                if sink.recv_cnt else 0.0),
+        verify_stats=[verify_tile_stats(verify)],
+        sink_digests=list(sink.digests) if record_digests else None,
+        tile_cpu_s={t.name: t.cpu_ns / 1e9 for t in tiles},
+        pack_stats=_pack_stats(pack),
+    )
+    p = latency_percentiles(lat)
+    res.latency_p50_ns, res.latency_p99_ns = p["p50_ns"], p["p99_ns"]
+    return res
+
+
+def run_pipeline(topo: Topology, payloads: List[bytes],
+                 verify_backend: str = "gpu", verify_batch: int = 128,
+                 verify_max_msg_len: Optional[int] = None,
+                 bank_cnt: int = 4, timeout_s: float = 60.0,
+                 tcache_depth: int = 4096,
+                 verify_opts: Optional[dict] = None,
+                 record_digests: bool = False,
+                 pack_scheduler: str = "greedy",
+                 device="cuda") -> PipelineResult:
+    """Replay-sourced pipeline: payloads -> verify -> dedup -> pack ->
+    sink, the JAX package's in-process runner (its FD_FEED=0 path; the
+    port has no feed runtime and so no feed= argument). The verify
+    engine and the gc pack run on device: the card unless the caller
+    passes device="cpu". Shutdown is by quiescence (source exhausted and
+    every link drained); filtered frags never reach the sink, so the
+    caller reads recv_cnt and the diag counters."""
+    wksp = Workspace.join(topo.wksp_path)
+    replay = ReplayTile(wksp, "replay.cnc", out_link(wksp, "replay_verify"),
+                        payloads=payloads)
+    res = _run_tiles(wksp, replay, verify_backend, verify_batch,
+                     verify_max_msg_len or topo.mtu, bank_cnt, timeout_s,
+                     tcache_depth, dict(verify_opts or {}), record_digests,
+                     pack_scheduler, device)
+    # Only after every tile thread has ended: on an error the mapping is
+    # kept, since a tile still writing into it would fault.
+    wksp.leave()
+    return res

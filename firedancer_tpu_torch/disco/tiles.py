@@ -2,14 +2,18 @@
 ``firedancer_tpu/disco/tiles.py`` (``meta_sig``:118, ``LinkNames``:126,
 ``InLink``:134, ``OutLink``:195, ``Tile``:324, ``ReplayTile``:709,
 ``_txn_batch_arrays``:773, ``_InflightBatch``:790, ``VerifyTile``:858,
-``SinkTile``:3571). ``_DeviceBatch`` gives a direct engine's statuses
-the async surface of ``_ReadyBatch``:817, and ``latencies_ns`` reads the
-chain's end-to-end latencies from the replay's and the sink's records.
+``DedupTile``:3075, ``PackTile``:3323, ``SinkTile``:3571).
+``_DeviceBatch`` gives a direct engine's statuses the async surface of
+``_ReadyBatch``:817, and ``latencies_ns`` reads the chain's end-to-end
+latencies from the replay's and the sink's records.
 
 Tiles are threads joined to the native shared-memory rings
-(``tango.rings``); the payloads of the replay -> verify link are whole
-Solana transactions, which the verify tile parses, filters, verifies on
-an engine of ``disco.engine.registry()`` and publishes downstream.
+(``tango.rings``); the payloads are whole Solana transactions. The
+verify tile parses, filters and verifies them on an engine of
+``disco.engine.registry()``; the dedup tile drops repeated signatures;
+the pack tile schedules them onto banks under their account locks, on
+the host (``"greedy"``) or by the graph-coloring kernel (``"gc"``); the
+sink stands in for the banks.
 
 ``VerifyTile`` has two backends: ``"gpu"`` (the JAX package's
 ``"tpu"``), which stages batches of signature lanes and dispatches them
@@ -39,8 +43,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ballet.compute_budget import estimate_rewards_and_compute
 from ..ballet.ed25519 import oracle
-from ..ballet.txn import MAX_SIG_CNT, TxnParseError, parse_txn
+from ..ballet.pack import CuEstimator, Pack, PackTxn, validate_schedule
+from ..ballet.txn import MAX_ACCT_CNT, MAX_SIG_CNT, TxnParseError, parse_txn
+from ..ops import backend
+from ..ops.pack_gc import CU_CAP_DEFAULT, MAX_COLORS_DEFAULT, schedule_block
 from ..tango import rings, tempo
 from ..tango.fctl import make_fctl_for_fseqs
 from ..tango.rings import (
@@ -48,6 +56,8 @@ from ..tango.rings import (
     CNC_HALT,
     CNC_RUN,
     CTL_ERR,
+    DIAG_FILT_CNT,
+    DIAG_FILT_SZ,
     DIAG_OVRNR_CNT,
     DIAG_PUB_CNT,
     DIAG_PUB_SZ,
@@ -61,6 +71,7 @@ from ..tango.rings import (
 from ..tango.tcache import TCache
 from ..utils.rng import Rng
 from . import engine as fd_engine
+from .drain import device_beats_greedy, greedy_waves
 from .feed.policy import (
     FLUSH_DEADLINE,
     FLUSH_FULL,
@@ -185,20 +196,29 @@ class Tile:
     name = "tile"
     # Frags a bulk drain (fd_frag_drain) takes per in-link per round.
     BULK_FRAGS = 64
+    # The CUDA device a tile launches on, if any.
+    device: Optional[torch.device] = None
 
     def __init__(self, wksp: Workspace, cnc_name: str,
                  in_link: Optional[InLink] = None,
                  out_link: Optional[OutLink] = None,
-                 lazy_ns: Optional[int] = None, seed: int = 0):
+                 lazy_ns: Optional[int] = None, seed: int = 0,
+                 in_links: Optional[Sequence[InLink]] = None):
+        if in_link is not None and in_links is not None:
+            raise ValueError("pass in_link or in_links, not both")
         self.wksp = wksp
         self.cnc_name = cnc_name
         self.cnc = Cnc(wksp, cnc_name)
-        self.in_links: List[InLink] = [in_link] if in_link is not None else []
-        self.in_link = in_link
-        self.in_cur = in_link  # link of the frag being processed
+        # Several in-links are polled in turn (the dedup tile's mux);
+        # in_link is the first.
+        self.in_links: List[InLink] = (
+            list(in_links) if in_links is not None
+            else [in_link] if in_link is not None else [])
+        self.in_link = self.in_links[0] if self.in_links else None
+        self.in_cur = self.in_link  # link of the frag being processed
         self.out_link = out_link
         self.rng = Rng(seq=seed)
-        depth = (in_link.mcache.depth if in_link is not None else
+        depth = (self.in_link.mcache.depth if self.in_link is not None else
                  out_link.mcache.depth if out_link is not None else 128)
         lazy = lazy_ns if lazy_ns is not None else tempo.lazy_default(depth)
         self._async_min = tempo.async_min(lazy)
@@ -278,17 +298,21 @@ class Tile:
                 overrun = True
             if n > 0:
                 self.in_cur = il
-                pay, offs, lens = st["pay"], st["offs"], st["lens"]
-                for i in range(n):
-                    off, ln = int(offs[i]), int(lens[i])
-                    frag = Frag(seq=int(st["seqs"][i]), sig=int(st["sigs"][i]),
-                                chunk=0, sz=ln, ctl=int(st["ctls"][i]),
-                                tsorig=int(st["ts"][i]),
-                                tspub=int(st["tspubs"][i]))
-                    self.on_frag(frag, pay[off:off + ln].tobytes())
+                self.on_round(il, st, n)
                 progressed = True
             il.seq = seq.value
         return progressed, overrun
+
+    def on_round(self, il: InLink, st: dict, n: int) -> None:
+        """Handle a drained round of n frags (the arrays of st), frag by
+        frag through on_frag; a tile may take the round at once."""
+        pay, offs, lens = st["pay"], st["offs"], st["lens"]
+        for i in range(n):
+            off, ln = int(offs[i]), int(lens[i])
+            frag = Frag(seq=int(st["seqs"][i]), sig=int(st["sigs"][i]),
+                        chunk=0, sz=ln, ctl=int(st["ctls"][i]),
+                        tsorig=int(st["ts"][i]), tspub=int(st["tspubs"][i]))
+            self.on_frag(frag, pay[off:off + ln].tobytes())
 
     # -- run loop --------------------------------------------------------
 
@@ -312,7 +336,15 @@ class Tile:
     def run(self, max_ns: int = 30_000_000_000) -> None:
         """Run until HALT, done() with HALT, or max_ns of wall time. An
         exception is kept in self.error and raised again; on_halt and
-        the last housekeeping run either way."""
+        the last housekeeping run either way. A tile with a CUDA device
+        runs with it current in its thread: its CUDA work is launched
+        from its own thread only."""
+        if self.device is not None and self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return self._run(max_ns)
+        return self._run(max_ns)
+
+    def _run(self, max_ns: int) -> None:
         t0 = time.thread_time_ns()
         try:
             self._run_loop(max_ns)
@@ -912,20 +944,299 @@ class VerifyTile(Tile):
             return
         self.publish_backp(payload, meta_sig(payload), tsorig=tsorig)
 
-    def run(self, max_ns: int = 30_000_000_000) -> None:
-        """The run loop with the engine's device current in this thread:
-        the tile's CUDA work is launched from its own thread only."""
-        if self.device is not None and self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                return super().run(max_ns)
-        return super().run(max_ns)
+
+
+class DedupTile(Tile):
+    """tcache dedup on the frag meta sig (disco/dedup/fd_dedup.c), the
+    counterpart of the JAX ``DedupTile``:3075. It muxes several in-links
+    (in_links), as the reference's dedup does (fd_dedup.h:57-80).
+
+    With bulk (the main path) a drained round is filtered at once
+    (``_dedup_round``): CTL_ERR frags are dropped before the tcache, the
+    membership test is ``TCache.insert_batch``, the filter counters are
+    the round's sums and the surviving frags go out through one
+    ``fd_frag_publish_bulk`` call a credit window. Without bulk each frag
+    goes through ``on_frag``, the oracle the bulk path is held to."""
+
+    name = "dedup"
+
+    def __init__(self, wksp, cnc_name, in_link=None, out_link=None,
+                 tcache_depth: int = 4096, in_links=None, bulk: bool = True,
+                 **kw):
+        super().__init__(wksp, cnc_name, in_link=in_link, out_link=out_link,
+                         in_links=in_links, **kw)
+        self.tcache = TCache(tcache_depth)
+        self.bulk = bulk
+
+    def on_round(self, il: InLink, st: dict, n: int) -> None:
+        if self.bulk and self.out_link is not None:
+            self._dedup_round(il, st, n)
+        else:
+            super().on_round(il, st, n)
+
+    def _dedup_round(self, il: InLink, st: dict, n: int) -> None:
+        """One round: the masks, the counters and the bulk publish, with
+        on_frag's semantics (CTL_ERR dropped before the tcache insert, a
+        poisoned copy never shadowing the valid txn of the same sig; order
+        and tsorig kept)."""
+        lens = st["lens"][:n]
+        err = (st["ctls"][:n] & CTL_ERR) != 0
+        clean = ~err
+        dup = np.zeros(n, np.bool_)
+        if clean.any():
+            dup[clean] = self.tcache.insert_batch(st["sigs"][:n][clean])
+        filt = err | dup
+        n_filt = int(filt.sum())
+        if n_filt:
+            il.fseq.diag_add(DIAG_FILT_CNT, n_filt)
+            il.fseq.diag_add(DIAG_FILT_SZ, int(lens[filt].sum()))
+        n_ok = n - n_filt
+        if not n_ok:
+            return
+        mask8 = (~filt).astype(np.uint8)
+        ol = self.out_link
+        seqv = ctypes.c_uint64(ol.seq)
+        chunkv = ctypes.c_uint32(ol.chunk)
+        cursor = ctypes.c_uint32(0)
+        bytes_out = np.zeros(1, np.uint64)
+        now32 = tempo.tickcount() & 0xFFFFFFFF
+        published = 0
+        while published < n_ok:
+            # publish_backp's flow control (spin through backpressure,
+            # drop the rest on HALT), paid once a credit window.
+            while not ol.can_publish():
+                if self.cnc.signal_query() == CNC_HALT:
+                    break
+                self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
+                time.sleep(20e-6)
+            if ol.cr_avail <= 0:
+                break
+            pub = rings.lib().fd_frag_publish_bulk(
+                ol.mcache._mem, ctypes.addressof(ol.dcache._buf),
+                ol.dcache.chunk_cnt, ol.mtu, ctypes.byref(seqv),
+                ctypes.byref(chunkv), st["pay"].ctypes.data,
+                st["offs"].ctypes.data, st["lens"].ctypes.data,
+                st["sigs"].ctypes.data, st["ts"].ctypes.data,
+                mask8.ctypes.data, ctypes.byref(cursor), n,
+                min(ol.cr_avail, n_ok - published), now32,
+                bytes_out.ctypes.data)
+            ol.seq = seqv.value
+            ol.chunk = chunkv.value
+            ol.cr_avail = max(0, ol.cr_avail - pub)
+            published += pub
+            if pub <= 0:
+                break
+        il.fseq.diag_add(DIAG_PUB_CNT, published)
+        il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
+
+    def on_frag(self, frag: Frag, payload: bytes) -> None:
+        # A CTL_ERR frag is dropped before the tcache insert.
+        if frag.ctl & CTL_ERR or self.tcache.insert(frag.sig):
+            self.in_cur.fseq.diag_add(DIAG_FILT_CNT, 1)
+            self.in_cur.fseq.diag_add(DIAG_FILT_SZ, frag.sz)
+            return
+        self.publish_backp(payload, frag.sig, tsorig=frag.tsorig)
+
+
+def pack_txn(payload: bytes, txn_id: int,
+             estimator: CuEstimator) -> Optional[PackTxn]:
+    """The scheduling view of a transaction (the JAX PackTile.on_frag's
+    parse and estimate, tiles.py:3382-3408): its write- and read-locked
+    static accounts, rewards and estimated CUs. None when it does not
+    parse or a ComputeBudgetProgram instruction is malformed."""
+    try:
+        txn = parse_txn(payload)
+    except TxnParseError:
+        return None
+    rce = estimate_rewards_and_compute(
+        txn, payload, lamports_per_signature=5000, estimator=estimator)
+    if rce is None:
+        return None
+    rewards, est_cus, _cu_limit = rce
+    accts = [(txn.account(payload, i), txn.is_writable(i))
+             for i in range(txn.acct_cnt)]
+    return PackTxn(txn_id=txn_id, rewards=rewards, est_cus=est_cus,
+                   writable=frozenset(k for k, w in accts if w),
+                   readonly=frozenset(k for k, w in accts if not w))
+
+
+class PackTile(Tile):
+    """Account-lock conflict scheduling into bank lanes (fd_frank_pack.c
+    with ballet/pack's semantics), the counterpart of the JAX
+    ``PackTile``:3323. A scheduled txn goes downstream with its bank in
+    the sig's high 16 bits; completion is immediate (the sink stands in
+    for the banks).
+
+    scheduler "greedy": each txn enters the ``Pack`` heap and ``_drain``
+    schedules what fits, rotating banks. scheduler "gc": txns gather into
+    blocks of gc_block; ``_drain_gc`` colors a block with
+    ``ops.pack_gc.schedule_block`` on ``device`` (the card unless the
+    caller passes device="cpu"; the kernel, one launch a block), passes
+    the waves through the gate (``_gate_device_waves``) and publishes
+    them wave by wave, round-robin over the banks; leftovers wait for the
+    next block. A txn whose estimate exceeds a bank's CU budget, that
+    does not parse or whose compute-budget instructions are malformed is
+    filtered."""
+
+    name = "pack"
+
+    def __init__(self, wksp, cnc_name, in_link, out_link, bank_cnt: int = 4,
+                 scheduler: str = "greedy", gc_block: int = 1024,
+                 device="cuda", **kw):
+        super().__init__(wksp, cnc_name, in_link=in_link, out_link=out_link,
+                         **kw)
+        if scheduler not in ("greedy", "gc"):
+            raise ValueError(f"unknown pack scheduler {scheduler!r}")
+        self.pack = Pack(bank_cnt=bank_cnt)
+        self.est = CuEstimator()
+        self.bank_cnt = bank_cnt
+        self.scheduler = scheduler
+        self.gc_block = gc_block
+        if scheduler == "gc":
+            self.device = backend.resolve_device(device)
+        self._gc_pending: list = []
+        self._next_txn_id = 0
+        self._payloads: dict = {}
+        self._tsorig: dict = {}
+        self._rr_bank = 0
+        self._seq0 = self.in_link.seq
+        # Frags published or filtered; with in_link.seq, the quiescence
+        # check's proof that no consumed frag is still held.
+        self.stat_done = 0
+        self.stat_cu_drop = 0
+        # The gc gate's accounting: block_device + sched_fallback = blocks.
+        self.stat_block_device = 0
+        self.stat_wave_device = 0
+        self.stat_sched_fallback = 0
+        # Wall ns of schedule_block (arrays, kernel, read-back) and of
+        # the gate (greedy waves, validation).
+        self.stat_gc_ns = 0
+        self.stat_gate_ns = 0
+
+    def drained(self) -> bool:
+        """Every frag consumed so far was published or filtered."""
+        return (self.stat_done >= self.in_link.seq - self._seq0
+                and self.pack.pending_cnt() == 0 and not self._gc_pending)
+
+    def _filter(self, sz: int = 0) -> None:
+        self.in_cur.fseq.diag_add(DIAG_FILT_CNT, 1)
+        if sz:
+            self.in_cur.fseq.diag_add(DIAG_FILT_SZ, sz)
+        self.stat_done += 1
+
+    def on_frag(self, frag: Frag, payload: bytes) -> None:
+        pt = pack_txn(payload, self._next_txn_id, self.est)
+        if pt is None:
+            # fd_pack.c:298-299 drops a malformed txn at insert.
+            self._filter()
+            return
+        if pt.est_cus > self.pack.max_cu_per_bank:
+            # It can never fit a bank's or a wave's budget: no scheduler
+            # would ever pick it.
+            self.stat_cu_drop += 1
+            self._filter(len(payload))
+            return
+        self._next_txn_id += 1
+        self._payloads[pt.txn_id] = payload
+        self._tsorig[pt.txn_id] = frag.tsorig
+        if self.scheduler == "gc":
+            self._gc_pending.append(pt)
+            if len(self._gc_pending) >= self.gc_block:
+                self._drain_gc()
+            return
+        self.pack.insert(pt)
+        self._drain()
+
+    def on_idle(self) -> None:
+        if self.scheduler == "gc":
+            if self._gc_pending:
+                self._drain_gc()
+            return
+        self._drain()
+
+    def _drain_gc(self) -> None:
+        """Color the pending block on the device and publish its waves.
+        _gc_pending keeps the block until its waves are published: the
+        quiescence check reads it from another thread."""
+        txns = list(self._gc_pending)
+        t0 = time.perf_counter_ns()
+        waves, leftover = schedule_block(
+            txns, pad_to=self.gc_block, max_w=MAX_ACCT_CNT,
+            max_r=MAX_ACCT_CNT, device=self.device)
+        t1 = time.perf_counter_ns()
+        waves, leftover = self._gate_device_waves(txns, waves, leftover)
+        self.stat_gc_ns += t1 - t0
+        self.stat_gate_ns += time.perf_counter_ns() - t1
+        self._publish_waves(waves)
+        # A CU-capped leftover waits for the next block's fresh budgets.
+        self._gc_pending = list(leftover)
+
+    def _gate_device_waves(self, txns, dev_waves, dev_left):
+        """The JAX package's schedule gate: the device's waves publish
+        only if they are admissible (validate_schedule, on the exact lock
+        sets) and match the greedy waves' rewards per CU; otherwise the
+        greedy waves publish. block_device + sched_fallback = blocks."""
+        cpu_waves, cpu_left = greedy_waves(txns, MAX_COLORS_DEFAULT,
+                                           CU_CAP_DEFAULT)
+        if validate_schedule(dev_waves) and device_beats_greedy(
+                dev_waves, dev_left, cpu_waves, cpu_left):
+            self.stat_block_device += 1
+            self.stat_wave_device += len(dev_waves)
+            return dev_waves, dev_left
+        self.stat_sched_fallback += 1
+        return cpu_waves, cpu_left
+
+    def _publish(self, txn: PackTxn, bank: int) -> None:
+        payload = self._payloads.pop(txn.txn_id)
+        sig = (bank << 48) | (txn.txn_id & 0xFFFFFFFFFFFF)
+        self.publish_backp(payload, sig, count_diag=False,
+                           tsorig=self._tsorig.pop(txn.txn_id, 0))
+        self.stat_done += 1
+
+    def _publish_waves(self, waves) -> None:
+        for wave in waves:
+            for txn in wave:
+                # Round-robin that persists across waves, so a block of
+                # one-txn waves still spreads over every bank.
+                bank = self._rr_bank
+                self._rr_bank = (self._rr_bank + 1) % self.bank_cnt
+                self._publish(txn, bank)
+
+    def _drain(self) -> None:
+        """Schedule every non-conflicting txn that fits, rotating banks
+        after each success; stop after a full cycle of refusals."""
+        misses = 0
+        block_ended = False
+        while misses < self.bank_cnt:
+            bank = self._rr_bank
+            self._rr_bank = (self._rr_bank + 1) % self.bank_cnt
+            txn = self.pack.schedule(bank)
+            if txn is None:
+                misses += 1
+                if misses >= self.bank_cnt and not block_ended:
+                    # Every bank refused with nothing in flight: the
+                    # per-block CU budgets are spent. A new PoH slot
+                    # resets them in the reference; there is no PoH
+                    # clock here, so the block ends now.
+                    if (self.pack.pending_cnt() > 0
+                            and self.pack.inflight_cnt() == 0):
+                        self.pack.end_block()
+                        block_ended = True
+                        misses = 0
+                continue
+            block_ended = False
+            misses = 0
+            self._publish(txn, bank)
+            # Bank execution is immediate here: release the locks.
+            self.pack.complete(bank, txn.txn_id)
 
 
 class SinkTile(Tile):
-    """Terminal consumer (bank stub): counts what it receives and, when
-    record_digests, keeps for each frag the sha256 of its payload, its
-    tsorig and the full tick count it arrived at (latencies_ns reads
-    them). t_last is the tick count of its last frag."""
+    """Terminal consumer (bank stub): counts what it receives, by bank
+    (sig >> 48) in bank_hist, and, when record_digests, keeps for each
+    frag the sha256 of its payload, its tsorig and the full tick count it
+    arrived at (latencies_ns reads them). t_last is the tick count of its
+    last frag."""
 
     name = "sink"
 
@@ -933,6 +1244,9 @@ class SinkTile(Tile):
                  **kw):
         super().__init__(wksp, cnc_name, in_link=in_link, **kw)
         self.recv_cnt = 0
+        self.recv_sz = 0
+        # Frags by bank: the pack tile puts the bank in sig >> 48.
+        self.bank_hist: dict = {}
         self.record_digests = record_digests
         self.digests: list = []
         self.recv_tsorig: list = []
@@ -941,6 +1255,9 @@ class SinkTile(Tile):
 
     def on_frag(self, frag: Frag, payload: bytes) -> None:
         self.recv_cnt += 1
+        self.recv_sz += frag.sz
+        bank = frag.sig >> 48
+        self.bank_hist[bank] = self.bank_hist.get(bank, 0) + 1
         now = tempo.tickcount()
         self.t_last = now
         if self.record_digests:
