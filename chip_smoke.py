@@ -153,8 +153,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    n = 1, 31, 1024, 2048 and 4096, with C = 64 colors, H = 4096 buckets,
    35 + 35 bucket columns; times at 1024 and 2048 (CUDA events, the
    trace's device time, the chain's floor from the same block's step
-   skeleton, the plain version). (b) run_pipeline on the card, replay ->
-   verify (direct, B = 8192) -> dedup -> pack -> sink on phase 7's dirty
+   skeleton, the plain version). (b) run_pipeline(feed=False) on the
+   card (the in-process step loop), replay -> verify (direct, B = 8192)
+   -> dedup -> pack -> sink on phase 7's dirty
    corpus and the fixtures (depth 32768, a dedup window of 2^18 that
    spans the corpus, as bench.py's replay gate sets it), with
    pack_scheduler "greedy", then "gc". Each run must deliver exactly the
@@ -167,7 +168,24 @@ Phases, each fatal on failure (exit code != 0, no result line):
    latency from publish to sink, each link's publish count, the filters,
    thread CPU by tile, the device's busy share and, on gc, blocks,
    accepted schedules and fallbacks.
-9. Output: the card line, one JSON line of per-kernel numbers, and the
+9. Feed: run_pipeline through the fd_feed runtime (its default), with
+   phase 8 (b)'s checks and res.feed true, no fallback reason, no CPU
+   failover, stager restart or leaked slot, and the process layout
+   asked for. (a) The bench's replay gate (bench.py:287-315):
+   mainnet_corpus(n=100000, seed=1234) built and signed on the card,
+   rings 4,096 deep in a 2^27-byte workspace, B = 8192, a dedup window
+   of 2^18, inflight 4, a 200 ms deadline, direct, greedy, the source
+   and dedup/pack/sink in worker processes. (b) Phase 8 (b)'s traffic
+   in four runs: greedy direct in process, greedy direct in worker
+   processes, gc direct (in process: the gc pack always is), greedy
+   rlc (fused) in worker processes. Each run also prints the six stage
+   latencies from the replay's publish, slot stalls, the device's idle
+   estimate, CPU seconds by process (the main process, and the workers'
+   after they exit) and the host's cores. The kernel rows' launches in
+   the JSON line are those of the phase-9 run that runs them: (a) for
+   the direct rows, the gc run for pack_schedule, the rlc run for the
+   RLC rows.
+10. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -244,6 +262,14 @@ PACK_C, PACK_H, PACK_CAP, PACK_A = 64, 4096, 12_000_000, 35
 # txn once, as the JAX bench's replay gate sets it (bench.py:309); at
 # 4096 a duplicate more than 4096 unique txns after its original passes.
 PIPE_TCACHE = 1 << 18
+# The feed phase (a): the bench's replay gate (bench.py:287-315,
+# FD_BENCH_REPLAY_N and its corpus seed; rings, workspace and verify
+# options as it passes them, the verify mode pinned).
+FEED_N = 100_000
+FEED_SEED = 1234
+FEED_DEPTH = 4096
+FEED_WKSP = 1 << 27
+FEED_OPTS = {"inflight": 4, "max_wait_us": 200_000, "verify_mode": "direct"}
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -2142,42 +2168,21 @@ def pack_kernel_phase(torch, record, blocks) -> None:
            "firedancer_tpu_torch/ops/csrc/pack_gc.cu")
 
 
-def pipeline_run(torch, card, sched, fixtures, fx_ok, corpus, batch):
-    """Phase 8 (b): run_pipeline on the card, replay -> verify (direct)
-    -> dedup -> pack (sched) -> sink; exact accounting, launches and
-    numbers. Returns the run's launches."""
+def pipe_traffic(fixtures, fx_ok, corpus) -> dict:
+    """A pipeline run's payloads (the fixtures, then the corpus) and what
+    the sink must get: the digest multiset of the valid txns, the count
+    of every other txn (each must land in a filter) and the fixtures the
+    pack drops. The fixtures the oracle accepts reach the pack, which
+    drops those with a malformed compute-budget instruction or an
+    estimate over a bank's CU budget (the corpus has neither)."""
     import hashlib
 
     from firedancer_tpu_torch.ballet.pack import CuEstimator
     from firedancer_tpu_torch.disco import corpus as dcorpus
-    from firedancer_tpu_torch.disco import pipeline
     from firedancer_tpu_torch.disco.tiles import pack_txn
-    from firedancer_tpu_torch.ops import backend
-    from torch.profiler import ProfilerActivity, profile
-
-    payloads = fixtures + corpus.payloads
-    path = os.path.join(REPO, "build", "pipeline_smoke.wksp")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    topo = pipeline.build_topology(path, depth=TILE_DEPTH, wksp_sz=TILE_WKSP)
-    try:
-        torch.cuda.synchronize()
-        backend.reset_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res = pipeline.run_pipeline(
-                topo, payloads, verify_backend="gpu", verify_batch=batch,
-                tcache_depth=PIPE_TCACHE, record_digests=True,
-                pack_scheduler=sched, timeout_s=600.0,
-                verify_opts={"inflight": 2, "verify_mode": "direct"})
-            torch.cuda.synchronize()
-        launches, plain = dict(backend.launches), dict(backend.plain_calls)
-    finally:
-        os.remove(path)
 
     cls = collections.Counter(int(e) for e in corpus.expected)
     want = dcorpus.expected_sink_digests(corpus)
-    # The fixtures the oracle accepts reach the pack, which drops those
-    # with a malformed compute-budget instruction or an estimate over a
-    # bank's CU budget (the corpus has neither).
     est = CuEstimator()
     fx_bad_budget = fx_over_cap = 0
     for p, ok in zip(fixtures, fx_ok):
@@ -2190,28 +2195,66 @@ def pipeline_run(torch, card, sched, fixtures, fx_ok, corpus, batch):
             fx_over_cap += 1
         else:
             want[hashlib.sha256(p).digest()] += 1
+    return {"payloads": fixtures + corpus.payloads, "want": want,
+            "not_ok": (cls[dcorpus.DUP] + cls[dcorpus.BAD_SIG]
+                       + cls[dcorpus.BAD_PARSE] + fx_ok.count(False)
+                       + fx_bad_budget + fx_over_cap),
+            "fx_over_cap": fx_over_cap, "fx_bad_budget": fx_bad_budget}
+
+
+def pipeline_run(torch, card, label, traffic, sched, batch, *,
+                 depth=TILE_DEPTH, wksp_sz=TILE_WKSP,
+                 verify_opts=None, feed=False, feed_proc=None):
+    """One run_pipeline on the card, replay -> verify -> dedup -> pack
+    (sched) -> sink, with feed=False the in-process step loop (phase 8
+    (b)), with feed=True the fd_feed runtime (phase 9); exact
+    accounting, launches and numbers. Returns (result, launches)."""
+    from firedancer_tpu_torch.disco import pipeline
+    from firedancer_tpu_torch.ops import backend
+    from torch.profiler import ProfilerActivity, profile
+
+    vopts = dict(verify_opts or {"inflight": 2, "verify_mode": "direct"})
+    mode = vopts["verify_mode"]
+    payloads = traffic["payloads"]
+    path = os.path.join(REPO, "build", "pipeline_smoke.wksp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    topo = pipeline.build_topology(path, depth=depth, wksp_sz=wksp_sz)
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = pipeline.run_pipeline(
+                topo, payloads, verify_backend="gpu", verify_batch=batch,
+                tcache_depth=PIPE_TCACHE, record_digests=True,
+                pack_scheduler=sched, timeout_s=600.0, verify_opts=vopts,
+                feed=feed, feed_proc=feed_proc)
+            torch.cuda.synchronize()
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+    finally:
+        os.remove(path)
+
     d = res.diag
     filt = (d["tile.verify"]["ha_filt_cnt"] + d["tile.verify"]["sv_filt_cnt"]
             + d["link.verify_dedup"]["filt_cnt"]
             + d["link.dedup_pack"]["filt_cnt"])
-    not_ok = (cls[dcorpus.DUP] + cls[dcorpus.BAD_SIG]
-              + cls[dcorpus.BAD_PARSE] + fx_ok.count(False) + fx_bad_budget
-              + fx_over_cap)
     vs, ps = res.verify_stats[0], res.pack_stats
+    fx_over_cap = traffic["fx_over_cap"]
     problems = []
     got = collections.Counter(res.sink_digests)
+    want = traffic["want"]
     if got != want:
         problems.append(f"sink multiset differs: {sum((want - got).values())}"
                         f" missing, {sum((got - want).values())} unexpected")
-    if filt != not_ok:
+    if filt != traffic["not_ok"]:
         problems.append(f"filters {filt} != DUP + BAD_SIG + BAD_PARSE + "
-                        f"fixtures the oracle or the pack rejects {not_ok}")
+                        "fixtures the oracle or the pack rejects "
+                        f"{traffic['not_ok']}")
     if ps["cu_drop"] != fx_over_cap:
         problems.append(f"CU-cap drops {ps['cu_drop']} != the fixtures "
                         f"over the cap {fx_over_cap}")
     if len(res.bank_hist) < 2:
         problems.append(f"one bank only: {res.bank_hist}")
-    want_l = {k: vs["batches"] for k in DIRECT_KERNELS}
+    want_l = tile_want_launches(mode, vs["batches"], vs["rlc_fallback"])
     if sched == "gc":
         if ps["block_device"] + ps["sched_fallback"] != ps["blocks"]:
             problems.append(f"gate accounting: {ps}")
@@ -2220,13 +2263,23 @@ def pipeline_run(torch, card, sched, fixtures, fx_ok, corpus, batch):
         problems.append(f"launches {launches} != {want_l}")
     if plain:
         problems.append(f"plain versions ran: {plain}")
+    if res.feed != feed or res.feed_fallback_reason is not None:
+        problems.append(f"feed {res.feed}, fallback reason "
+                        f"{res.feed_fallback_reason!r}; want feed={feed}")
+    if feed:
+        in_proc = sched == "gc" or not feed_proc
+        if ("workers" in res.proc_cpu_s) == in_proc:
+            problems.append(f"process layout: {res.proc_cpu_s}")
+        for key in ("cpu_failover", "stager_restarts", "slots_leaked"):
+            if vs[key]:
+                problems.append(f"{key} {vs[key]}")
 
     busy, _ = trace_busy(prof)
     span = res.span_s
     share = (f"device busy {busy * 1e3:.1f} ms of {span * 1e3:.1f} = "
-             f"{100 * busy / span:.2f}% (torch.profiler)" if busy > 0
+             f"{100 * busy / span:.2f}% (torch.profiler, the main process)"
+             if busy > 0
              else "device busy share not measured (no device time traced)")
-    label = f"pipeline {sched}"
     say(f"{label}: {len(payloads)} txns in {span:.3f} s from the first "
         f"publish to the last sink frag = {len(payloads) / span:.0f} txn/s "
         f"(host clock; run {res.elapsed_s:.3f} s); latency p50 "
@@ -2242,11 +2295,24 @@ def pipeline_run(torch, card, sched, fixtures, fx_ok, corpus, batch):
         f"{d['link.verify_dedup']['filt_cnt']}, pack "
         f"{d['link.dedup_pack']['filt_cnt']} (CU-cap drops "
         f"{ps['cu_drop']}: {fx_over_cap} fixtures over the cap, 0 of the "
-        f"corpus; {fx_bad_budget} fixtures with a malformed compute-budget "
-        f"instruction)")
+        f"corpus; {traffic['fx_bad_budget']} fixtures with a malformed "
+        "compute-budget instruction)")
     cpu = ", ".join(f"{k} {v:.3f}" for k, v in res.tile_cpu_s.items())
     say(f"{label}: thread CPU s by tile: {cpu}; verify {vs['batches']} "
-        f"batches, fill {vs['fill_ratio']}; {share} [{card}]")
+        f"batches, fill {vs['fill_ratio']}, RLC fallbacks "
+        f"{vs['rlc_fallback']}; {share} [{card}]")
+    if feed:
+        stages = "; ".join(
+            f"{k} n {v['n']} p50 {v['p50_ns'] / 1e6:.3f} p99 "
+            f"{v['p99_ns'] / 1e6:.3f}" for k, v in res.stage_latency.items())
+        procs = ", ".join(f"{k} {v:.3f}" for k, v in res.proc_cpu_s.items())
+        say(f"{label}: stage latency ms from the replay's publish: {stages}")
+        say(f"{label}: CPU s by process: {procs} ({os.cpu_count()} cores); "
+            f"slot stalls {vs['slot_stall']} ({vs['slot_stall_ms']} ms), "
+            f"device idle estimate {vs['device_idle_est_ms']} ms, stager "
+            f"restarts {vs['stager_restarts']}, cpu failover "
+            f"{vs['cpu_failover']}, slots leaked {vs['slots_leaked']} "
+            f"[{card}]")
     if sched == "gc":
         say(f"{label}: {ps['blocks']} blocks, {ps['block_device']} device "
             f"schedules accepted ({ps['wave_device']} waves), "
@@ -2257,19 +2323,62 @@ def pipeline_run(torch, card, sched, fixtures, fx_ok, corpus, batch):
         fail(f"{label}: " + "; ".join(problems))
     say(f"{label}: sink multiset and filter accounting exact, launches = "
         f"{want_l}, no plain call")
-    return launches
+    return res, launches
 
 
 def pack_phase(torch, card, record, fixtures, fx_ok, corpus,
-               batch: int = B) -> int:
+               batch: int = B) -> None:
     """Phase 8: the pack kernel's parity and times, then the five-tile
-    pipeline on the card with each scheduler. Returns the kernel's
-    launches in the gc run."""
+    pipeline on the card with each scheduler, through the in-process
+    step loop (feed=False)."""
     pack_kernel_phase(torch, record, pack_blocks(fixtures, corpus))
-    pipeline_run(torch, card, "greedy", fixtures, fx_ok, corpus, batch)
-    launches = pipeline_run(torch, card, "gc", fixtures, fx_ok, corpus,
-                            batch)
-    return launches["pack_schedule"]
+    traffic = pipe_traffic(fixtures, fx_ok, corpus)
+    for sched in ("greedy", "gc"):
+        pipeline_run(torch, card, f"pipeline {sched}", traffic, sched, batch)
+
+
+def feed_phase(torch, card, rows, fixtures, fx_ok, corpus,
+               batch: int = B) -> None:
+    """Phase 9: run_pipeline through the fd_feed runtime on the card. (a)
+    the bench's replay shape (bench.py:287-315): FEED_N txns of
+    mainnet_corpus(seed=1234) built and signed on the card, rings of
+    FEED_DEPTH, inflight 4, a 200 ms deadline, greedy, worker processes;
+    (b) phase 8's traffic in four runs: in process and in worker
+    processes (greedy, direct), gc (in process, forced) and rlc (worker
+    processes). Each kernel row's launches are those of the run of this
+    phase that runs it."""
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+
+    t0 = time.perf_counter()
+    bench = dcorpus.mainnet_corpus(n=FEED_N, seed=FEED_SEED)
+    torch.cuda.synchronize()
+    classes = collections.Counter(int(e) for e in bench.expected)
+    say(f"feed corpus: mainnet_corpus(n={FEED_N}, seed={FEED_SEED}): "
+        f"{len(bench.payloads)} payloads {dict(classes)}, built and signed "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    _, launches = pipeline_run(
+        torch, card, "feed (a) bench replay, worker processes",
+        pipe_traffic([], [], bench), "greedy", batch, depth=FEED_DEPTH,
+        wksp_sz=FEED_WKSP, verify_opts=FEED_OPTS, feed=True,
+        feed_proc=True)
+    for name in DIRECT_KERNELS:
+        rows[name]["launches"] = launches[name]
+    traffic = pipe_traffic(fixtures, fx_ok, corpus)
+    for label, sched, mode, proc in (
+            ("feed (b) in process", "greedy", "direct", False),
+            ("feed (b) worker processes", "greedy", "direct", True),
+            ("feed (b) gc, in process (forced)", "gc", "direct", True),
+            ("feed (b) rlc, worker processes", "greedy", "rlc", True)):
+        _, launches = pipeline_run(
+            torch, card, label, traffic, sched, batch,
+            verify_opts={"inflight": 2, "verify_mode": mode}, feed=True,
+            feed_proc=proc)
+        if sched == "gc":
+            rows["pack_schedule"]["launches"] = launches["pack_schedule"]
+        if mode == "rlc":
+            for name in ("frontend_rlc", *RLC_PASS):
+                for row in TAILS_ROWS if name == "msm_tails" else (name,):
+                    rows[row]["launches"] = launches[name]
 
 
 def main() -> int:
@@ -2688,10 +2797,10 @@ def main() -> int:
              (expect_a, expect_b), direct_b, zcash_pass, entry)
     signing_path(torch, gpu, rows, card)
     traffic = tile_phase(torch, card)
-    gc_launches = pack_phase(torch, card, record, *traffic)
-    rows["pack_schedule"]["launches"] = gc_launches
+    pack_phase(torch, card, record, *traffic)
+    feed_phase(torch, card, rows, *traffic)
 
-    # 9. Output.
+    # 10. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

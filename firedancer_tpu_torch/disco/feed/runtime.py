@@ -1,12 +1,66 @@
-"""The run records of the fd_feed runtime that the in-process runner
-also fills, from ``firedancer_tpu/disco/feed/runtime.py``
-(``latency_percentiles``:48, ``verify_tile_stats``:60). The runtime
-itself (the staging feeder and its worker process) is not ported yet.
+"""The fd_feed runtime, the counterpart of
+``firedancer_tpu/disco/feed/runtime.py`` (``latency_percentiles``:48,
+``verify_tile_stats``:60, ``_spawn_worker``:151, ``run_feed_pipeline``:167).
+
+The topology is the ring graph of ``pipeline.build_topology``; what
+changes is where the stages run:
+
+    replay worker   the source (``python -m firedancer_tpu_torch.disco.worker
+                    --tile replay``)
+    main process    the verify tile in feed mode: a stager thread whose
+                    ring drain is one GIL-releasing C call a round, and
+                    the dispatcher thread, which makes every torch call
+    downstream      dedup, pack and sink on threads of one worker
+    worker          (``--tile dedup,pack,sink``)
+
+The workers share the workspace file and never touch CUDA. With
+``feed_proc=False`` (and always with the gc pack, whose pending block
+the quiescence check must read) every tile runs on a thread of the main
+process. The fd_drain pre-filter beside each batch is not ported: the
+feed runs as the JAX one does with ``FD_DRAIN=off``.
+
+Quiescence is read from shared memory: the source exhausted, the feeder
+drained (the stager's cursor caught up, no staged slot, nothing in
+flight) and every downstream consumer's cursor caught up to its producer
+and unchanged over a settle window of 5 passes of 5 ms (the pack's
+CU-deferred pending set is invisible to the rings). A worker that exits
+or a tile thread that raises before HALT is fatal.
+
+Latencies: ``tempo.tickcount`` is ``time.perf_counter_ns``, one clock
+for every process, so the replay's publish ticks and the sink's receipts
+meet in the main process (the workers' result files carry them), and
+``latency_p50_ns``/``latency_p99_ns`` come from ``tiles.latencies_ns`` on
+the 64-bit tick. Each stage's samples are matched to the replay's
+publish ticks by ``stage_latencies``: the out-links' and the stager's
+(``tiles.LatReservoir``, set on the feed's links only) and the sink's
+receipts, which like the end-to-end latency need ``record_digests``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import pickle
+import resource
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from types import SimpleNamespace
+from typing import Dict, Optional
+
+import numpy as np
+
+# Stages of stage_latency: the source's publish, its ring dwell up to
+# the stager's drain, then each tile's publish and the sink's receipt.
+STAGES = ("replay_pub", "verify_drain", "verify_pub", "dedup_pub",
+          "pack_pub", "sink")
+SETTLE_PASSES = 5
+SETTLE_S = 0.005
+BOOT_WAIT_S = 60.0
+LOGGER = "firedancer_tpu_torch.disco.feed"
 
 
 def latency_percentiles(samples) -> Dict[str, int]:
@@ -21,12 +75,49 @@ def latency_percentiles(samples) -> Dict[str, int]:
     }
 
 
+def stage_latencies(pub_ticks, ts, now) -> np.ndarray:
+    """ns from the source's publish to each sample's tick: stamp ts[i]
+    (the low 32 bits of a publish tick) is matched to the latest publish
+    tick at or before now[i] with those low bits. A sample matching no
+    publish is dropped."""
+    pub = np.sort(np.asarray(pub_ticks, np.int64))
+    ts = np.asarray(ts, np.int64)
+    now = np.asarray(now, np.int64)
+    if not len(pub) or not len(ts):
+        return np.zeros(0, np.int64)
+    lo = pub & 0xFFFFFFFF
+    order = np.lexsort((pub, lo))
+    lo_s, pub_s = lo[order], pub[order]
+    a = np.searchsorted(lo_s, ts, "left")
+    b = np.searchsorted(lo_s, ts, "right")
+    out = np.full(len(ts), -1, np.int64)
+    cand = pub_s[np.minimum(a, len(pub_s) - 1)]
+    one = ((b - a) == 1) & (cand <= now)
+    out[one] = now[one] - cand[one]
+    for i in np.nonzero((b - a) > 1)[0]:
+        seg = pub_s[a[i]:b[i]]
+        k = np.searchsorted(seg, now[i], "right") - 1
+        if k >= 0:
+            out[i] = now[i] - seg[k]
+    return out[out >= 0]
+
+
+def stage_latency(pub_ticks, samples: Dict[str, tuple]) -> Dict[str, dict]:
+    """The stage_latency record: latency_percentiles of each stage's
+    matched samples ((stamps, ticks) by stage name)."""
+    return {name: latency_percentiles(stage_latencies(pub_ticks, *smp))
+            for name, smp in samples.items()}
+
+
 def verify_tile_stats(v) -> Dict[str, object]:
     """The verify_stats record of one VerifyTile, the fields of the JAX
-    record that the port's stat_* counters fill (its feed, chaos, rung,
-    shard, drain and reconfig fields have no counterpart yet)."""
+    record that the port's stat_* counters fill (its chaos, breaker,
+    rung, shard, drain and reconfig fields have no counterpart yet).
+    ``cpu_failover`` is always 0: the port's feeder never verifies on
+    the host."""
     fill = v.stat_lanes / float(v.stat_batches * v.batch) \
         if v.stat_batches else 0.0
+    feed = bool(v._feed)
     return {
         "batches": v.stat_batches,
         "lanes": v.stat_lanes,
@@ -36,6 +127,279 @@ def verify_tile_stats(v) -> Dict[str, object]:
         "inflight_stall": v.stat_inflight_stall,
         "mode": v.verify_mode,
         "rlc_fallback": v.stat_rlc_fallback,
-        "feed": False,
+        "feed": feed,
+        "slot_stall": v.feed_pool.slot_stall if feed else 0,
+        "slot_stall_ms": (round(v.feed_pool.stall_ns / 1e6, 2)
+                          if feed else 0.0),
+        "device_idle_est_ms": round(v.stat_feed_idle_ns / 1e6, 2),
+        "stager_restarts": v.stat_stager_restarts,
+        "cpu_failover": 0,
+        "slots_leaked": v.feed_pool.outstanding() if feed else 0,
         "ctl_err_drop": v.stat_ctl_err,
     }
+
+
+def _repo() -> str:
+    return os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+
+
+def _spawn_worker(tile: str, wksp_path: str, opts: dict, max_ns: int,
+                  result_path: str, log_dir: str) -> subprocess.Popen:
+    """Start ``python -m firedancer_tpu_torch.disco.worker`` for tile (a
+    comma list runs several on threads of one worker), its stderr in
+    log_dir. The worker sees no CUDA device."""
+    cmd = [sys.executable, "-m", "firedancer_tpu_torch.disco.worker",
+           "--wksp", wksp_path, "--tile", tile, "--opts", json.dumps(opts),
+           "--max-ns", str(max_ns), "--result", result_path]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    log = os.path.join(log_dir, f"{tile.split(',')[0]}.log")
+    with open(log, "ab") as stderr:
+        return subprocess.Popen(cmd, cwd=_repo(), stderr=stderr, env=env)
+
+
+def _tail(path: str) -> str:
+    if not os.path.exists(path):
+        return ""
+    with open(path, "rb") as f:
+        return f.read()[-2000:].decode("utf-8", "replace")
+
+
+def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
+                      verify_batch: int = 128,
+                      verify_max_msg_len: Optional[int] = None,
+                      bank_cnt: int = 4, timeout_s: float = 60.0,
+                      tcache_depth: int = 4096,
+                      verify_opts: Optional[dict] = None,
+                      record_digests: bool = False,
+                      pack_scheduler: str = "greedy", device="cuda",
+                      feed_proc: Optional[bool] = None):
+    """pipeline.run_pipeline's contract through the fd_feed runtime
+    (run_pipeline routes here); returns a PipelineResult with feed=True,
+    the feeder's verify_stats, stage_latency and CPU seconds by process.
+    feed_proc: True runs the source and dedup/pack/sink in worker
+    processes, False on threads here, None (auto) processes on 4 or more
+    cores; pack_scheduler "gc" always runs in process. Raises on a tile
+    error, a worker's early exit and a timeout."""
+    from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
+    from .. import pipeline as pl
+    from ..monitor import snapshot
+    from ..tiles import LatReservoir, VerifyTile, latencies_ns
+
+    use_proc = ((os.cpu_count() or 1) >= 4 if feed_proc is None
+                else bool(feed_proc))
+    if pack_scheduler == "gc":
+        # The gc pack holds a block of txns no ring cursor shows: the
+        # quiescence check reads it, which needs the pack in process.
+        use_proc = False
+    mtu = topo.mtu
+    wksp = Workspace.join(topo.wksp_path)
+    vopts = dict(verify_opts or {}, feed=True)
+    verify = VerifyTile(wksp, "verify.cnc", pl.in_link(wksp, "replay_verify"),
+                        pl.out_link(wksp, "verify_dedup", mtu),
+                        backend=verify_backend, batch=verify_batch,
+                        max_msg_len=verify_max_msg_len or mtu,
+                        tcache_depth=tcache_depth, device=device, **vopts)
+    verify.out_link.lat = LatReservoir()
+    opts = {"mtu": mtu, "tcache_depth": tcache_depth, "bank_cnt": bank_cnt,
+            "pack_scheduler": pack_scheduler,
+            "record_digests": record_digests}
+    replay = dedup = pack = sink = None
+    tiles = [verify]
+    if not use_proc:
+        replay, dedup, pack, sink = (
+            pl.build_tile(wksp, name, payloads=payloads, device=device,
+                          **opts)
+            for name in ("replay", "dedup", "pack", "sink"))
+        tiles = [replay, verify, dedup, pack, sink]
+        for t in (replay, dedup, pack):
+            t.out_link.lat = LatReservoir()
+
+    tile_max_ns = int((timeout_s + 30.0) * 1e9)
+    errors: list = []
+
+    def target(t):
+        try:
+            t.run(tile_max_ns)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=target, args=(t,), name=t.name,
+                                daemon=True) for t in tiles]
+    tmp = tempfile.mkdtemp(prefix="fd_feed_")
+    results = {"replay": os.path.join(tmp, "replay.json"),
+               "downstream": os.path.join(tmp, "downstream.json")}
+    procs: Dict[str, subprocess.Popen] = {}
+    ru_self = resource.getrusage(resource.RUSAGE_SELF)
+    ru_kids = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    try:
+        if use_proc:
+            procs["downstream"] = _spawn_worker(
+                "dedup,pack,sink", topo.wksp_path, opts, tile_max_ns,
+                results["downstream"], tmp)
+            payloads_path = os.path.join(tmp, "payloads.pkl")
+            with open(payloads_path, "wb") as f:
+                pickle.dump(list(payloads), f)
+            procs["replay"] = _spawn_worker(
+                "replay", topo.wksp_path,
+                dict(opts, payloads_path=payloads_path), tile_max_ns,
+                results["replay"], tmp)
+        for th in threads:
+            th.start()
+
+        links = [(MCache(wksp, f"{k}.mcache"), FSeq(wksp, f"{k}.fseq"))
+                 for k in ("verify_dedup", "dedup_pack", "pack_sink")]
+        worker_cncs = [Cnc(wksp, f"{t}.cnc") for t in
+                       ("replay", "dedup", "pack", "sink")] if use_proc \
+            else []
+        src_mcache = MCache(wksp, "replay_verify.mcache")
+        n_payloads = len(payloads)
+
+        def feeder_drained() -> bool:
+            return (verify.in_link.seq >= src_mcache.seq_next()
+                    and verify.feed_pool.idle() and not verify._inflight)
+
+        deadline = t0 + timeout_s
+        settle, last = 0, None
+        died = None
+        done = False
+        while time.perf_counter() < deadline:
+            for name, proc in procs.items():
+                if proc.poll() is not None:
+                    died = (name, proc.returncode)
+                    break
+            if died or errors:
+                break
+            cursors = tuple((mc.seq_next(), fs.query()) for mc, fs in links)
+            if (src_mcache.seq_next() >= n_payloads and feeder_drained()
+                    and all(fs >= mc for mc, fs in cursors)
+                    and (pack is None or pack.drained())
+                    and cursors == last):
+                settle += 1
+                if settle >= SETTLE_PASSES:
+                    done = True
+                    break
+            else:
+                settle = 0
+            last = cursors
+            time.sleep(SETTLE_S)
+
+        # A worker tile still in BOOT would overwrite HALT with RUN when
+        # it reaches its loop: wait (bounded) until each has left BOOT
+        # or its process is gone.
+        if procs and died is None:
+            boot_deadline = time.perf_counter() + BOOT_WAIT_S
+            while time.perf_counter() < boot_deadline:
+                if any(p.poll() is not None for p in procs.values()):
+                    break
+                if all(c.signal_query() != 0 for c in worker_cncs):
+                    break
+                time.sleep(0.01)
+        for t in tiles:
+            t.cnc.signal(CNC_HALT)
+        for c in worker_cncs:
+            c.signal(CNC_HALT)
+        join_deadline = time.perf_counter() + timeout_s + 35.0
+        for th in threads:
+            th.join(timeout=max(0.1, join_deadline - time.perf_counter()))
+        if died is None:
+            for name, proc in procs.items():
+                try:
+                    proc.wait(timeout=60.0)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                if proc.returncode != 0 and died is None:
+                    died = (name, proc.returncode)
+        elapsed = time.perf_counter() - t0
+        ru_self2 = resource.getrusage(resource.RUSAGE_SELF)
+        ru_kids2 = resource.getrusage(resource.RUSAGE_CHILDREN)
+
+        if errors:
+            raise errors[0]
+        if died is not None:
+            name, rc = died
+            log = os.path.join(tmp, ("dedup" if name == "downstream"
+                                     else name) + ".log")
+            raise RuntimeError(f"fd_feed {name} worker exited rc={rc} "
+                               f"mid-run; stderr tail:\n{_tail(log)}")
+        if not done:
+            raise TimeoutError(f"the feed pipeline did not drain within "
+                               f"{timeout_s} s")
+
+        if use_proc:
+            with open(results["downstream"]) as f:
+                down = json.load(f)
+            with open(results["replay"]) as f:
+                rep = json.load(f)["replay"]
+            replay_rec = SimpleNamespace(payloads=payloads,
+                                         pub_ticks=rep["pub_ticks"])
+            s = down["sink"]
+            sink_rec = SimpleNamespace(
+                recv_cnt=s["recv_cnt"], recv_sz=s["recv_sz"],
+                bank_hist={int(k): v for k, v in s["bank_hist"].items()},
+                t_last=s["t_last"],
+                digests=[bytes.fromhex(d) for d in s["digests"]],
+                recv_tsorig=s["recv_tsorig"], recv_ticks=s["recv_ticks"])
+            samples = {
+                "replay_pub": rep["lat"],
+                "dedup_pub": down["dedup"]["lat"],
+                "pack_pub": down["pack"]["lat"]}
+            tile_cpu = {"replay": rep["cpu_s"],
+                        **{k: down[k]["cpu_s"]
+                           for k in ("dedup", "pack", "sink")}}
+            pack_stats = down["pack"]["stats"]
+        else:
+            replay_rec, sink_rec = replay, sink
+            samples = {"replay_pub": replay.out_link.lat.samples(),
+                       "dedup_pub": dedup.out_link.lat.samples(),
+                       "pack_pub": pack.out_link.lat.samples()}
+            tile_cpu = {t.name: t.cpu_ns / 1e9
+                        for t in (replay, dedup, pack, sink)}
+            pack_stats = pl._pack_stats(pack)
+        samples["verify_drain"] = verify.drain_lat.samples()
+        samples["verify_pub"] = verify.out_link.lat.samples()
+        samples["sink"] = (sink_rec.recv_tsorig, sink_rec.recv_ticks)
+        pub_ticks = replay_rec.pub_ticks
+        tile_cpu["verify"] = verify.cpu_ns / 1e9
+        tile_cpu["verify.stager"] = verify.stager_cpu_ns / 1e9
+        lat = latencies_ns(replay_rec, sink_rec) if record_digests else []
+        p = latency_percentiles(lat)
+        res = pl.PipelineResult(
+            recv_cnt=sink_rec.recv_cnt,
+            recv_sz=sink_rec.recv_sz,
+            bank_hist=dict(sink_rec.bank_hist),
+            diag=snapshot(wksp, pl.TILES, pl.LINKS),
+            elapsed_s=elapsed,
+            span_s=((sink_rec.t_last - pub_ticks[0]) / 1e9
+                    if sink_rec.recv_cnt else 0.0),
+            latency_p50_ns=p["p50_ns"],
+            latency_p99_ns=p["p99_ns"],
+            verify_stats=[verify_tile_stats(verify)],
+            sink_digests=(list(sink_rec.digests) if record_digests
+                          else None),
+            tile_cpu_s=tile_cpu,
+            pack_stats=pack_stats,
+            feed=True,
+            stage_latency=stage_latency(
+                pub_ticks, {k: samples[k] for k in STAGES}),
+        )
+        res.proc_cpu_s["main"] = round(
+            ru_self2.ru_utime + ru_self2.ru_stime - ru_self.ru_utime
+            - ru_self.ru_stime, 6)
+        if use_proc:
+            res.proc_cpu_s["workers"] = round(
+                ru_kids2.ru_utime + ru_kids2.ru_stime - ru_kids.ru_utime
+                - ru_kids.ru_stime, 6)
+        return res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        # Only after every tile thread has ended: a tile still writing
+        # into the mapping would fault.
+        if all(not th.is_alive() for th in threads):
+            wksp.leave()
+        shutil.rmtree(tmp, ignore_errors=True)

@@ -9,23 +9,33 @@ package's names, so either package's tiles can join it. Tiles join a
 link by its name (``link_names``); the producer of a link takes credits
 from the link's own fseq, which its consumer publishes.
 
-``run_pipeline`` drives replay -> verify -> dedup -> pack -> sink on
-threads until the chain has drained (``pipeline_quiesced``) and returns a
-``PipelineResult``. It is the JAX package's ``FD_FEED=0`` runner (the
-in-process step loop); the fd_feed runtime, the JAX default, is not
-ported yet. ``run_tiles`` and ``chain_quiesced`` also drive the shorter
-replay -> verify -> sink chain.
+``run_pipeline`` drives replay -> verify -> dedup -> pack -> sink and
+returns a ``PipelineResult``. As in the JAX package it routes through the
+fd_feed runtime (``feed.runtime.run_feed_pipeline``: the staging-slot
+feeder, the source and the downstream tiles in worker processes) unless
+the caller passes ``feed=False`` or the feed cannot serve the topology
+(``_feed_fallback_reason``:429 there, warned and recorded); else it runs
+the in-process step loop (the JAX ``FD_FEED=0`` runner) until the chain
+has drained (``pipeline_quiesced``). ``run_tiles`` and ``chain_quiesced``
+also drive the shorter replay -> verify -> sink chain.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..ballet.txn import MAX_SIG_CNT
+from ..tango import rings
 from ..tango.rings import CNC_HALT, Cnc, DCache, FSeq, MCache, Workspace
-from .feed.runtime import latency_percentiles, verify_tile_stats
+from .feed.runtime import (
+    LOGGER,
+    latency_percentiles,
+    verify_tile_stats,
+)
 from .monitor import snapshot
 from .tiles import (
     FD_TPU_MTU,
@@ -95,13 +105,43 @@ def out_link(wksp: Workspace, link: str, mtu: int = FD_TPU_MTU) -> OutLink:
                    reliable_fseqs=[FSeq(wksp, names.fseq)])
 
 
+def build_tile(wksp: Workspace, name: str, mtu: int = FD_TPU_MTU,
+               payloads=(), tcache_depth: int = 4096, bank_cnt: int = 4,
+               pack_scheduler: str = "greedy", record_digests: bool = False,
+               device="cuda"):
+    """Tile name (replay, dedup, pack or sink) on its links of the
+    topology: the one constructor of the runners' tiles, in process and in
+    the worker processes (worker.py)."""
+    if name == "replay":
+        return ReplayTile(wksp, "replay.cnc",
+                          out_link(wksp, "replay_verify", mtu),
+                          payloads=payloads)
+    if name == "dedup":
+        return DedupTile(wksp, "dedup.cnc",
+                         in_links=[in_link(wksp, "verify_dedup")],
+                         out_link=out_link(wksp, "dedup_pack", mtu),
+                         tcache_depth=tcache_depth)
+    if name == "pack":
+        return PackTile(wksp, "pack.cnc", in_link(wksp, "dedup_pack"),
+                        out_link(wksp, "pack_sink", mtu), bank_cnt=bank_cnt,
+                        scheduler=pack_scheduler, device=device)
+    if name == "sink":
+        return SinkTile(wksp, "sink.cnc", in_link(wksp, "pack_sink"),
+                        record_digests=record_digests)
+    raise ValueError(f"unknown tile {name!r} (want replay, dedup, pack "
+                     "or sink)")
+
+
 def chain_quiesced(replay, verify, sink) -> bool:
     """replay -> verify -> sink has drained: the source is exhausted,
-    verify consumed all of it with nothing staged or in flight, and the
-    sink (or any next tile) consumed all verify published."""
+    verify consumed all of it with nothing staged (in its slots, in feed
+    mode) or in flight, and the sink (or any next tile) consumed all
+    verify published."""
     return (replay.done()
             and verify.in_link.seq >= replay.out_link.seq
-            and not verify._pending and not verify._inflight
+            and not verify._pending
+            and (not verify._feed or verify.feed_pool.idle())
+            and not verify._inflight
             and sink.in_link.seq >= verify.out_link.seq)
 
 
@@ -175,6 +215,17 @@ class PipelineResult:
     # tile's counters (scheduler, blocks, the gc gate, CU-cap drops).
     tile_cpu_s: Dict[str, float] = field(default_factory=dict)
     pack_stats: Dict[str, object] = field(default_factory=dict)
+    # True when the fd_feed runtime ran; otherwise why it could not
+    # serve the topology (None when the caller passed feed=False).
+    feed: bool = False
+    feed_fallback_reason: Optional[str] = None
+    # The feed's {n, p50_ns, p99_ns} by stage (feed.runtime.STAGES),
+    # from the source's publish on the 64-bit tick; the sink's stage
+    # needs record_digests.
+    stage_latency: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    # CPU seconds of the run by process (the feed): "main", and with
+    # worker processes "workers", theirs after they exited.
+    proc_cpu_s: Dict[str, float] = field(default_factory=dict)
 
 
 def _pack_stats(pack: PackTile) -> Dict[str, object]:
@@ -204,15 +255,11 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
                         max_msg_len=verify_max_msg_len,
                         tcache_depth=tcache_depth, device=device,
                         **verify_opts)
-    dedup = DedupTile(wksp, "dedup.cnc",
-                      in_links=[in_link(wksp, "verify_dedup")],
-                      out_link=out_link(wksp, "dedup_pack"),
-                      tcache_depth=tcache_depth)
-    pack = PackTile(wksp, "pack.cnc", in_link(wksp, "dedup_pack"),
-                    out_link(wksp, "pack_sink"), bank_cnt=bank_cnt,
-                    scheduler=pack_scheduler, device=device)
-    sink = SinkTile(wksp, "sink.cnc", in_link(wksp, "pack_sink"),
-                    record_digests=record_digests)
+    dedup, pack, sink = (
+        build_tile(wksp, name, tcache_depth=tcache_depth, bank_cnt=bank_cnt,
+                   pack_scheduler=pack_scheduler,
+                   record_digests=record_digests, device=device)
+        for name in ("dedup", "pack", "sink"))
     tiles = [replay, verify, dedup, pack, sink]
     elapsed = run_tiles(
         tiles, lambda: pipeline_quiesced(replay, verify, dedup, pack, sink),
@@ -236,6 +283,26 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
     return res
 
 
+def _feed_fallback_reason(verify_backend: str, verify_batch: int,
+                          verify_opts: Optional[dict]) -> Optional[str]:
+    """None when the fd_feed runtime can serve the topology, else why
+    not: the feed needs the gpu backend, a batch any parsed txn fits,
+    the current drain ABI and the native drain. The port's topology has
+    one verify lane, as the feed needs."""
+    if verify_backend != "gpu":
+        return f"verify backend {verify_backend!r} (the feed needs gpu)"
+    if verify_batch < MAX_SIG_CNT:
+        return (f"verify_batch={verify_batch} < MAX_SIG_CNT={MAX_SIG_CNT} "
+                "(a parsed txn must fit a fresh slot)")
+    try:
+        rings.require_drain()
+    except Exception as e:  # noqa: BLE001 - the reason is the error
+        return f"native ring library: {e}"
+    if verify_opts and verify_opts.get("native_drain") is False:
+        return "verify_opts disabled the native drain"
+    return None
+
+
 def run_pipeline(topo: Topology, payloads: List[bytes],
                  verify_backend: str = "gpu", verify_batch: int = 128,
                  verify_max_msg_len: Optional[int] = None,
@@ -244,17 +311,38 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                  verify_opts: Optional[dict] = None,
                  record_digests: bool = False,
                  pack_scheduler: str = "greedy",
-                 device="cuda") -> PipelineResult:
+                 device="cuda", feed: Optional[bool] = None,
+                 feed_proc: Optional[bool] = None) -> PipelineResult:
     """Replay-sourced pipeline: payloads -> verify -> dedup -> pack ->
-    sink, the JAX package's in-process runner (its FD_FEED=0 path; the
-    port has no feed runtime and so no feed= argument). The verify
-    engine and the gc pack run on device: the card unless the caller
-    passes device="cpu". Shutdown is by quiescence (source exhausted and
-    every link drained); filtered frags never reach the sink, so the
-    caller reads recv_cnt and the diag counters."""
+    sink. feed None or True runs the fd_feed runtime when it can serve
+    the topology (feed_proc: its process layout, run_feed_pipeline), and
+    otherwise warns on the firedancer_tpu_torch.disco.feed logger, keeps
+    the reason in feed_fallback_reason and runs the in-process step
+    loop, which feed=False asks for. The verify engine and the gc pack
+    run on device: the card unless the caller passes device="cpu".
+    Shutdown is by quiescence (source exhausted and every link drained);
+    filtered frags never reach the sink, so the caller reads recv_cnt
+    and the diag counters."""
+    reason = None
+    if feed is None or feed:
+        reason = _feed_fallback_reason(verify_backend, verify_batch,
+                                       verify_opts)
+        if reason is None:
+            from .feed.runtime import run_feed_pipeline
+
+            return run_feed_pipeline(
+                topo, payloads, verify_backend=verify_backend,
+                verify_batch=verify_batch,
+                verify_max_msg_len=verify_max_msg_len, bank_cnt=bank_cnt,
+                timeout_s=timeout_s, tcache_depth=tcache_depth,
+                verify_opts=verify_opts, record_digests=record_digests,
+                pack_scheduler=pack_scheduler, device=device,
+                feed_proc=feed_proc)
+        logging.getLogger(LOGGER).warning(
+            "fd_feed cannot serve this topology, falling back to the "
+            "in-process step loop: %s", reason)
     wksp = Workspace.join(topo.wksp_path)
-    replay = ReplayTile(wksp, "replay.cnc", out_link(wksp, "replay_verify"),
-                        payloads=payloads)
+    replay = build_tile(wksp, "replay", payloads=payloads)
     res = _run_tiles(wksp, replay, verify_backend, verify_batch,
                      verify_max_msg_len or topo.mtu, bank_cnt, timeout_s,
                      tcache_depth, dict(verify_opts or {}), record_digests,
@@ -262,4 +350,5 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
     # Only after every tile thread has ended: on an error the mapping is
     # kept, since a tile still writing into it would fault.
     wksp.leave()
+    res.feed_fallback_reason = reason
     return res

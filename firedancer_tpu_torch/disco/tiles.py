@@ -5,7 +5,9 @@
 ``DedupTile``:3075, ``PackTile``:3323, ``SinkTile``:3571).
 ``_DeviceBatch`` gives a direct engine's statuses the async surface of
 ``_ReadyBatch``:817, and ``latencies_ns`` reads the chain's end-to-end
-latencies from the replay's and the sink's records.
+latencies from the replay's and the sink's records. ``LatReservoir``
+keeps an out-link's latency samples when the fd_feed runtime asks for
+them (``OutLink.lat_ns``:235 there).
 
 Tiles are threads joined to the native shared-memory rings
 (``tango.rings``); the payloads are whole Solana transactions. The
@@ -14,6 +16,13 @@ verify tile parses, filters and verifies them on an engine of
 the pack tile schedules them onto banks under their account locks, on
 the host (``"greedy"``) or by the graph-coloring kernel (``"gc"``); the
 sink stands in for the banks.
+
+Under the fd_feed runtime each out-link and the stager keep a uniform
+sample of (tsorig, tick) pairs (``LatReservoir``): a frag's source stamp
+and the full tick count at which the stage handled it; the runtime
+matches each stamp to the source's full publish tick
+(``feed.runtime.stage_latencies``), so a stage's latency does not wrap
+with the 32-bit stamp. An out-link keeps none unless its ``lat`` is set.
 
 ``VerifyTile`` has two backends: ``"gpu"`` (the JAX package's
 ``"tpu"``), which stages batches of signature lanes and dispatches them
@@ -30,11 +39,27 @@ completion and the held-back ack cursor, and write the same cnc diag
 slots. Plain counters (``stat_*``) stand in for the JAX package's flight
 lane. An engine error propagates out of the tile's thread; nothing
 re-verifies on the host.
+
+With ``feed=True`` the gpu backend runs as the JAX package's fd_feed
+feeder (``_feed_setup``:1354 to ``_publish_feed_batch``:2193 there): a
+stager thread drains the in-ring into the staging slots of
+``feed.slots.SlotPool`` (one GIL-releasing ``fd_verify_drain`` call a
+round) and commits a slot when it is full or the flush policy says so;
+the tile's own thread is the dispatcher, which ships READY slots to the
+engine, retires batches in order and publishes each one's passing txns
+with ``fd_frag_publish_bulk``. The dispatcher makes every torch call;
+the stager makes none. A slot returns to the pool only when its batch
+has retired, since the engine's copy from the slot's pinned arena runs
+after the dispatch returns. An engine error raises out of the
+dispatcher as on the other paths (the JAX feeder's CPU failover, its
+breaker, rungs, the fd_drain and the chaos hooks are not ported).
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
+import threading
 import time
 from dataclasses import dataclass
 from hashlib import sha256 as _sha256
@@ -78,6 +103,8 @@ from .feed.policy import (
     FLUSH_STARVED,
     AdaptiveFlush,
 )
+from .feed.runtime import LOGGER
+from .feed.slots import SlotPool
 
 # cnc diag slots (frank/fd_frank.h:20-36 ABI analog), the JAX package's.
 CNC_DIAG_IN_BACKP = 0
@@ -98,6 +125,15 @@ DEFAULT_DEADLINE_US = 25_000
 # ack about to exhaust the producer's credits, and the halt.
 FLUSH_RING = "ring"
 FLUSH_HALT = "halt"
+# The fd_feed stager's: the ring's next txn does not fit the lanes left.
+FLUSH_CAPACITY = "capacity"
+# fd_feed stager supervision: restarts before the feeder gives up, and
+# the first restart's delay, doubling a restart up to the cap (the JAX
+# package's FD_FEED_STAGER_RESTART_MAX, FD_FEED_STAGER_BACKOFF_MS and
+# _STAGER_BACKOFF_CAP_S; no jitter).
+STAGER_RESTART_MAX = 5
+STAGER_BACKOFF_S = 0.010
+STAGER_BACKOFF_CAP_S = 2.0
 
 _U64 = (1 << 64) - 1
 
@@ -118,6 +154,65 @@ def meta_sig(payload: bytes) -> int:
     """Frag meta sig: the first 8 bytes of the txn's first signature
     (byte 0 is the compact signature count)."""
     return int.from_bytes(payload[1:9], "little") if len(payload) > 8 else 0
+
+
+class LatReservoir:
+    """A uniform sample (algorithm R) of at most CAP (tsorig, tick)
+    pairs: a frag's source stamp (the low 32 bits of its publish tick)
+    and the full tick count at which a stage handled it. Samples with
+    tsorig 0 carry no stamp and are skipped. add() buffers and
+    add_many() takes a round at once."""
+
+    CAP = 16384
+    _FLUSH = 256
+
+    def __init__(self, seed: int = 0x1A7):
+        self.ts = np.zeros(self.CAP, np.uint32)
+        self.now = np.zeros(self.CAP, np.int64)
+        self.n = 0
+        self.seen = 0
+        self._rng = np.random.default_rng(seed)
+        self._buf_ts: list = []
+        self._buf_now: list = []
+
+    def add(self, tsorig: int, now: int) -> None:
+        if tsorig:
+            self._buf_ts.append(tsorig)
+            self._buf_now.append(now)
+            if len(self._buf_ts) >= self._FLUSH:
+                self._flush()
+
+    def _flush(self) -> None:
+        ts, now = self._buf_ts, self._buf_now
+        self._buf_ts, self._buf_now = [], []
+        self.add_many(np.asarray(ts, np.uint32), np.asarray(now, np.int64))
+
+    def add_many(self, ts: np.ndarray, now) -> None:
+        """Samples ts (uint32 stamps) handled at now (a tick, or one a
+        stamp)."""
+        keep = ts != 0
+        ts = ts[keep]
+        now = (np.asarray(now, np.int64)[keep] if np.ndim(now)
+               else np.full(len(ts), now, np.int64))
+        k = min(len(ts), self.CAP - self.n)
+        self.ts[self.n:self.n + k] = ts[:k]
+        self.now[self.n:self.n + k] = now[:k]
+        self.n += k
+        rest = len(ts) - k
+        if rest:
+            # Sample i of the stream replaces a random slot with
+            # probability CAP / (i + 1).
+            j = self._rng.integers(self.seen + k + 1 + np.arange(rest))
+            hit = j < self.CAP
+            self.ts[j[hit]] = ts[k:][hit]
+            self.now[j[hit]] = now[k:][hit]
+        self.seen += len(ts)
+
+    def samples(self):
+        """(stamps, ticks) of the sample, the buffered ones included."""
+        if self._buf_ts:
+            self._flush()
+        return self.ts[:self.n].copy(), self.now[:self.n].copy()
 
 
 @dataclass
@@ -162,6 +257,8 @@ class OutLink:
         self.fctl = make_fctl_for_fseqs(self.mcache.depth,
                                         reliable_fseqs or [], cr_burst=1)
         self.cr_avail = 0
+        # Latency samples of what this link publishes; None keeps none.
+        self.lat: Optional[LatReservoir] = None
 
     def housekeep(self) -> None:
         self.cr_avail = self.fctl.tx_cr_update(self.cr_avail, self.seq)
@@ -180,9 +277,11 @@ class OutLink:
             raise ValueError(f"payload of {len(payload)} bytes exceeds the "
                              f"link MTU ({self.mtu})")
         self.dcache.write(self.chunk, payload)
-        tspub = tempo.tickcount() & 0xFFFFFFFF
+        now = tempo.tickcount()
+        if self.lat is not None:
+            self.lat.add(tsorig, now)
         self.mcache.publish(self.seq, sig, self.chunk, len(payload), ctl,
-                            tsorig, tspub)
+                            tsorig, now & 0xFFFFFFFF)
         self.chunk = self.dcache.next_chunk(self.chunk, len(payload), self.mtu)
         self.seq += 1
         self.cr_avail = max(0, self.cr_avail - 1)
@@ -251,6 +350,10 @@ class Tile:
     def step(self) -> None:
         """Source tiles (no in-link) override."""
         time.sleep(50e-6)
+
+    def idle_sleep(self, idle_spins: int) -> float:
+        """Seconds to sleep after idle_spins empty polls."""
+        return idle_pause(idle_spins)
 
     # -- input -----------------------------------------------------------
 
@@ -391,8 +494,9 @@ class Tile:
             else:
                 self.on_idle()
                 idle_spins += 1
-                if idle_spins > 64:
-                    time.sleep(idle_pause(idle_spins))
+                pause = self.idle_sleep(idle_spins)
+                if pause:
+                    time.sleep(pause)
 
     def publish_backp(self, payload: bytes, sig: int, tsorig: int = 0,
                       count_diag: bool = True) -> bool:
@@ -468,6 +572,7 @@ class _InflightBatch:
     out: object          # is_ready() / np.asarray() / used_fallback
     todo: list           # [(payload or None, n_lanes, tsorig, seq_end)]
     t_dispatch: int      # tick count at dispatch
+    slot: object = None  # the fd_feed slot the batch was staged in
 
 
 class _DeviceBatch:
@@ -503,7 +608,9 @@ class VerifyTile(Tile):
     input with an idle device), or when the held-back ack cursor is
     about to exhaust the producer's credits. Parse errors, bad
     signatures and CTL_ERR frags count in the SV filter slots, HA
-    duplicates in the HA slots.
+    duplicates in the HA slots. ``feed=True`` stages through
+    ``feed_slots`` staging slots on a stager thread (the module
+    docstring); it needs the gpu backend and the native drain.
     """
 
     name = "verify"
@@ -523,9 +630,15 @@ class VerifyTile(Tile):
         native_drain: bool = True,
         verify_mode: str = "auto",
         device="cuda",
+        feed: bool = False,
+        feed_slots: int = 4,
         **kw,
     ):
         self.verify_mode = fd_engine.resolve_verify_mode(backend, verify_mode)
+        if feed and (backend != "gpu" or not native_drain
+                     or in_link is None):
+            raise ValueError("feed=True needs backend='gpu', the native "
+                             "drain and an in-link")
         if backend == "gpu" and (batch < MAX_SIG_CNT
                                  or max_msg_len < FD_TPU_MTU):
             # A txn that parses has at most MAX_SIG_CNT signatures and a
@@ -560,6 +673,10 @@ class VerifyTile(Tile):
         self.stat_inflight_stall = 0
         self.stat_rlc_fallback = 0
         self.stat_ctl_err = 0
+        # fd_feed: stager restarts, and the dispatcher's idle wall (no
+        # batch in flight, no READY slot) after its first batch.
+        self.stat_stager_restarts = 0
+        self.stat_feed_idle_ns = 0
         # Wall ns of the engine calls (copies in, launches) and of the
         # completions (read-back wait, publishes).
         self.stat_dispatch_ns = 0
@@ -576,8 +693,11 @@ class VerifyTile(Tile):
             self._verify_batch_fn = entry.fn
             self.device = entry.device
         self._nd = backend == "gpu" and native_drain and in_link is not None
+        self._feed = feed
         if self._nd:
-            self._nd_setup()
+            self._nd_setup(staging=not feed)
+        if feed:
+            self._feed_setup(feed_slots)
 
     @property
     def stat_batches(self) -> int:
@@ -591,7 +711,7 @@ class VerifyTile(Tile):
     def stat_flush(self) -> dict:
         """Batches by flush verdict."""
         out = dict.fromkeys((FLUSH_FULL, FLUSH_DEADLINE, FLUSH_STARVED,
-                             FLUSH_RING, FLUSH_HALT), 0)
+                             FLUSH_RING, FLUSH_HALT, FLUSH_CAPACITY), 0)
         for _, verdict in self.batch_log:
             out[verdict] += 1
         return out
@@ -606,12 +726,16 @@ class VerifyTile(Tile):
 
     # -- native drain ----------------------------------------------------
 
-    def _nd_setup(self) -> None:
+    def _nd_setup(self, staging: bool = True) -> None:
+        """The drain's counters and, unless the feed's slots stage, the
+        one staging buffer."""
         self._nd_lib = rings.lib()
         # {drained_ok, parse_err, overrun, oversize, parse_err_bytes,
         #  oversize_bytes, ctl_err, ctl_err_bytes}
         self._nd_counters = np.zeros(8, np.uint64)
         self._nd_prev = np.zeros(8, np.uint64)
+        if not staging:
+            return
         b, mtu = self.batch, self.max_msg_len
         self._nd_msgs = np.zeros((b, mtu), np.uint8)
         self._nd_lens = np.zeros(b, np.uint32)
@@ -646,6 +770,8 @@ class VerifyTile(Tile):
         return False
 
     def poll_inputs(self):
+        if self._feed:
+            return self._feed_poll()
         if not self._nd:
             return super().poll_inputs()
         il = self.in_link
@@ -720,10 +846,9 @@ class VerifyTile(Tile):
             arrs = tuple(a.copy() for a in arrs)
         return arrs
 
-    def _launch(self, msgs, lens, sigs, pubs):
+    def _launch(self, args):
         t0 = time.perf_counter_ns()
-        out = self._verify_batch_fn(*self._engine_args(msgs, lens, sigs,
-                                                       pubs))
+        out = self._verify_batch_fn(*args)
         if isinstance(out, torch.Tensor):
             out = _DeviceBatch(out)
         self.stat_dispatch_ns += time.perf_counter_ns() - t0
@@ -743,14 +868,314 @@ class VerifyTile(Tile):
             self._nd_lens[lanes:] = 0
             self._nd_sigs[lanes:] = 0
             self._nd_pubs[lanes:] = 0
-        out = self._launch(self._nd_msgs, self._nd_lens, self._nd_sigs,
-                           self._nd_pubs)
+        out = self._launch(self._engine_args(
+            self._nd_msgs, self._nd_lens, self._nd_sigs, self._nd_pubs))
         self._inflight.append(_InflightBatch(
             out=out, todo=self._pending, t_dispatch=tempo.tickcount()))
         self.batch_log.append((lanes, verdict))
         self._pending = []
         self._pending_lanes = 0
         self._nd_pay_fill = 0
+
+    # -- fd_feed: stager thread and slot dispatcher ------------------------
+
+    def _feed_setup(self, feed_slots: int) -> None:
+        """The staging slots (pinned when the engine is on the card) and
+        the stager's state. The stager starts on the dispatcher's first
+        poll, so a tile built and never run starts no thread."""
+        self.feed_pool = SlotPool(feed_slots, self.batch, self.max_msg_len,
+                                  pin=self.device.type == "cuda")
+        self._feed_started = False
+        self._feed_stop = threading.Event()
+        self._feed_thread: Optional[threading.Thread] = None
+        self._feed_slot = None          # the FILLING slot (the stager's)
+        self._feed_idle_mark = 0
+        self._stager_err: Optional[BaseException] = None
+        self._stager_restart_at = 0     # 0: no restart pending
+        self.stager_cpu_ns = 0
+        # Source publish -> stager drain of every staged txn.
+        self.drain_lat = LatReservoir()
+
+    def _feed_start(self) -> None:
+        self._feed_started = True
+
+        def guarded():
+            try:
+                self._stager_loop()
+            except BaseException as e:  # noqa: BLE001 - to the dispatcher
+                self._stager_err = e
+
+        self._feed_thread = threading.Thread(
+            target=guarded, name=f"{self.name}.stager", daemon=True)
+        self._feed_thread.start()
+
+    def _stager_supervise(self) -> None:
+        """Crash-only supervision of the stager (dispatcher thread): a
+        raise out of the stager loop is counted and the stager restarted
+        after a doubling backoff; staged slots (the READY queue, the
+        parked FILLING slot) and the held-back ack survive the restart.
+        Past STAGER_RESTART_MAX restarts the error is raised."""
+        err = self._stager_err
+        if err is not None:
+            self._stager_err = None
+            self.stat_stager_restarts += 1
+            n = self.stat_stager_restarts
+            if n > STAGER_RESTART_MAX:
+                raise RuntimeError(
+                    f"fd_feed stager died {n} times (> "
+                    f"{STAGER_RESTART_MAX}); giving up") from err
+            backoff_s = min(STAGER_BACKOFF_S * (1 << (n - 1)),
+                            STAGER_BACKOFF_CAP_S)
+            self._stager_restart_at = (tempo.tickcount()
+                                       + int(backoff_s * 1e9))
+            logging.getLogger(LOGGER).warning(
+                "fd_feed stager died (%r); restart %d/%d in %.1f ms", err,
+                n, STAGER_RESTART_MAX, backoff_s * 1e3)
+            return
+        if (self._stager_restart_at and not self._feed_stop.is_set()
+                and not self._feed_thread.is_alive()
+                and tempo.tickcount() >= self._stager_restart_at):
+            self._stager_restart_at = 0
+            self._feed_start()
+
+    def _stager_drain(self, slot) -> int:
+        """One fd_verify_drain round into slot at its fill cursors; the
+        HA filter on the drain's payload hashes. Returns the txns
+        staged."""
+        il = self.in_link
+        k0 = slot.n_txn
+        mtu = self.max_msg_len
+        seq = ctypes.c_uint64(il.seq)
+        n = self._nd_lib.fd_verify_drain(
+            il.mcache._mem, ctypes.addressof(il.dcache._buf),
+            ctypes.byref(seq),
+            self.batch - k0, self.batch - slot.n_lane, self.batch, mtu,
+            slot.msgs.ctypes.data + slot.n_lane * mtu,
+            slot.lens.ctypes.data + slot.n_lane * 4,
+            slot.sigs.ctypes.data + slot.n_lane * 64,
+            slot.pubs.ctypes.data + slot.n_lane * 32,
+            slot.pay.ctypes.data + slot.pay_fill,
+            slot.pay.nbytes - slot.pay_fill,
+            slot.offs.ctypes.data + k0 * 4,
+            slot.plens.ctypes.data + k0 * 4,
+            slot.psigs.ctypes.data + k0 * 8,
+            slot.tlanes.ctypes.data + k0 * 4,
+            slot.tsorigs.ctypes.data + k0 * 4,
+            slot.tspubs.ctypes.data + k0 * 4,
+            slot.hashes.ctypes.data + k0 * 8,
+            self._nd_counters.ctypes.data)
+        self._nd_account(il)
+        if n <= 0:
+            # Frags consumed and filtered: the dispatcher acks them when
+            # nothing is staged or in flight (_ack_if_idle).
+            il.seq = seq.value
+            return 0
+        now = tempo.tickcount()
+        if k0 == 0:
+            slot.t_first = now  # the deadline's anchor
+        self.drain_lat.add_many(slot.tsorigs[k0:k0 + n], now)
+        # The round's offsets are relative to its base: make them
+        # absolute, so the completion publishes every round at once.
+        slot.offs[k0:k0 + n] += slot.pay_fill
+        ha_cnt = ha_sz = 0
+        insert = self.ha_tcache.insert
+        for i, h in enumerate(slot.hashes[k0:k0 + n].tolist()):
+            if insert(h):
+                slot.ha_mask[k0 + i] = True
+                ha_cnt += 1
+                ha_sz += int(slot.plens[k0 + i])
+        if ha_cnt:
+            self.cnc.diag_add(CNC_DIAG_HA_FILT_CNT, ha_cnt)
+            self.cnc.diag_add(CNC_DIAG_HA_FILT_SZ, ha_sz)
+        last = k0 + n - 1
+        slot.pay_fill = int(slot.offs[last]) + int(slot.plens[last])
+        slot.n_lane += int(slot.tlanes[k0:k0 + n].sum())
+        slot.n_txn += n
+        slot.drain_end = seq.value
+        # The consumed cursor moves after the txns are in the slot: the
+        # quiescence check and the ack read both from other threads.
+        il.seq = seq.value
+        return n
+
+    def _stager_loop(self) -> None:
+        """Drain the in-ring into slots and commit each when it is full,
+        when the ring's next txn cannot fit, when the held-back ack is
+        about to starve the producer, or when the flush policy says so.
+        An empty round sleeps at once (20 us, then 100 us while the slot
+        holds txns whose deadline runs, backing off to 1 ms as idle
+        tiles do while it holds none): the work is a batch at a time,
+        and a spinning stager would take the GIL from the other
+        threads."""
+        pool, il = self.feed_pool, self.in_link
+        idle_spins = 0
+        t0 = time.thread_time_ns()
+        try:
+            while not self._feed_stop.is_set():
+                slot = self._feed_slot
+                if slot is None:
+                    slot = pool.acquire(0.05)  # stalls counted by the pool
+                    if slot is None:
+                        continue
+                    self._feed_slot = slot
+                seq_before = il.seq
+                n = self._stager_drain(slot)
+                if slot.n_lane >= self.batch:
+                    self._feed_commit(slot, FLUSH_FULL)
+                    idle_spins = 0
+                    continue
+                if n > 0:
+                    idle_spins = 0
+                    continue
+                if (slot.n_txn and il.seq == seq_before
+                        and self.batch - slot.n_lane < MAX_SIG_CNT
+                        and il.mcache.seq_next() > il.seq):
+                    # The ring's next txn does not fit the lanes left.
+                    self._feed_commit(slot, FLUSH_CAPACITY)
+                    idle_spins = 0
+                    continue
+                if slot.n_txn:
+                    if self._ring_starved():
+                        self._feed_commit(slot, FLUSH_RING)
+                        continue
+                    verdict = self.flush_policy.due(
+                        tempo.tickcount(), slot.n_lane, self.batch,
+                        slot.t_first, starved=True,
+                        device_idle=(not self._inflight
+                                     and pool.ready_cnt() == 0),
+                        backpressured=bool(
+                            self.out_link.fctl.in_backpressure))
+                    if verdict is not None:
+                        self._feed_commit(slot, verdict)
+                        continue
+                idle_spins += 1
+                pause = 20e-6 if idle_spins <= 8 else 100e-6
+                if not slot.n_txn:
+                    pause = max(pause, idle_pause(idle_spins + 56))
+                time.sleep(pause)
+        finally:
+            self.stager_cpu_ns += time.thread_time_ns() - t0
+
+    def _feed_commit(self, slot, verdict: str) -> None:
+        slot.flush_verdict = verdict
+        self._feed_slot = None
+        self.feed_pool.commit(slot)
+
+    def _feed_dispatch(self, slot) -> None:
+        """Ship one READY slot to the engine. The slot stays with its
+        batch until the batch retires: the engine's copy reads the
+        pinned arena after this returns, and the completion publishes
+        from the slot's sidecar."""
+        if slot.n_lane < self.batch:
+            # Lanes past the staged ones verify as pad lanes (zero len,
+            # sig and pub), not as a previous batch's leftovers.
+            slot.lens[slot.n_lane:] = 0
+            slot.sigs[slot.n_lane:] = 0
+            slot.pubs[slot.n_lane:] = 0
+        out = self._launch((slot.t_msgs, slot.t_lens, slot.t_sigs,
+                            slot.t_pubs))
+        self._inflight.append(_InflightBatch(
+            out=out, todo=[], t_dispatch=tempo.tickcount(), slot=slot))
+        self.batch_log.append((slot.n_lane, slot.flush_verdict))
+
+    def _feed_poll(self):
+        """The dispatcher's round (poll_inputs in feed mode): supervise
+        the stager, retire a batch, ship READY slots up to the in-flight
+        cap and account the device's idle wall (nothing in flight and
+        nothing READY)."""
+        if not self._feed_started:
+            self._feed_start()
+        self._stager_supervise()
+        self._complete(block=False)
+        self._ack_if_idle()
+        progressed = False
+        while len(self._inflight) < self.inflight_max:
+            slot = self.feed_pool.pop_ready()
+            if slot is None:
+                break
+            self._feed_dispatch(slot)
+            progressed = True
+        now = tempo.tickcount()
+        if (self.batch_log and not self._inflight
+                and self.feed_pool.ready_cnt() == 0):
+            if self._feed_idle_mark:
+                self.stat_feed_idle_ns += now - self._feed_idle_mark
+            self._feed_idle_mark = now
+        else:
+            self._feed_idle_mark = 0
+        return progressed, False
+
+    def idle_sleep(self, idle_spins: int) -> float:
+        """The dispatcher naps 50 us with a batch in flight (its
+        completion is near) and at least 100 us otherwise (a slot is a
+        drain round or more away), backing off as other tiles do."""
+        if not self._feed:
+            return super().idle_sleep(idle_spins)
+        if self._inflight:
+            return 50e-6
+        return max(100e-6, idle_pause(idle_spins))
+
+    def _publish_feed_batch(self, slot, statuses) -> int:
+        """The feeder's completion: fold the lanes' statuses into each
+        txn's verdict, count the failures in the SV slots and publish the
+        passing, non-HA-duplicate txns with one fd_frag_publish_bulk call
+        a credit window (spinning through backpressure, dropping the rest
+        on HALT, as publish_backp). Returns the batch's ack target."""
+        n = slot.n_txn
+        if n == 0:
+            return slot.drain_end
+        lanes = slot.tlanes[:n].astype(np.int64)
+        starts = np.zeros(n, np.int64)
+        np.cumsum(lanes[:-1], out=starts[1:])
+        bad = (np.asarray(statuses)[:slot.n_lane] != 0).astype(np.int32)
+        anybad = np.add.reduceat(bad, starts) > 0
+        ha = slot.ha_mask[:n]
+        ok = ~anybad & ~ha
+        sv = anybad & ~ha
+        sv_cnt = int(sv.sum())
+        if sv_cnt:
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, sv_cnt)
+            self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ,
+                              int(slot.plens[:n][sv].sum()))
+        n_ok = int(ok.sum())
+        if not n_ok:
+            return slot.drain_end
+        mask8 = ok.astype(np.uint8)
+        ol = self.out_link
+        seqv = ctypes.c_uint64(ol.seq)
+        chunkv = ctypes.c_uint32(ol.chunk)
+        cursor = ctypes.c_uint32(0)
+        bytes_out = np.zeros(1, np.uint64)
+        now = tempo.tickcount()
+        published = 0
+        while published < n_ok:
+            while not ol.can_publish():
+                if self.cnc.signal_query() == CNC_HALT:
+                    break
+                self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
+                time.sleep(20e-6)
+            if ol.cr_avail <= 0:
+                break
+            pub = self._nd_lib.fd_frag_publish_bulk(
+                ol.mcache._mem, ctypes.addressof(ol.dcache._buf),
+                ol.dcache.chunk_cnt, ol.mtu, ctypes.byref(seqv),
+                ctypes.byref(chunkv), slot.pay.ctypes.data,
+                slot.offs.ctypes.data, slot.plens.ctypes.data,
+                slot.psigs.ctypes.data, slot.tsorigs.ctypes.data,
+                mask8.ctypes.data, ctypes.byref(cursor), n,
+                min(ol.cr_avail, n_ok - published), now & 0xFFFFFFFF,
+                bytes_out.ctypes.data)
+            ol.seq = seqv.value
+            ol.chunk = chunkv.value
+            ol.cr_avail = max(0, ol.cr_avail - pub)
+            published += pub
+            if pub <= 0:
+                break
+        il = self.in_link
+        il.fseq.diag_add(DIAG_PUB_CNT, published)
+        il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
+        if ol.lat is not None:
+            ol.lat.add_many(slot.tsorigs[:n][ok][:published], now)
+        return slot.drain_end
 
     # -- per-frag path ---------------------------------------------------
 
@@ -819,8 +1244,8 @@ class VerifyTile(Tile):
                 self.stat_inflight_stall += 1
                 self._complete(block=True)
             pad = [(bytes(64), bytes(32), b"")] * (self.batch - len(flat))
-            out = self._launch(*_txn_batch_arrays(flat + pad,
-                                                  self.max_msg_len))
+            out = self._launch(self._engine_args(
+                *_txn_batch_arrays(flat + pad, self.max_msg_len)))
             self._inflight.append(_InflightBatch(
                 out=out, todo=todo, t_dispatch=tempo.tickcount()))
             # A batch cut because the next txn does not fit is full.
@@ -869,6 +1294,8 @@ class VerifyTile(Tile):
             self._dispatch(verdict)
 
     def on_idle(self) -> None:
+        if self._feed:
+            return  # the dispatcher's poll retired and shipped already
         if self._inflight:
             self._complete(block=False)
         self._flush_if_due(starved=True)
@@ -898,8 +1325,30 @@ class VerifyTile(Tile):
 
     def on_halt(self) -> None:
         """Dispatch what is staged and retire every batch in flight, so
-        no device work outlives the tile; after an error, neither."""
+        no device work outlives the tile; after an error, neither. In
+        feed mode the stager stops first (it owns the in-ring cursor);
+        then its FILLING slot and every READY slot are dispatched."""
+        if self._feed:
+            self._feed_stop.set()
+            if self._feed_thread is not None:
+                self._feed_thread.join(timeout=10.0)
         if self.error is not None:
+            return
+        if self._feed:
+            slot = self._feed_slot
+            if slot is not None:
+                if slot.n_txn:
+                    self._feed_commit(slot, FLUSH_HALT)
+                else:
+                    self._feed_slot = None
+                    self.feed_pool.release(slot)
+            while True:
+                slot = self.feed_pool.pop_ready()
+                if slot is None:
+                    break
+                self._feed_dispatch(slot)
+            self._complete(block=True, drain_all=True)
+            self._ack_if_idle()
             return
         if self._pending and self.backend == "gpu":
             self._dispatch(FLUSH_HALT)
@@ -919,23 +1368,42 @@ class VerifyTile(Tile):
             if self._engine_entry is not None:
                 self._engine_entry.note_service(
                     tempo.tickcount() - ib.t_dispatch)
-            off = 0
-            batch_ack = 0
-            for payload, cnt, tsorig, seq_end in ib.todo:
-                batch_ack = max(batch_ack, seq_end)
-                if payload is not None:  # None: HA-filtered when staged
-                    ok = cnt > 0 and bool((statuses[off:off + cnt] == 0).all())
-                    self._finish(payload, ok, tsorig=tsorig)
-                off += cnt
+            if ib.slot is not None:
+                batch_ack = self._publish_feed_batch(ib.slot, statuses)
+            else:
+                off = 0
+                batch_ack = 0
+                for payload, cnt, tsorig, seq_end in ib.todo:
+                    batch_ack = max(batch_ack, seq_end)
+                    if payload is not None:  # None: HA-filtered when staged
+                        ok = cnt > 0 and bool(
+                            (statuses[off:off + cnt] == 0).all())
+                        self._finish(payload, ok, tsorig=tsorig)
+                    off += cnt
             # Pop after publishing: a quiescence check reading
-            # _inflight from another thread must not see a gap.
+            # _inflight from another thread must not see a gap. A slot
+            # is released after the pop: it keeps its txns visible to
+            # the check (SlotPool.idle) until then.
             self._inflight.pop(0)
+            if ib.slot is not None:
+                self.feed_pool.release(ib.slot)
             self.stat_complete_ns += time.perf_counter_ns() - t0
             self._acked_seq = max(self._acked_seq, batch_ack)
-            if not self._pending and not self._inflight and self.in_link:
-                self._acked_seq = self.in_link.seq
+            self._ack_if_idle()
             if not drain_all:
                 return  # retire at most one a call; keep the loop hot
+
+    def _ack_if_idle(self) -> None:
+        """With nothing staged or in flight, everything consumed is
+        handled: ack up to the consumed cursor. Only the tile's own
+        thread (the dispatcher in feed mode) writes the ack."""
+        if self.in_link:
+            # The cursor is read before the checks: the stager makes
+            # staged txns visible before it moves the cursor.
+            seq = self.in_link.seq
+            if (not self._pending and not self._inflight
+                    and (not self._feed or self.feed_pool.idle())):
+                self._acked_seq = max(self._acked_seq, seq)
 
     def _finish(self, payload: bytes, ok: bool, tsorig: int = 0) -> None:
         if not ok:
@@ -999,7 +1467,8 @@ class DedupTile(Tile):
         chunkv = ctypes.c_uint32(ol.chunk)
         cursor = ctypes.c_uint32(0)
         bytes_out = np.zeros(1, np.uint64)
-        now32 = tempo.tickcount() & 0xFFFFFFFF
+        now = tempo.tickcount()
+        now32 = now & 0xFFFFFFFF
         published = 0
         while published < n_ok:
             # publish_backp's flow control (spin through backpressure,
@@ -1028,6 +1497,8 @@ class DedupTile(Tile):
                 break
         il.fseq.diag_add(DIAG_PUB_CNT, published)
         il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
+        if ol.lat is not None:
+            ol.lat.add_many(st["ts"][:n][~filt][:published], now)
 
     def on_frag(self, frag: Frag, payload: bytes) -> None:
         # A CTL_ERR frag is dropped before the tcache insert.
@@ -1235,8 +1706,8 @@ class SinkTile(Tile):
     """Terminal consumer (bank stub): counts what it receives, by bank
     (sig >> 48) in bank_hist, and, when record_digests, keeps for each
     frag the sha256 of its payload, its tsorig and the full tick count it
-    arrived at (latencies_ns reads them). t_last is the tick count of its
-    last frag."""
+    arrived at (latencies_ns and the feed's sink stage read them). t_last
+    is the tick count of its last frag."""
 
     name = "sink"
 

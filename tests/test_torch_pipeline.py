@@ -7,8 +7,10 @@ JAX package's, on the CPU.
   ``fd_frag_publish_bulk``), the per-frag path and the JAX ``DedupTile``
   forward the same frags and count the same filters, on frags with
   repeated signatures across rounds and CTL_ERR copies, two in-links.
-* ``run_pipeline(verify_backend="gpu", device="cpu", verify_batch=32)``
-  on a port ``mainnet_corpus`` with both pack schedulers: the sink gets
+* ``run_pipeline(verify_backend="gpu", device="cpu", verify_batch=32,
+  feed=False)`` (the in-process step loop; ``tests/test_torch_feed.py``
+  runs the feed) on a port ``mainnet_corpus`` with both pack
+  schedulers: the sink gets
   exactly ``expected_sink_digests`` (the port's counterpart of
   ``tests/test_replay_gate.py:80-115``), every filtered txn lands in a
   filter counter, and more than one bank gets work; the JAX
@@ -17,6 +19,10 @@ JAX package's, on the CPU.
 * The pack tile drops a txn over a bank's CU budget into the link's
   filter counter; the diag snapshot, ``latency_percentiles`` and the
   verify stats use the JAX names.
+* The gc gate (``PackTile._gate_device_waves``): an inadmissible device
+  schedule and a losing one fall back to the greedy waves, a winning
+  one publishes, in the port and in the JAX tile alike; the waves the
+  port publishes and its block_device / sched_fallback counters agree.
 """
 
 from collections import Counter
@@ -184,7 +190,7 @@ def port_runs(corpus, tmp_path_factory):
         backend.reset_counts()
         res = ppipe.run_pipeline(topo, corpus.payloads, verify_batch=32,
                                  record_digests=True, pack_scheduler=sched,
-                                 device="cpu", timeout_s=120.0)
+                                 device="cpu", timeout_s=120.0, feed=False)
         out[sched] = (res, dict(backend.plain_calls))
     return out
 
@@ -192,6 +198,7 @@ def port_runs(corpus, tmp_path_factory):
 @pytest.mark.parametrize("sched", ["greedy", "gc"])
 def test_port_replay_gate(corpus, port_runs, sched):
     res, plain = port_runs[sched]
+    assert not res.feed and res.feed_fallback_reason is None
     assert res.recv_cnt == corpus.n_unique_ok, res.diag
     assert Counter(res.sink_digests) == pcorpus.expected_sink_digests(corpus)
     assert _filt_total(res.diag) == _not_ok(corpus), res.diag
@@ -280,3 +287,92 @@ def test_snapshot_names_every_tile_and_link(tmp_path):
     assert set(snap) == ({f"tile.{t}" for t in ppipe.TILES}
                          | {f"link.{k}" for k in ppipe.LINKS})
     assert all(v == 0 for row in snap.values() for v in row.values())
+
+
+# -- the gc gate -------------------------------------------------------------
+
+
+def _gate_txns(pkg):
+    """Six txns: a and b write X (a conflict), e reads X, c, d and f
+    are disjoint; scores 9, 8, 1, 7, 6, 5 (rewards / 100 CUs)."""
+    mk = pkg.PackTxn
+    acct = {k: bytes([k]) * 32 for k in range(1, 8)}
+    spec = [(900, {1}, set()), (800, {1}, set()), (100, {2}, set()),
+            (700, {3}, set()), (600, {4}, {1}), (500, {5}, set())]
+    return [mk(txn_id=i, rewards=r, est_cus=100,
+               writable=frozenset(acct[k] for k in w),
+               readonly=frozenset(acct[k] for k in ro))
+            for i, (r, w, ro) in enumerate(spec)]
+
+
+def _schedules(t):
+    """Device schedules by verdict, as (waves, leftover)."""
+    return {
+        # a and b write X in one wave.
+        "inadmissible": ([[t[0], t[1], t[2]], [t[3], t[4], t[5]]], []),
+        # Admissible, but only the lowest score: rewards per CU lose.
+        "losing": ([[t[2]]], [t[0], t[1], t[3], t[4], t[5]]),
+        # Every txn in other waves than greedy's: rewards per CU equal.
+        "winning": ([[t[0], t[2], t[3]], [t[1], t[5]], [t[4]]], []),
+    }
+
+
+class _Counts:
+    def __init__(self):
+        self.c = Counter()
+
+    def inc(self, name, n=1):
+        self.c[name] += n
+
+    def record(self, *a, **kw):
+        pass
+
+
+def _ids(waves):
+    return [[t.txn_id for t in w] for w in waves]
+
+
+@pytest.mark.parametrize("verdict", ["inadmissible", "losing", "winning"])
+def test_gc_gate_port_and_jax(tmp_path, monkeypatch, verdict):
+    from types import SimpleNamespace
+
+    from firedancer_tpu.ballet import pack as jpack
+    from firedancer_tpu_torch.ballet import pack as ppack
+
+    ptx, jtx = _gate_txns(ppack), _gate_txns(jpack)
+    pw, pl = _schedules(ptx)[verdict]
+    jw, jl = _schedules(jtx)[verdict]
+    fake = SimpleNamespace(fl=_Counts(), flightrec=_Counts())
+    j_waves, j_left = jtiles.PackTile._gate_device_waves(fake, jtx, jw, jl)
+
+    topo = ppipe.build_topology(str(tmp_path / "g.wksp"), depth=DEPTH)
+    w = prings.Workspace.join(topo.wksp_path)
+    pack = ptiles.PackTile(w, "pack.cnc", ppipe.in_link(w, "dedup_pack"),
+                           ppipe.out_link(w, "pack_sink"), bank_cnt=2,
+                           scheduler="gc", device="cpu")
+    monkeypatch.setattr(ptiles, "schedule_block",
+                        lambda txns, **kw: (pw, pl))
+    pack._gc_pending = list(ptx)
+    pack._payloads = {t.txn_id: bytes([65 + t.txn_id]) * 40 for t in ptx}
+    pack._drain_gc()
+    p_waves, p_left = pack._gate_device_waves(ptx, pw, pl)
+    mc = prings.MCache(w, "pack_sink.mcache")
+    published = [mc.poll(seq)[1].sig & 0xFFFFFFFFFFFF
+                 for seq in range(mc.seq_next())]
+    w.leave()
+
+    accepted = verdict == "winning"
+    assert _ids(p_waves) == _ids(j_waves)
+    assert [t.txn_id for t in p_left] == [t.txn_id for t in j_left]
+    assert (_ids(p_waves) == _ids(pw)) == accepted
+    # The first gate call is the one _drain_gc made; it published the
+    # waves the gate chose, wave by wave, and kept the leftover pending.
+    assert published == [i for wave in _ids(p_waves) for i in wave]
+    assert [t.txn_id for t in pack._gc_pending] == [t.txn_id
+                                                    for t in p_left]
+    assert (pack.stat_block_device, pack.stat_sched_fallback) == (
+        (2, 0) if accepted else (0, 2))
+    assert pack.stat_wave_device == (2 * len(pw) if accepted else 0)
+    assert (fake.fl.c["pack_block_device"],
+            fake.fl.c["pack_sched_fallback"]) == ((1, 0) if accepted
+                                                  else (0, 1))

@@ -248,6 +248,15 @@ def test_port_imports_no_jax(path):
                 f"{path.name} imports {name}")
 
 
+def test_port_scan_reaches_the_feed_modules():
+    """The scan covers the fd_feed runtime, its worker process (which
+    runs as its own interpreter) and the staging slots."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"firedancer_tpu_torch/disco/worker.py",
+            "firedancer_tpu_torch/disco/feed/runtime.py",
+            "firedancer_tpu_torch/disco/feed/slots.py"} <= names
+
+
 def test_acquire_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="capability 9"):
