@@ -19,9 +19,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
    scalar kernels' whole functions, and the shared Barrett sc_reduce512
    and mul256 alone in a probe built against sha512.cuh.
 3. Kernel parity: each of the fifteen kernels of the verify and signing
-   paths (pack_schedule in phase 8) against its plain PyTorch
-   version on the same CUDA tensors, at the main paths' shapes; they must
-   agree exactly (canonical bytes, limbs and masks). The bucket fill and
+   paths (pack_schedule in phase 8, dedup_filter in phase 9) against
+   its plain PyTorch version on the same CUDA tensors, at the main
+   paths' shapes; they must agree exactly (canonical bytes, limbs and
+   masks). The fd_drain's dedup_filter (dedup_filter.cu, two passes over
+   a hash table of lane indices) runs at the start of phase 9, on the
+   meta sigs of its corpus: against dedup_filter_ref, novel mask, new
+   bank A and count equal and both input banks unchanged, on the
+   corpus's tags, on the same with in-batch repeats, invalid lanes, the
+   all-ones tag before and after an invalid lane, forced bucket
+   collisions and random banks planted, and with an invalid prefix, at
+   n = 1, 31, 33, 8191 and 65536 and windows of 2^10, 2^17 and 2^20
+   bits, then over 16 chained rounds of 8192 lanes with a rotation
+   halfway; timed by CUDA events and the trace at 8192 lanes and 2^17
+   bits and at 65536 and 2^20, with ptxas's registers, stack and spills. The bucket fill and
    aggregation split a lane's slots and a column's buckets over a warp:
    their plain versions are the split mirrors (*_split_ref), and each
    launch must also give the same points as the JAX-order version
@@ -150,7 +161,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    tensors, lane for lane, on six blocks (the mainnet mix of phase 7's
    dirty corpus and the fixtures as the pack tile sees them,
    conflict-heavy, disjoint, capped by CUs, equal scores, padding) at
-   n = 1, 31, 1024, 2048 and 4096, with C = 64 colors, H = 4096 buckets,
+   n = 1, 31, 1024, 2048, 4096 and 8192 (the N of phase 9's drain_pack
+   colorings), with C = 64 colors, H = 4096 buckets,
    35 + 35 bucket columns; times at 1024 and 2048 (CUDA events, the
    trace's device time, the chain's floor from the same block's step
    skeleton, the plain version). (b) run_pipeline(feed=False) on the
@@ -171,20 +183,42 @@ Phases, each fatal on failure (exit code != 0, no result line):
 9. Feed: run_pipeline through the fd_feed runtime (its default), with
    phase 8 (b)'s checks and res.feed true, no fallback reason, no CPU
    failover, stager restart or leaked slot, and the process layout
-   asked for. (a) The bench's replay gate (bench.py:287-315):
+   asked for. Every run arms the fd_drain, the feed's default, unless
+   it says drain="off": each batch filtered once (dedup_filter launches
+   = drain batches = batches), the novel and maybe publishes equal to
+   verify's publishes and to the dedup tile's skipped and made probes,
+   no false novel; a drain-off run filters nothing. Every run takes the
+   verify tile's automatic rotation quota, drain.rot_quota of the run's
+   TCache, ring and batch. (a) The bench's replay gate (bench.py:287-315):
    mainnet_corpus(n=100000, seed=1234) built and signed on the card,
    rings 4,096 deep in a 2^27-byte workspace, B = 8192, a dedup window
    of 2^18, inflight 4, a 200 ms deadline, direct, greedy, the source
-   and dedup/pack/sink in worker processes. (b) Phase 8 (b)'s traffic
-   in four runs: greedy direct in process, greedy direct in worker
-   processes, gc direct (in process: the gc pack always is), greedy
-   rlc (fused) in worker processes. Each run also prints the six stage
+   and dedup/pack/sink in worker processes, four times in turns: drain
+   on, off, off, on (the A/B, with its txn/s and latencies side by
+   side). (r) The window's rotation at run_pipeline's default TCache of
+   4,096 (quota 4,096 + 4,096 + 8,192): 48,000 of (a)'s valid txns, each
+   followed by a copy with a corrupted signature, and a repeat every 50
+   valid txns, alternately near (the HA filter drops it) and 2,129 to
+   3,481 valid txns back (past the HA TCache, inside the dedup
+   TCache), each txn repeated once at most, in worker processes: the
+   HA and dedup filters must drop exactly the planted repeats, the
+   window rotate at least once, and no claim be false. (b) Phase 8
+   (b)'s traffic in five runs: greedy direct in
+   process, greedy direct in worker processes, gc direct (in process:
+   the gc pack always is), greedy rlc (fused) in worker processes, and
+   gc direct with drain_pack: each verify batch colored by
+   pack_schedule at N = 8192 behind its filter, the colors carried in
+   the ctl word to the pack's device blocks (pack_schedule launches =
+   verify batches + the blocks the pack colors itself, no block falling
+   back to the greedy waves; the first and the last batch's colors,
+   pad rows included, held lane for lane to pack_schedule_ref on the
+   same CUDA tensors). Each run also prints the six stage
    latencies from the replay's publish, slot stalls, the device's idle
    estimate, CPU seconds by process (the main process, and the workers'
    after they exit) and the host's cores. The kernel rows' launches in
-   the JSON line are those of the phase-9 run that runs them: (a) for
-   the direct rows, the gc run for pack_schedule, the rlc run for the
-   RLC rows.
+   the JSON line are those of the phase-9 run that runs them: (a)'s
+   first drain-on run for the direct rows and dedup_filter, the gc run
+   for pack_schedule, the rlc run for the RLC rows.
 10. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
@@ -254,7 +288,7 @@ TILE_WKSP = 1 << 28
 # The pack phase: pack_schedule's blocks (lanes) and the tile's
 # parameters (ops/pack_gc.py: C colors, H buckets, the CU cap a wave;
 # ballet/txn.py MAX_ACCT_CNT bucket columns each of writes and reads).
-PACK_N = (1, 31, 1024, 2048, 4096)
+PACK_N = (1, 31, 1024, 2048, 4096, B)
 PACK_TIMED = (1024, 2048)
 PACK_C, PACK_H, PACK_CAP, PACK_A = 64, 4096, 12_000_000, 35
 # The pipeline runs' dedup window (the verify tile's HA filter and the
@@ -270,6 +304,21 @@ FEED_SEED = 1234
 FEED_DEPTH = 4096
 FEED_WKSP = 1 << 27
 FEED_OPTS = {"inflight": 4, "max_wait_us": 200_000, "verify_mode": "direct"}
+# The fd_drain pre-filter (row 17): its parity shapes (lanes, window
+# bits) and the chained rounds at B with one rotation halfway. Phase 9's
+# runs take the verify tile's automatic rotation quota (drain.rot_quota
+# of their TCache, ring and batch), which no run of PIPE_TCACHE reaches.
+DRAIN_N = (1, 31, 33, B - 1, 65536)
+DRAIN_H = (1 << 10, 1 << 17, 1 << 20)
+DRAIN_ROUNDS = 16
+ALL_ONES = (1 << 64) - 1
+# Phase 9 (r): run_pipeline's default TCache (4096), whose automatic
+# quota (4096 + FEED_DEPTH + B = 16,384 confirmed-novel publishes) the
+# run's ROT_UNIQUE valid txns pass twice or so; a repeat every
+# ROT_EVERY valid txns.
+ROT_TCACHE = 4096
+ROT_UNIQUE = 48_000
+ROT_EVERY = 50
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -698,6 +747,22 @@ def trace_busy(prof) -> tuple[float, int]:
             busy += dev_us / 1e6
             ops += ev.count
     return busy, ops
+
+
+def trace_kernels_ms(prof, prefix: str) -> tuple[float, int]:
+    """Total ms of device time and launches of the kernels whose name
+    starts with prefix in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_type", None) == DeviceType.CUDA
+                and ev.key.removeprefix("void ").startswith(prefix)):
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            total, count = total + dev_us / 1e3, count + ev.count
+    return total, count
 
 
 def profile_batches(torch, fn, batch_ms: float, n: int = 3) -> None:
@@ -2168,6 +2233,203 @@ def pack_kernel_phase(torch, record, blocks) -> None:
            "firedancer_tpu_torch/ops/csrc/pack_gc.cu")
 
 
+def bound_dedup_filter(n: int, h_bits: int):
+    """The pre-filter's least time. Bytes: each lane reads 8 B of tags
+    and 1 B of valid and writes 1 B of verdict; banks A and B are read
+    once and the new bank A written once (h_bits / 8 B each); the count
+    is 4 B. Operations: the bucket mix, about 10 integer operations a
+    lane, far below the bytes' time."""
+    return _bound(10 * n, 10 * n + 3 * h_bits // 8 + 4)
+
+
+def _np_bucket(tags: np.ndarray, h_bits: int) -> np.ndarray:
+    """The filter's bucket of each uint64 tag, on the host (the mix of
+    ops/dedup_filter.py in uint64 with 32-bit masks)."""
+    m = np.uint64(0xFFFFFFFF)
+    t = np.asarray(tags, np.uint64)
+    hi, lo = t >> np.uint64(32), t & m
+    with np.errstate(over="ignore"):
+        mix = lo ^ ((hi * np.uint64(0x9E3779B1)) & m)
+        mix = ((mix ^ (mix >> np.uint64(15))) * np.uint64(0x85EBCA77)) & m
+    mix ^= mix >> np.uint64(13)
+    return (mix & np.uint64(h_bits - 1)).astype(np.int64)
+
+
+def colliders(h_bits: int) -> dict:
+    """bucket -> the least small tag (hi = 0) in it, over 8 h_bits tags."""
+    cand = np.arange(1, 1 + 8 * h_bits, dtype=np.uint64)
+    uniq, first = np.unique(_np_bucket(cand, h_bits), return_index=True)
+    return dict(zip(uniq.tolist(), cand[first].tolist()))
+
+
+def drain_cases(tags_all: np.ndarray, n: int, h_bits: int, rng,
+                by_bucket: dict):
+    """The pre-filter's planted inputs at n lanes and an h_bits window:
+    [(label, tags uint64, valid, bits_a, bits_b int32)]. "corpus": n meta
+    sigs of the feed corpus (its duplicates among them), empty banks;
+    "planted": the same with in-batch repeats, 5 % invalid lanes in the
+    middle, the all-ones tag before and after an invalid lane, pairs of
+    distinct tags forced into one bucket (by_bucket: colliders(h_bits))
+    and random sparse banks; "invalid prefix": the first quarter invalid, an
+    all-ones tag after it."""
+    w = h_bits // 32
+    zeros = np.zeros(w, np.int32)
+    base = tags_all[:n].copy()
+    out = [("corpus", base, np.ones(n, np.bool_), zeros, zeros)]
+    tags = base.copy()
+    valid = np.ones(n, np.bool_)
+    q = n // 8
+    tags[n // 2:n // 2 + q] = tags[:q]
+    valid[rng.rand(n) < 0.05] = False
+    ones = [i for i in (0, n // 3, n // 3 + 2, n - 1) if i < n]
+    tags[ones] = np.uint64(ALL_ONES)
+    if n > 4:
+        valid[n // 3 + 1] = False
+        valid[ones] = True
+    # Colliders: small tags (hi = 0) in the bucket of a chosen lane.
+    pairs = [i for i in np.linspace(1, n - 2, 8).astype(int).tolist()
+             if 0 < i < n - 1 and i not in ones and i + 1 not in ones]
+    for i in pairs:
+        c = by_bucket.get(int(_np_bucket(tags[i:i + 1], h_bits)[0]))
+        if c is not None and c != int(tags[i]):
+            tags[i + 1] = np.uint64(c)
+    sparse = [(rng.randint(0, 2 ** 32, w, dtype=np.uint64)
+               & rng.randint(0, 2 ** 32, w, dtype=np.uint64)
+               & rng.randint(0, 2 ** 32, w, dtype=np.uint64))
+              .astype(np.uint32).view(np.int32) for _ in range(2)]
+    out.append(("planted", tags, valid, *sparse))
+    prefix = np.ones(n, np.bool_)
+    prefix[:n // 4] = False
+    pt = base.copy()
+    pt[n - 1] = np.uint64(ALL_ONES)
+    out.append(("invalid prefix", pt, prefix, zeros, zeros))
+    return out
+
+
+def drain_kernel_phase(torch, record, tags_all: np.ndarray,
+                       batch: int = B, device="cuda") -> None:
+    """Phase 3's dedup_filter (run once phase 9's corpus exists, whose
+    meta sigs it filters): dedup_filter.cu against dedup_filter_ref on
+    the same CUDA tensors, equal outputs and inputs left as they were, at
+    every (n, h_bits) of DRAIN_N x DRAIN_H on drain_cases, then
+    DRAIN_ROUNDS chained rounds of B lanes with a rotation halfway (the
+    corpus's tags in order, wrapping to its start); its
+    time by CUDA events and by the trace at B, 2^17 bits and at 65536,
+    2^20; ptxas's registers, stack and spills."""
+    from firedancer_tpu_torch.ops import build
+    from firedancer_tpu_torch.ops import dedup_filter as df
+    from firedancer_tpu_torch.ops.dedup_filter_cuda import dedup_filter_cuda
+
+    dev = torch.device(device)
+    rng = np.random.RandomState(17)
+
+    def up(*arrs):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrs)
+
+    def lanes_up(tags, valid):
+        return up(*df.split_tags(tags), valid)
+
+    err = 0.0
+
+    def check(label, args):
+        nonlocal err
+        keep = (args[3].clone(), args[4].clone())
+        got = dedup_filter_cuda(*args)
+        want = df.dedup_filter_ref(*args)
+        for part, g, w in zip(("novel", "bank A", "count"), got, want):
+            e = max_abs_err(torch, g, w)
+            err = max(err, e)
+            if e != 0 or g.dtype != w.dtype:
+                fail(f"dedup_filter {label}: {part} differs from the plain "
+                     f"version (max_abs_err {e})")
+        if not (torch.equal(keep[0], args[3])
+                and torch.equal(keep[1], args[4])):
+            fail(f"dedup_filter {label}: the kernel wrote an input bank")
+        return got
+
+    by_bucket = {h: colliders(h) for h in DRAIN_H}
+    checked = []
+    for n in DRAIN_N:
+        for h_bits in DRAIN_H:
+            for label, tags, valid, *banks in drain_cases(
+                    tags_all, n, h_bits, rng, by_bucket[h_bits]):
+                got = check(f"{label}, n = {n}, h_bits = {h_bits}",
+                            lanes_up(tags, valid) + up(*banks))
+                checked.append((n, h_bits, label, int(got[2])))
+    say("dedup_filter: equal to the plain version (novel, bank A, count; "
+        "inputs unchanged) on " + "; ".join(
+            f"{lab} n={n} h={h.bit_length() - 1} novel {c}"
+            for n, h, lab, c in checked if n in DRAIN_N[-2:]) + f"; and "
+        f"at n = {', '.join(map(str, DRAIN_N))} x h_bits 2^10, 2^17, 2^20")
+    # Chained rounds: bank A carried on the device, both chains rotating
+    # after round DRAIN_ROUNDS / 2.
+    k_banks = r_banks = df.empty_banks(df.DEFAULT_FILTER_BITS, dev)
+    counts = []
+    for r in range(DRAIN_ROUNDS):
+        # Past the corpus's end the rounds wrap to its start: tags the
+        # window saw rounds before, across the rotation.
+        tags = tags_all[np.arange(r * batch, (r + 1) * batch)
+                        % len(tags_all)]
+        lanes = lanes_up(tags, rng.rand(batch) > 0.03)
+        got = dedup_filter_cuda(*lanes, *k_banks)
+        want = df.dedup_filter_ref(*lanes, *r_banks)
+        e = max_abs_err(torch, got, want)
+        err = max(err, e)
+        if e != 0:
+            fail(f"dedup_filter: chained round {r} differs from the plain "
+                 f"version (max_abs_err {e})")
+        counts.append(int(got[2]))
+        k_banks, r_banks = (got[1], k_banks[1]), (want[1], r_banks[1])
+        if r == DRAIN_ROUNDS // 2 - 1:
+            k_banks = (torch.zeros_like(got[1]), got[1])
+            r_banks = (torch.zeros_like(want[1]), want[1])
+    say(f"dedup_filter: {DRAIN_ROUNDS} chained rounds of {batch} lanes (bank A "
+        f"carried, a rotation after round {DRAIN_ROUNDS // 2}) equal; novel "
+        f"counts {counts}")
+    say(f"dedup_filter resources: {ptxas_line(build, 'dedup_filter')}")
+    timed = {}
+    for n, h_bits in ((batch, df.DEFAULT_FILTER_BITS),
+                      (DRAIN_N[-1], DRAIN_H[-1])):
+        _, tags, valid, *banks = drain_cases(tags_all, n, h_bits, rng,
+                                             by_bucket[h_bits])[0]
+        args = lanes_up(tags, valid) + up(*banks)
+
+        def kern():
+            return dedup_filter_cuda(*args)
+
+        ms = time_ms(torch, kern, REPS)
+        dev_ms = traced_call_ms(torch, kern)
+        plain_ms = time_ms(torch, lambda: df.dedup_filter_ref(*args), 2)
+        bound = bound_dedup_filter(n, h_bits)
+        timed[n] = (ms, plain_ms, bound)
+        say(f"  dedup_filter n = {n}, h_bits = {h_bits}: {ms:.4f} ms (CUDA "
+            f"events), device {dev_ms} (trace: both passes and the two "
+            f"memsets a call), plain {plain_ms:.3f} ms, bound "
+            f"{bound[0]:.5f} ms ({bound[1]})")
+    ms, plain_ms, bound = timed[batch]
+    record("dedup_filter", err, ms, plain_ms, bound,
+           "firedancer_tpu/ops/dedup_filter.py:84",
+           "firedancer_tpu_torch/ops/csrc/dedup_filter.cu")
+
+
+def traced_call_ms(torch, fn, reps: int = REPS) -> str:
+    """The device time a call of fn keeps the card busy, by the trace
+    (every device operation of reps warm calls over reps), as text."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy, ops = trace_busy(prof)
+    if busy <= 0:
+        return "not measured"
+    return f"{busy * 1e3 / reps:.4f} ms in {ops / reps:.1f} operations"
+
+
 def pipe_traffic(fixtures, fx_ok, corpus) -> dict:
     """A pipeline run's payloads (the fixtures, then the corpus) and what
     the sink must get: the digest multiset of the valid txns, the count
@@ -2202,13 +2464,112 @@ def pipe_traffic(fixtures, fx_ok, corpus) -> dict:
             "fx_over_cap": fx_over_cap, "fx_bad_budget": fx_bad_budget}
 
 
+def rotation_traffic(bench, tcache_depth: int = ROT_TCACHE,
+                     n_unique: int = ROT_UNIQUE, every: int = ROT_EVERY,
+                     seed: int = 9) -> dict:
+    """Phase 9 (r)'s payloads: n_unique valid txns of the bench corpus in
+    order, each followed by a copy with one byte of its first signature
+    changed (verify drops it; it fills the verify tile's HA TCache, which
+    takes every payload, while the dedup tile's takes valid txns only).
+    After every every-th valid txn comes a repeat of an earlier one,
+    alternately near (1 to tcache_depth / 4 valid txns back: the HA
+    filter drops it) and far (0.52 to 0.85 tcache_depth back: more than
+    tcache_depth payloads back, so the HA TCache has evicted it, yet
+    fewer valid txns back than the dedup TCache holds, so the dedup
+    tile drops it, and the window must not claim it novel). The expected
+    filter counts go with it ("ha", "dedup") and min_rot 1."""
+    import hashlib
+
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+
+    rng = np.random.RandomState(seed)
+    ok = [p for p, e in zip(bench.payloads, bench.expected)
+          if e == dcorpus.OK][:n_unique]
+    near_hi = tcache_depth // 4
+    far_lo, far_hi = int(0.52 * tcache_depth), int(0.85 * tcache_depth)
+    payloads, n_near, n_far, used = [], 0, 0, set()
+    for i, p in enumerate(ok):
+        bad = bytearray(p)
+        bad[1 + i % 64] ^= 1 + i % 255
+        payloads += [p, bytes(bad)]
+        if not i or i % every:
+            continue
+        near = (i // every) % 2 == 1
+        if not near and i < far_hi:
+            continue
+        # Each txn is repeated once at most: a second repeat would
+        # measure its distance from the first.
+        back = 0
+        while not back or i - back in used:
+            back = (rng.randint(1, min(near_hi, i) + 1) if near
+                    else rng.randint(far_lo, far_hi + 1))
+        used.add(i - back)
+        n_near += near
+        n_far += not near
+        payloads.append(ok[i - back])
+    return {"payloads": payloads,
+            "want": collections.Counter(hashlib.sha256(p).digest()
+                                        for p in ok),
+            "not_ok": len(ok) + n_near + n_far, "fx_over_cap": 0,
+            "fx_bad_budget": 0, "ha": n_near, "dedup": n_far, "min_rot": 1}
+
+
+def drain_pack_capture(tiles):
+    """Wrap the verify tile's drain_pack_step so that each call keeps the
+    coloring's CUDA inputs and its colors (clones on the same stream) for
+    a check against the plain version after the run. Returns (kept,
+    restore)."""
+    real = tiles.drain_pack_step
+    kept = []
+
+    def step(*args, **kw):
+        out = real(*args, **kw)
+        kept.append((tuple(a.clone() for a in args[5:9]), dict(kw),
+                     out[3].clone()))
+        return out
+
+    tiles.drain_pack_step = step
+    return kept, lambda: setattr(tiles, "drain_pack_step", real)
+
+
+def drain_pack_parity(torch, kept) -> None:
+    """The first and the last verify batch that drain_pack colored (N =
+    B rows, a pad row for each lane past the batch's txns and for a txn
+    the pack cannot take), lane for lane against pack_schedule_ref on
+    the same CUDA tensors."""
+    from firedancer_tpu_torch.ops import pack_gc
+
+    if not kept:
+        fail("drain_pack: no coloring was captured")
+    notes = []
+    for k in sorted({0, len(kept) - 1}):
+        (w, r, scores, cus), kw, got = kept[k]
+        want = pack_gc.pack_schedule_ref(w, r, scores, cus, **kw)
+        if not torch.equal(got, want):
+            fail(f"drain_pack batch {k}: {int((got != want).sum())} of "
+                 f"{got.numel()} colors differ from the plain version")
+        pads = int(((w < 0).all(dim=1) & (r < 0).all(dim=1)).sum())
+        notes.append(f"batch {k}: N = {got.numel()}, {pads} lock-free rows, "
+                     f"{int(got.max()) + 1} colors")
+    say("drain_pack: pack_schedule equal to the plain version lane for lane "
+        f"({'; '.join(notes)}; {len(kept)} batches colored)")
+
+
 def pipeline_run(torch, card, label, traffic, sched, batch, *,
-                 depth=TILE_DEPTH, wksp_sz=TILE_WKSP,
+                 depth=TILE_DEPTH, wksp_sz=TILE_WKSP, tcache_depth=PIPE_TCACHE,
                  verify_opts=None, feed=False, feed_proc=None):
     """One run_pipeline on the card, replay -> verify -> dedup -> pack
     (sched) -> sink, with feed=False the in-process step loop (phase 8
     (b)), with feed=True the fd_feed runtime (phase 9); exact
-    accounting, launches and numbers. Returns (result, launches)."""
+    accounting, launches and numbers. A feed run arms the fd_drain
+    unless verify_opts say drain="off": every batch filtered once (one
+    dedup_filter launch each), the novel and maybe publishes equal to
+    verify's publishes and to the dedup tile's skipped and made probes,
+    no false novel; with drain_pack, pack_schedule also launches once a
+    verify batch and no block falls back to the greedy waves. Where the
+    traffic gives "ha", "dedup" and "min_rot", the HA and dedup filters
+    must drop exactly those counts and the window rotate at least
+    min_rot times. Returns (result, launches)."""
     from firedancer_tpu_torch.disco import pipeline
     from firedancer_tpu_torch.ops import backend
     from torch.profiler import ProfilerActivity, profile
@@ -2225,7 +2586,7 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             res = pipeline.run_pipeline(
                 topo, payloads, verify_backend="gpu", verify_batch=batch,
-                tcache_depth=PIPE_TCACHE, record_digests=True,
+                tcache_depth=tcache_depth, record_digests=True,
                 pack_scheduler=sched, timeout_s=600.0, verify_opts=vopts,
                 feed=feed, feed_proc=feed_proc)
             torch.cuda.synchronize()
@@ -2255,10 +2616,50 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     if len(res.bank_hist) < 2:
         problems.append(f"one bank only: {res.bank_hist}")
     want_l = tile_want_launches(mode, vs["batches"], vs["rlc_fallback"])
+    drained = feed and vopts.get("drain", "auto") != "off"
+    ds = res.dedup_stats
+    claims = vs["drain_novel"] + vs["drain_maybe"]
+    if drained:
+        want_l["dedup_filter"] = vs["drain_batches"]
+        if vs["drain_batches"] != vs["batches"]:
+            problems.append(f"drain batches {vs['drain_batches']} != "
+                            f"batches {vs['batches']}")
+        if claims != d["link.verify_dedup"]["tx_seq"]:
+            problems.append(f"drain novel + maybe {claims} != verify's "
+                            f"publishes {d['link.verify_dedup']['tx_seq']}")
+        if ds["probe_skip"] + ds["probed"] != claims:
+            problems.append(f"dedup probes {ds} != drain novel + maybe "
+                            f"{claims}")
+        if ds["false_novel"]:
+            problems.append(f"false novel {ds['false_novel']}")
+        if "min_rot" in traffic:
+            ha = d["tile.verify"]["ha_filt_cnt"]
+            dd = d["link.verify_dedup"]["filt_cnt"]
+            if (ha, dd) != (traffic["ha"], traffic["dedup"]):
+                problems.append(f"HA and dedup drops {ha}, {dd} != the "
+                                f"repeats planted for each {traffic['ha']}, "
+                                f"{traffic['dedup']}")
+            if vs["drain_rot"] < traffic["min_rot"]:
+                problems.append(f"rotations {vs['drain_rot']} < "
+                                f"{traffic['min_rot']}")
+    elif vs["drain_batches"] or claims or ds["probe_skip"]:
+        problems.append(f"drain off, yet {vs['drain_batches']} batches "
+                        f"filtered, {claims} verdicts, dedup {ds}")
     if sched == "gc":
         if ps["block_device"] + ps["sched_fallback"] != ps["blocks"]:
             problems.append(f"gate accounting: {ps}")
-        want_l["pack_schedule"] = ps["blocks"]
+        # The pack colors the blocks it gathers itself; with drain_pack
+        # each verify batch is colored behind its filter.
+        want_l["pack_schedule"] = ps["blocks"] - ps["dev_blocks"]
+        if vopts.get("drain_pack"):
+            want_l["pack_schedule"] += vs["drain_batches"]
+            if not ps["dev_blocks"]:
+                problems.append("drain_pack: no device block reached the "
+                                "pack")
+            if ps["sched_fallback"]:
+                problems.append(f"drain_pack: {ps['sched_fallback']} blocks "
+                                "fell back to the greedy waves")
+    want_l = {k: v for k, v in want_l.items() if v}
     if launches != want_l:
         problems.append(f"launches {launches} != {want_l}")
     if plain:
@@ -2302,6 +2703,14 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
         f"batches, fill {vs['fill_ratio']}, RLC fallbacks "
         f"{vs['rlc_fallback']}; {share} [{card}]")
     if feed:
+        dev_ms, dev_n = trace_kernels_ms(prof, "dedup_")
+        say(f"{label}: drain {vopts.get('drain', 'auto')}: "
+            f"{vs['drain_batches']} batches filtered, novel "
+            f"{vs['drain_novel']}, maybe {vs['drain_maybe']}, rotations "
+            f"{vs['drain_rot']}; dedup probes skipped {ds['probe_skip']}, "
+            f"made {ds['probed']}, false novel {ds['false_novel']}; the "
+            f"filter's kernels {dev_ms:.3f} ms of device time in {dev_n} "
+            "launches (trace)")
         stages = "; ".join(
             f"{k} n {v['n']} p50 {v['p50_ns'] / 1e6:.3f} p99 "
             f"{v['p99_ns'] / 1e6:.3f}" for k, v in res.stage_latency.items())
@@ -2314,7 +2723,8 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
             f"{vs['cpu_failover']}, slots leaked {vs['slots_leaked']} "
             f"[{card}]")
     if sched == "gc":
-        say(f"{label}: {ps['blocks']} blocks, {ps['block_device']} device "
+        say(f"{label}: {ps['blocks']} blocks ({ps['dev_blocks']} colored "
+            f"by the drain), {ps['block_device']} device "
             f"schedules accepted ({ps['wave_device']} waves), "
             f"{ps['sched_fallback']} fallbacks to the greedy waves; "
             f"schedule_block {ps['gc_s']:.3f} s, gate {ps['gate_s']:.3f} s "
@@ -2337,17 +2747,27 @@ def pack_phase(torch, card, record, fixtures, fx_ok, corpus,
         pipeline_run(torch, card, f"pipeline {sched}", traffic, sched, batch)
 
 
-def feed_phase(torch, card, rows, fixtures, fx_ok, corpus,
+def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
                batch: int = B) -> None:
-    """Phase 9: run_pipeline through the fd_feed runtime on the card. (a)
-    the bench's replay shape (bench.py:287-315): FEED_N txns of
-    mainnet_corpus(seed=1234) built and signed on the card, rings of
-    FEED_DEPTH, inflight 4, a 200 ms deadline, greedy, worker processes;
-    (b) phase 8's traffic in four runs: in process and in worker
-    processes (greedy, direct), gc (in process, forced) and rlc (worker
-    processes). Each kernel row's launches are those of the run of this
-    phase that runs it."""
+    """Phase 9: run_pipeline through the fd_feed runtime on the card, the
+    fd_drain armed (its default) unless a run says otherwise. First
+    phase 3's dedup_filter parity on the meta sigs of (a)'s corpus
+    (drain_kernel_phase). (a) the bench's replay shape (bench.py:287-315):
+    FEED_N txns of mainnet_corpus(seed=1234) built and signed on the
+    card, rings of FEED_DEPTH, inflight 4, a 200 ms deadline, greedy,
+    worker processes, four times in turns: drain on, off, off, on (the
+    A/B); (r) rotation_traffic at run_pipeline's default TCache, whose
+    automatic quota the run passes; (b) phase 8's traffic in five runs: in
+    process and in worker processes (greedy, direct), gc (in process,
+    forced), rlc (worker processes), and gc with drain_pack (each verify
+    batch colored; the first and the last coloring held to the plain
+    version). Each kernel row's launches are those of the first run of
+    this phase that runs it."""
     from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco import tiles
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.disco.tiles import meta_sig
+    from firedancer_tpu_torch.ops.dedup_filter import DEFAULT_FILTER_BITS
 
     t0 = time.perf_counter()
     bench = dcorpus.mainnet_corpus(n=FEED_N, seed=FEED_SEED)
@@ -2356,24 +2776,56 @@ def feed_phase(torch, card, rows, fixtures, fx_ok, corpus,
     say(f"feed corpus: mainnet_corpus(n={FEED_N}, seed={FEED_SEED}): "
         f"{len(bench.payloads)} payloads {dict(classes)}, built and signed "
         f"on the card in {time.perf_counter() - t0:.1f} s")
-    _, launches = pipeline_run(
-        torch, card, "feed (a) bench replay, worker processes",
-        pipe_traffic([], [], bench), "greedy", batch, depth=FEED_DEPTH,
-        wksp_sz=FEED_WKSP, verify_opts=FEED_OPTS, feed=True,
-        feed_proc=True)
-    for name in DIRECT_KERNELS:
-        rows[name]["launches"] = launches[name]
+    drain_kernel_phase(torch, record, np.array(
+        [meta_sig(p) for p in bench.payloads], np.uint64), batch)
+    # The filter warmed on both engines before the runs, so their counts
+    # hold their own launches only.
+    for mode in ("direct", "rlc"):
+        registry().acquire(EngineSpec(mode, batch))[0].warm_drain(
+            DEFAULT_FILTER_BITS)
+    runs = {}
+    for arm in ("auto", "off", "off", "auto"):
+        opts = dict(FEED_OPTS, drain=arm)
+        res, launches = pipeline_run(
+            torch, card, f"feed (a) bench replay, worker processes, drain "
+            f"{arm}", pipe_traffic([], [], bench), "greedy", batch,
+            depth=FEED_DEPTH, wksp_sz=FEED_WKSP, verify_opts=opts, feed=True,
+            feed_proc=True)
+        runs.setdefault(arm, []).append((res, launches))
+    for name in DIRECT_KERNELS + ("dedup_filter",):
+        rows[name]["launches"] = runs["auto"][0][1][name]
+    n_txn = len(bench.payloads)
+    say("feed (a) drain A/B, in turns on, off, off, on: " + "; ".join(
+        f"{arm} " + ", ".join(
+            f"{n_txn / r.span_s:.0f} txn/s p50 {r.latency_p50_ns / 1e6:.1f} "
+            f"p99 {r.latency_p99_ns / 1e6:.1f} ms" for r, _ in rs)
+        for arm, rs in runs.items()) + f" [{card}]")
+    pipeline_run(torch, card, f"feed (r) window rotation, TCache "
+                 f"{ROT_TCACHE}, worker processes", rotation_traffic(bench),
+                 "greedy", batch, depth=FEED_DEPTH, wksp_sz=FEED_WKSP,
+                 tcache_depth=ROT_TCACHE, verify_opts=dict(FEED_OPTS),
+                 feed=True, feed_proc=True)
     traffic = pipe_traffic(fixtures, fx_ok, corpus)
-    for label, sched, mode, proc in (
-            ("feed (b) in process", "greedy", "direct", False),
-            ("feed (b) worker processes", "greedy", "direct", True),
-            ("feed (b) gc, in process (forced)", "gc", "direct", True),
-            ("feed (b) rlc, worker processes", "greedy", "rlc", True)):
-        _, launches = pipeline_run(
-            torch, card, label, traffic, sched, batch,
-            verify_opts={"inflight": 2, "verify_mode": mode}, feed=True,
-            feed_proc=proc)
-        if sched == "gc":
+    for label, sched, mode, proc, pack in (
+            ("feed (b) in process", "greedy", "direct", False, False),
+            ("feed (b) worker processes", "greedy", "direct", True, False),
+            ("feed (b) gc, in process (forced)", "gc", "direct", True, False),
+            ("feed (b) rlc, worker processes", "greedy", "rlc", True, False),
+            ("feed (b) gc, drain_pack, in process (forced)", "gc", "direct",
+             True, True)):
+        kept, restore = drain_pack_capture(tiles) if pack else (None, None)
+        try:
+            _, launches = pipeline_run(
+                torch, card, label, traffic, sched, batch,
+                verify_opts={"inflight": 2, "verify_mode": mode,
+                             "drain_pack": pack},
+                feed=True, feed_proc=proc)
+        finally:
+            if pack:
+                restore()
+        if pack:
+            drain_pack_parity(torch, kept)
+        if sched == "gc" and not pack:
             rows["pack_schedule"]["launches"] = launches["pack_schedule"]
         if mode == "rlc":
             for name in ("frontend_rlc", *RLC_PASS):
@@ -2798,7 +3250,7 @@ def main() -> int:
     signing_path(torch, gpu, rows, card)
     traffic = tile_phase(torch, card)
     pack_phase(torch, card, record, *traffic)
-    feed_phase(torch, card, rows, *traffic)
+    feed_phase(torch, card, rows, record, *traffic)
 
     # 10. Output.
     say(card_line())

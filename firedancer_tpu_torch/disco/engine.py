@@ -1,6 +1,7 @@
 """Verify engines, the counterpart of ``firedancer_tpu/disco/engine.py``
-(``EngineSpec``:83, ``EngineEntry``:273, ``EngineRegistry.acquire``:519,
-the RLC build at :618-634).
+(``EngineSpec``:83, ``drain_mode``:162, ``EngineEntry``:273,
+``EngineRegistry.acquire``:519, the RLC build at :618-634, the drain
+filter's warm at :677-687).
 
 ``registry().acquire(EngineSpec(mode, 8192))`` is the entry a user calls:
 it resolves the device (the Hopper card unless the caller passes
@@ -12,7 +13,10 @@ the baseline ``u7`` by default; front half ``spec.frontend``, "fused" by
 default or "staged", the JAX package's ``FD_FRONTEND_IMPL`` auto and xla
 on its accelerator, ``current_frontend``:77) whose per-lane fallback, the
 direct path, runs only when the batch equation fails.
-``np.asarray(result)`` gives the statuses.
+``np.asarray(result)`` gives the statuses. The fd_drain pre-filter
+rides a verify tile's dispatches on the entry's device when the tile's
+``drain`` mode (``resolve_drain_mode``) arms it: ``warm_drain`` runs it
+once at the batch's shape and ``snapshot()["drain"]`` says so.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..msm_plan import parse_plan
 from ..ops import backend, build
+from ..ops.dedup_filter import dedup_filter, empty_banks
 from ..ops.frontend_cuda import DEFAULT_FRONTEND, FRONTENDS
 from ..ops.verify import verify_batch
 from ..ops.verify_rlc import make_async_verifier
@@ -99,6 +104,21 @@ def resolve_verify_mode(backend: str, verify_mode: str) -> str:
     return verify_mode
 
 
+# The fd_drain modes: "auto" arms the dedup pre-filter behind every batch
+# of the fd_feed runtime's verify tile, "off" disables it (the A/B hatch).
+DRAIN_MODES = ("auto", "off")
+
+
+def resolve_drain_mode(mode: str) -> str:
+    """A verify tile's fd_drain mode, the counterpart of the JAX
+    ``drain_mode``:162 (its FD_DRAIN flag; the port takes the mode as an
+    argument). Raises on anything but "auto" and "off": a mistyped mode
+    must not pass for a measurement of either arm."""
+    if mode not in DRAIN_MODES:
+        raise ValueError(f"unknown drain mode {mode!r} (want auto|off)")
+    return mode
+
+
 class EngineEntry:
     """One prepared verify engine on one device. ``fn`` is the verify
     callable; the dispatch counters and the service EMA are written by
@@ -115,6 +135,7 @@ class EngineEntry:
         self.lanes = 0
         self.service_ns = 0        # EMA of dispatch -> complete wall ns
         self._warmed: set = set()  # max_msg_len values warmed
+        self._drain_warmed: set = set()  # h_bits values warmed
         self._lock = threading.Lock()
         self._verify = verify_batch
         if spec.mode == "rlc":
@@ -173,11 +194,35 @@ class EngineEntry:
             self.err = None
             return True
 
+    @property
+    def drain(self) -> bool:
+        """The drain's pre-filter rides this engine (warm_drain ran)."""
+        return bool(self._drain_warmed)
+
+    def warm_drain(self, h_bits: int) -> bool:
+        """Run the drain's pre-filter once at the batch's shape and an
+        h_bits window on the engine's device (building the kernels first
+        on CUDA), so the first filter of a run loads nothing. Returns
+        True when this call warmed."""
+        with self._lock:
+            if h_bits in self._drain_warmed:
+                return False
+            b = self.spec.batch
+            if self.device.type == "cuda":
+                build.build_all()
+            zeros = torch.zeros(b, dtype=torch.int32, device=self.device)
+            valid = torch.zeros(b, dtype=torch.bool, device=self.device)
+            _, _, cnt = dedup_filter(zeros, zeros, valid,
+                                     *empty_banks(h_bits, self.device))
+            int(cnt)
+            self._drain_warmed.add(h_bits)
+            return True
+
     def snapshot(self) -> dict:
         return {"key": self.key, "mode": self.spec.mode,
                 "batch": self.spec.batch, "msm": self.spec.msm,
                 "frontend": self.spec.frontend,
-                "device": str(self.device),
+                "device": str(self.device), "drain": self.drain,
                 "state": self.state, "warm_s": round(self.warm_s, 3),
                 "dispatches": self.dispatches, "lanes": self.lanes,
                 "service_ns": self.service_ns, "err": self.err}

@@ -16,8 +16,11 @@ changes is where the stages run:
 The workers share the workspace file and never touch CUDA. With
 ``feed_proc=False`` (and always with the gc pack, whose pending block
 the quiescence check must read) every tile runs on a thread of the main
-process. The fd_drain pre-filter beside each batch is not ported: the
-feed runs as the JAX one does with ``FD_DRAIN=off``.
+process. The verify tile arms the fd_drain unless ``verify_opts`` say
+``drain="off"`` (``tiles.VerifyTile``; the JAX package's default
+``FD_DRAIN=auto``): the pre-filter runs beside each batch on the card
+and its verdicts reach the dedup tile in the ctl word, in process or in
+the downstream worker alike.
 
 Quiescence is read from shared memory: the source exhausted, the feeder
 drained (the stager's cursor caught up, no staged slot, nothing in
@@ -112,7 +115,8 @@ def stage_latency(pub_ticks, samples: Dict[str, tuple]) -> Dict[str, dict]:
 def verify_tile_stats(v) -> Dict[str, object]:
     """The verify_stats record of one VerifyTile, the fields of the JAX
     record that the port's stat_* counters fill (its chaos, breaker,
-    rung, shard, drain and reconfig fields have no counterpart yet).
+    rung, shard and reconfig fields have no counterpart yet; the drain's
+    are the JAX :124-130).
     ``cpu_failover`` is always 0: the port's feeder never verifies on
     the host."""
     fill = v.stat_lanes / float(v.stat_batches * v.batch) \
@@ -136,6 +140,10 @@ def verify_tile_stats(v) -> Dict[str, object]:
         "cpu_failover": 0,
         "slots_leaked": v.feed_pool.outstanding() if feed else 0,
         "ctl_err_drop": v.stat_ctl_err,
+        "drain_batches": v.stat_drain_batches,
+        "drain_novel": v.stat_drain_novel,
+        "drain_maybe": v.stat_drain_maybe,
+        "drain_rot": v.stat_drain_rot,
     }
 
 
@@ -350,6 +358,7 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                         **{k: down[k]["cpu_s"]
                            for k in ("dedup", "pack", "sink")}}
             pack_stats = down["pack"]["stats"]
+            dedup_stats = down["dedup"]["stats"]
         else:
             replay_rec, sink_rec = replay, sink
             samples = {"replay_pub": replay.out_link.lat.samples(),
@@ -358,6 +367,7 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
             tile_cpu = {t.name: t.cpu_ns / 1e9
                         for t in (replay, dedup, pack, sink)}
             pack_stats = pl._pack_stats(pack)
+            dedup_stats = pl._dedup_stats(dedup)
         samples["verify_drain"] = verify.drain_lat.samples()
         samples["verify_pub"] = verify.out_link.lat.samples()
         samples["sink"] = (sink_rec.recv_tsorig, sink_rec.recv_ticks)
@@ -381,6 +391,7 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                           else None),
             tile_cpu_s=tile_cpu,
             pack_stats=pack_stats,
+            dedup_stats=dedup_stats,
             feed=True,
             stage_latency=stage_latency(
                 pub_ticks, {k: samples[k] for k in STAGES}),

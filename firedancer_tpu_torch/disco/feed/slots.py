@@ -14,7 +14,10 @@ so on). With ``pin=True`` they are pinned host memory, so the engine's
 host-to-device copy runs asynchronously and reads the arena after the
 dispatch returns. A slot therefore goes back to the pool only when its
 batch has retired: the device finished with it and the completion
-published from it.
+published from it. The fd_drain's inputs are pinned arenas of their own
+(``t_tag_hi``, ``t_tag_lo``, ``t_valid``: the meta sigs' halves and the
+staged-txn mask, with numpy views ``tag_hi`` and so on), written at
+dispatch and copied up under the same rule.
 
 The ``SlotPool`` is the handoff between the stager thread (it fills
 slots) and the dispatcher thread (it ships READY slots to the device):
@@ -53,7 +56,8 @@ class Slot:
 
     __slots__ = (
         "idx", "state", "t_msgs", "t_lens", "t_sigs", "t_pubs", "msgs",
-        "lens", "sigs", "pubs", "pay", "offs", "plens", "psigs", "tlanes",
+        "lens", "sigs", "pubs", "t_tag_hi", "t_tag_lo", "t_valid",
+        "tag_hi", "tag_lo", "valid", "pay", "offs", "plens", "psigs", "tlanes",
         "tsorigs", "tspubs", "hashes", "ha_mask", "n_txn", "n_lane",
         "pay_fill", "t_first", "drain_end", "flush_verdict",
     )
@@ -72,6 +76,14 @@ class Slot:
         self.lens = self.t_lens.numpy()
         self.sigs = self.t_sigs.numpy()
         self.pubs = self.t_pubs.numpy()
+        # The drain's filter inputs, one lane a txn (int32 bit patterns
+        # of the meta sig's halves).
+        self.t_tag_hi = _arena((batch,), torch.int32, pin)
+        self.t_tag_lo = _arena((batch,), torch.int32, pin)
+        self.t_valid = _arena((batch,), torch.bool, pin)
+        self.tag_hi = self.t_tag_hi.numpy()
+        self.tag_lo = self.t_tag_lo.numpy()
+        self.valid = self.t_valid.numpy()
         self.pay = np.zeros(batch * _MTU, np.uint8)
         # Per-txn sidecars at txn index, accumulated across drain rounds
         # (offs made absolute into pay as rounds land).

@@ -211,10 +211,13 @@ class PipelineResult:
     verify_stats: List[Dict[str, object]] = field(default_factory=list)
     # sha256 of every payload the sink received (record_digests).
     sink_digests: Optional[List[bytes]] = None
-    # The port's own records: thread CPU seconds by tile, and the pack
-    # tile's counters (scheduler, blocks, the gc gate, CU-cap drops).
+    # The port's own records: thread CPU seconds by tile, the pack
+    # tile's counters (scheduler, blocks, the gc gate, CU-cap drops) and
+    # the dedup tile's fd_drain counters (probe_skip, probed,
+    # false_novel; the JAX tile's fl_drain_* lane counters).
     tile_cpu_s: Dict[str, float] = field(default_factory=dict)
     pack_stats: Dict[str, object] = field(default_factory=dict)
+    dedup_stats: Dict[str, int] = field(default_factory=dict)
     # True when the fd_feed runtime ran; otherwise why it could not
     # serve the topology (None when the caller passed feed=False).
     feed: bool = False
@@ -232,6 +235,7 @@ def _pack_stats(pack: PackTile) -> Dict[str, object]:
     return {
         "scheduler": pack.scheduler,
         "blocks": pack.stat_block_device + pack.stat_sched_fallback,
+        "dev_blocks": pack.stat_dev_blocks,
         "block_device": pack.stat_block_device,
         "wave_device": pack.stat_wave_device,
         "sched_fallback": pack.stat_sched_fallback,
@@ -239,6 +243,12 @@ def _pack_stats(pack: PackTile) -> Dict[str, object]:
         "gc_s": pack.stat_gc_ns / 1e9,
         "gate_s": pack.stat_gate_ns / 1e9,
     }
+
+
+def _dedup_stats(dedup: DedupTile) -> Dict[str, int]:
+    return {"probe_skip": dedup.stat_drain_probe_skip,
+            "probed": dedup.stat_drain_probed,
+            "false_novel": dedup.stat_drain_false_novel}
 
 
 def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
@@ -277,6 +287,7 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
         sink_digests=list(sink.digests) if record_digests else None,
         tile_cpu_s={t.name: t.cpu_ns / 1e9 for t in tiles},
         pack_stats=_pack_stats(pack),
+        dedup_stats=_dedup_stats(dedup),
     )
     p = latency_percentiles(lat)
     res.latency_p50_ns, res.latency_p99_ns = p["p50_ns"], p["p99_ns"]

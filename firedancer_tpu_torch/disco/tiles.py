@@ -47,7 +47,7 @@ stager thread drains the in-ring into the staging slots of
 round) and commits a slot when it is full or the flush policy says so;
 the tile's own thread is the dispatcher, which ships READY slots to the
 engine, retires batches in order and publishes each one's passing txns
-with ``fd_frag_publish_bulk``. The dispatcher makes every torch call;
+with ``fd_frag_publish_bulk_ctl``. The dispatcher makes every torch call;
 the stager makes none. A slot returns to the pool only when its batch
 has retired, since the engine's copy from the slot's pinned arena runs
 after the dispatch returns. An engine error raises out of the
@@ -73,7 +73,15 @@ from ..ballet.ed25519 import oracle
 from ..ballet.pack import CuEstimator, Pack, PackTxn, validate_schedule
 from ..ballet.txn import MAX_ACCT_CNT, MAX_SIG_CNT, TxnParseError, parse_txn
 from ..ops import backend
-from ..ops.pack_gc import CU_CAP_DEFAULT, MAX_COLORS_DEFAULT, schedule_block
+from ..ops.dedup_filter import DEFAULT_FILTER_BITS, dedup_filter, split_tags
+from ..ops.pack_gc import (
+    CU_CAP_DEFAULT,
+    H_BITS_DEFAULT,
+    MAX_COLORS_DEFAULT,
+    PackTxnPad,
+    build_arrays,
+    schedule_block,
+)
 from ..tango import rings, tempo
 from ..tango.fctl import make_fctl_for_fseqs
 from ..tango.rings import (
@@ -96,7 +104,19 @@ from ..tango.rings import (
 from ..tango.tcache import TCache
 from ..utils.rng import Rng
 from . import engine as fd_engine
-from .drain import device_beats_greedy, greedy_waves
+from .drain import (
+    CTL_BLOCK_MASK,
+    CTL_NOVEL,
+    MAX_CTL_COLORS,
+    DrainWindow,
+    ctl_block,
+    ctl_color,
+    device_beats_greedy,
+    drain_pack_step,
+    encode_ctl,
+    greedy_waves,
+    rot_quota,
+)
 from .feed.policy import (
     FLUSH_DEADLINE,
     FLUSH_FULL,
@@ -573,6 +593,12 @@ class _InflightBatch:
     todo: list           # [(payload or None, n_lanes, tsorig, seq_end)]
     t_dispatch: int      # tick count at dispatch
     slot: object = None  # the fd_feed slot the batch was staged in
+    drain: object = None  # the batch's _DrainBatch (fd_drain armed)
+
+    def is_ready(self) -> bool:
+        """The statuses and, with the drain, its verdicts are done."""
+        return self.out.is_ready() and (self.drain is None
+                                        or self.drain.is_ready())
 
 
 class _DeviceBatch:
@@ -596,6 +622,25 @@ class _DeviceBatch:
         return out.astype(dtype) if dtype is not None else out
 
 
+class _DrainBatch:
+    """The fd_drain's outputs for one batch: the novel mask, the pack
+    colors (drain_pack) or None, the device block id, and a CUDA event
+    recorded after the drain's launches, which follow the batch's verify
+    launches on the stream (a CPU batch is ready when returned)."""
+
+    def __init__(self, novel: torch.Tensor, colors, block: int):
+        self.novel = novel
+        self.colors = colors
+        self.block = block
+        self._ev = None
+        if novel.device.type == "cuda":
+            self._ev = torch.cuda.Event()
+            self._ev.record(torch.cuda.current_stream(novel.device))
+
+    def is_ready(self) -> bool:
+        return self._ev is None or self._ev.query()
+
+
 class VerifyTile(Tile):
     """Sigverify: parse each txn in the tile, drop HA duplicates, verify
     its signatures, publish the verified txns (the verify tile of
@@ -610,7 +655,15 @@ class VerifyTile(Tile):
     signatures and CTL_ERR frags count in the SV filter slots, HA
     duplicates in the HA slots. ``feed=True`` stages through
     ``feed_slots`` staging slots on a stager thread (the module
-    docstring); it needs the gpu backend and the native drain.
+    docstring); it needs the gpu backend and the native drain. In feed
+    mode ``drain`` ("auto" or "off", ``engine.resolve_drain_mode``) arms
+    the fd_drain with a window of ``drain_filter_bits`` bits, rotated
+    every ``drain.rot_quota`` confirmed-novel publishes for a dedup
+    TCache of ``tcache_depth`` (the runners give both tiles one depth),
+    and ``drain_pack`` colors each batch for the gc pack (the JAX flags
+    FD_DRAIN, FD_DRAIN_FILTER_BITS, FD_DRAIN_PACK and their defaults;
+    the JAX FD_DRAIN_ROT_QUOTA has no counterpart, since the quota
+    follows from the depths the tile is given).
     """
 
     name = "verify"
@@ -632,9 +685,13 @@ class VerifyTile(Tile):
         device="cuda",
         feed: bool = False,
         feed_slots: int = 4,
+        drain: str = "auto",
+        drain_filter_bits: int = DEFAULT_FILTER_BITS,
+        drain_pack: bool = False,
         **kw,
     ):
         self.verify_mode = fd_engine.resolve_verify_mode(backend, verify_mode)
+        self.drain_mode = fd_engine.resolve_drain_mode(drain)
         if feed and (backend != "gpu" or not native_drain
                      or in_link is None):
             raise ValueError("feed=True needs backend='gpu', the native "
@@ -681,6 +738,15 @@ class VerifyTile(Tile):
         # completions (read-back wait, publishes).
         self.stat_dispatch_ns = 0
         self.stat_complete_ns = 0
+        # fd_drain: batches filtered, claimed-novel and maybe publishes,
+        # window rotations.
+        self.stat_drain_batches = 0
+        self.stat_drain_novel = 0
+        self.stat_drain_maybe = 0
+        self.stat_drain_rot = 0
+        self._drain: Optional[DrainWindow] = None
+        self._drain_pack = False
+        self._drain_block = 0
         self._engine_entry = None
         self._verify_batch_fn = None
         self.device = None
@@ -698,6 +764,7 @@ class VerifyTile(Tile):
             self._nd_setup(staging=not feed)
         if feed:
             self._feed_setup(feed_slots)
+            self._drain_setup(drain_filter_bits, drain_pack)
 
     @property
     def stat_batches(self) -> int:
@@ -896,6 +963,72 @@ class VerifyTile(Tile):
         # Source publish -> stager drain of every staged txn.
         self.drain_lat = LatReservoir()
 
+    def _drain_setup(self, h_bits: int, pack: bool) -> None:
+        """Arm the fd_drain (feed mode, an out-link, drain "auto"): the
+        window on the engine's device and the pre-filter warmed there at
+        the batch's shape. The ring library's ctl publisher is required
+        (Tile.__init__ ran rings.require_drain)."""
+        if self.drain_mode == "off" or self.out_link is None:
+            return
+        # The proof's quota for a dedup TCache as deep as this tile's
+        # (the runners give both tiles one tcache_depth). The JAX tile
+        # assumes 4096 whatever the depth (tiles.py:1453-1459).
+        quota = rot_quota(self.ha_tcache.depth, self.out_link.mcache.depth,
+                          self.batch)
+        self._drain = DrainWindow(h_bits, quota, self.device)
+        self._engine_entry.warm_drain(h_bits)
+        self._drain_pack = bool(pack)
+        if pack:
+            self._drain_est = CuEstimator()
+
+    def _drain_pack_arrays(self, slot):
+        """The coloring's arrays for a slot's txns, a pad row for each
+        lane past them and for a txn that does not parse or has a
+        malformed compute-budget instruction (lock-free, zero score: it
+        colors freely and the pack ignores its color)."""
+        txns: list = [PackTxnPad] * self.batch
+        for t in range(slot.n_txn):
+            off, ln = int(slot.offs[t]), int(slot.plens[t])
+            pt = pack_txn(slot.pay[off:off + ln].tobytes(), t,
+                          self._drain_est)
+            if pt is not None:
+                txns[t] = pt
+        return build_arrays(txns, max_w=MAX_ACCT_CNT, max_r=MAX_ACCT_CNT)
+
+    def _drain_dispatch(self, slot) -> _DrainBatch:
+        """Launch the drain for a slot right behind its verify launches,
+        on the same stream: the meta sigs' halves and the staged-txn mask
+        go up from the slot's pinned arenas (the slot is held until the
+        batch retires), the filter (and with drain_pack the coloring)
+        runs, and the window adopts the new bank A at once, so the next
+        batch filters against this one's inserts with no sync. An error
+        propagates."""
+        n = slot.n_txn
+        slot.tag_hi[:], slot.tag_lo[:] = split_tags(slot.psigs)
+        slot.valid[:n] = True
+        slot.valid[n:] = False
+        dev = self.device
+        tags_hi, tags_lo, valid = (t.to(dev, non_blocking=True) for t in (
+            slot.t_tag_hi, slot.t_tag_lo, slot.t_valid))
+        bits_a, bits_b = self._drain.banks()
+        colors = None
+        block = 0
+        if self._drain_pack:
+            arrs = (torch.from_numpy(a).to(dev)
+                    for a in self._drain_pack_arrays(slot))
+            novel, bits_new, _, colors = drain_pack_step(
+                tags_hi, tags_lo, valid, bits_a, bits_b, *arrs,
+                n_colors=min(MAX_COLORS_DEFAULT, MAX_CTL_COLORS),
+                h_bits=H_BITS_DEFAULT, cu_cap=CU_CAP_DEFAULT)
+            block = self._drain_block
+            self._drain_block = (block + 1) % (CTL_BLOCK_MASK + 1)
+        else:
+            novel, bits_new, _ = dedup_filter(tags_hi, tags_lo, valid,
+                                              bits_a, bits_b)
+        self._drain.commit(bits_new)
+        self.stat_drain_batches += 1
+        return _DrainBatch(novel, colors, block)
+
     def _feed_start(self) -> None:
         self._feed_started = True
 
@@ -1073,8 +1206,12 @@ class VerifyTile(Tile):
             slot.pubs[slot.n_lane:] = 0
         out = self._launch((slot.t_msgs, slot.t_lens, slot.t_sigs,
                             slot.t_pubs))
+        drain = None
+        if self._drain is not None and slot.n_txn:
+            drain = self._drain_dispatch(slot)
         self._inflight.append(_InflightBatch(
-            out=out, todo=[], t_dispatch=tempo.tickcount(), slot=slot))
+            out=out, todo=[], t_dispatch=tempo.tickcount(), slot=slot,
+            drain=drain))
         self.batch_log.append((slot.n_lane, slot.flush_verdict))
 
     def _feed_poll(self):
@@ -1114,12 +1251,16 @@ class VerifyTile(Tile):
             return 50e-6
         return max(100e-6, idle_pause(idle_spins))
 
-    def _publish_feed_batch(self, slot, statuses) -> int:
+    def _publish_feed_batch(self, slot, statuses, drain=None) -> int:
         """The feeder's completion: fold the lanes' statuses into each
         txn's verdict, count the failures in the SV slots and publish the
-        passing, non-HA-duplicate txns with one fd_frag_publish_bulk call
-        a credit window (spinning through backpressure, dropping the rest
-        on HALT, as publish_backp). Returns the batch's ack target."""
+        passing, non-HA-duplicate txns with one fd_frag_publish_bulk_ctl
+        call a credit window (spinning through backpressure, dropping the
+        rest on HALT, as publish_backp), each ctl word SOM|EOM and, with
+        the batch's drain outputs, the txn's verdict, color and block;
+        the novel and maybe publishes are counted over the cursor range
+        each call examined, and they drive the window's rotation (the JAX
+        tiles.py:2236-2331). Returns the batch's ack target."""
         n = slot.n_txn
         if n == 0:
             return slot.drain_end
@@ -1139,6 +1280,13 @@ class VerifyTile(Tile):
         n_ok = int(ok.sum())
         if not n_ok:
             return slot.drain_end
+        novel = None
+        ctls = np.full(n, CTL_SOM_EOM, np.uint16)
+        if drain is not None:
+            novel = drain.novel.cpu().numpy()[:n]
+            colors = (None if drain.colors is None
+                      else drain.colors.cpu().numpy()[:n])
+            ctls = encode_ctl(CTL_SOM_EOM, novel, colors, drain.block)
         mask8 = ok.astype(np.uint8)
         ol = self.out_link
         seqv = ctypes.c_uint64(ol.seq)
@@ -1146,7 +1294,7 @@ class VerifyTile(Tile):
         cursor = ctypes.c_uint32(0)
         bytes_out = np.zeros(1, np.uint64)
         now = tempo.tickcount()
-        published = 0
+        published = novel_pub = maybe_pub = 0
         while published < n_ok:
             while not ol.can_publish():
                 if self.cnc.signal_query() == CNC_HALT:
@@ -1155,21 +1303,34 @@ class VerifyTile(Tile):
                 time.sleep(20e-6)
             if ol.cr_avail <= 0:
                 break
-            pub = self._nd_lib.fd_frag_publish_bulk(
+            cur0 = cursor.value
+            pub = self._nd_lib.fd_frag_publish_bulk_ctl(
                 ol.mcache._mem, ctypes.addressof(ol.dcache._buf),
                 ol.dcache.chunk_cnt, ol.mtu, ctypes.byref(seqv),
                 ctypes.byref(chunkv), slot.pay.ctypes.data,
                 slot.offs.ctypes.data, slot.plens.ctypes.data,
                 slot.psigs.ctypes.data, slot.tsorigs.ctypes.data,
-                mask8.ctypes.data, ctypes.byref(cursor), n,
-                min(ol.cr_avail, n_ok - published), now & 0xFFFFFFFF,
+                ctls.ctypes.data, mask8.ctypes.data, ctypes.byref(cursor),
+                n, min(ol.cr_avail, n_ok - published), now & 0xFFFFFFFF,
                 bytes_out.ctypes.data)
             ol.seq = seqv.value
             ol.chunk = chunkv.value
             ol.cr_avail = max(0, ol.cr_avail - pub)
             published += pub
+            if novel is not None:
+                # Only the selected lanes of [cur0, cursor) went out: the
+                # rotation quota counts publishes.
+                w = slice(cur0, cursor.value)
+                novel_pub += int((novel[w] & ok[w]).sum())
+                maybe_pub += int((~novel[w] & ok[w]).sum())
             if pub <= 0:
                 break
+        if novel is not None:
+            self.stat_drain_novel += novel_pub
+            self.stat_drain_maybe += maybe_pub
+            self._drain.note_published(novel_pub)
+            if self._drain.maybe_rotate():
+                self.stat_drain_rot += 1
         il = self.in_link
         il.fseq.diag_add(DIAG_PUB_CNT, published)
         il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
@@ -1359,7 +1520,7 @@ class VerifyTile(Tile):
         verified txns. An engine error propagates."""
         while self._inflight:
             ib = self._inflight[0]
-            if not block and not ib.out.is_ready():
+            if not block and not ib.is_ready():
                 return
             t0 = time.perf_counter_ns()
             statuses = np.asarray(ib.out)
@@ -1369,7 +1530,8 @@ class VerifyTile(Tile):
                 self._engine_entry.note_service(
                     tempo.tickcount() - ib.t_dispatch)
             if ib.slot is not None:
-                batch_ack = self._publish_feed_batch(ib.slot, statuses)
+                batch_ack = self._publish_feed_batch(ib.slot, statuses,
+                                                     ib.drain)
             else:
                 off = 0
                 batch_ack = 0
@@ -1420,11 +1582,16 @@ class DedupTile(Tile):
     (in_links), as the reference's dedup does (fd_dedup.h:57-80).
 
     With bulk (the main path) a drained round is filtered at once
-    (``_dedup_round``): CTL_ERR frags are dropped before the tcache, the
-    membership test is ``TCache.insert_batch``, the filter counters are
-    the round's sums and the surviving frags go out through one
-    ``fd_frag_publish_bulk`` call a credit window. Without bulk each frag
-    goes through ``on_frag``, the oracle the bulk path is held to."""
+    (``_dedup_round``, the JAX :3165-3221): CTL_ERR frags are dropped
+    before the tcache, the membership test is ``TCache.insert_batch``
+    with the fd_drain's CTL_NOVEL claims as its ``novel`` lanes, the
+    filter counters are the round's sums and the surviving frags go out
+    through one ``fd_frag_publish_bulk_ctl`` call a credit window, their
+    ctl words forwarded without CTL_NOVEL (the pack's color and block
+    pass on). Without bulk each frag goes through ``on_frag``, the oracle
+    the bulk path is held to. The drain's counters: probes skipped for a
+    claim, probes made, and claims the map contradicted (the tripwire:
+    0 while the filter's contract holds)."""
 
     name = "dedup"
 
@@ -1435,6 +1602,9 @@ class DedupTile(Tile):
                          in_links=in_links, **kw)
         self.tcache = TCache(tcache_depth)
         self.bulk = bulk
+        self.stat_drain_probe_skip = 0
+        self.stat_drain_probed = 0
+        self.stat_drain_false_novel = 0
 
     def on_round(self, il: InLink, st: dict, n: int) -> None:
         if self.bulk and self.out_link is not None:
@@ -1448,12 +1618,20 @@ class DedupTile(Tile):
         poisoned copy never shadowing the valid txn of the same sig; order
         and tsorig kept)."""
         lens = st["lens"][:n]
-        err = (st["ctls"][:n] & CTL_ERR) != 0
-        clean = ~err
+        ctls = st["ctls"][:n]
+        clean = (ctls & CTL_ERR) == 0
+        novel = ((ctls & CTL_NOVEL) != 0) & clean
         dup = np.zeros(n, np.bool_)
         if clean.any():
-            dup[clean] = self.tcache.insert_batch(st["sigs"][:n][clean])
-        filt = err | dup
+            fn0 = self.tcache.false_novel_cnt
+            dup[clean] = self.tcache.insert_batch(
+                st["sigs"][:n][clean],
+                novel=novel[clean] if novel.any() else None)
+            n_novel = int(novel.sum())
+            self.stat_drain_probe_skip += n_novel
+            self.stat_drain_probed += int(clean.sum()) - n_novel
+            self.stat_drain_false_novel += self.tcache.false_novel_cnt - fn0
+        filt = ~clean | dup
         n_filt = int(filt.sum())
         if n_filt:
             il.fseq.diag_add(DIAG_FILT_CNT, n_filt)
@@ -1462,6 +1640,7 @@ class DedupTile(Tile):
         if not n_ok:
             return
         mask8 = (~filt).astype(np.uint8)
+        ctls_fwd = ctls & np.uint16(0xFFFF ^ CTL_NOVEL)
         ol = self.out_link
         seqv = ctypes.c_uint64(ol.seq)
         chunkv = ctypes.c_uint32(ol.chunk)
@@ -1480,13 +1659,14 @@ class DedupTile(Tile):
                 time.sleep(20e-6)
             if ol.cr_avail <= 0:
                 break
-            pub = rings.lib().fd_frag_publish_bulk(
+            pub = rings.lib().fd_frag_publish_bulk_ctl(
                 ol.mcache._mem, ctypes.addressof(ol.dcache._buf),
                 ol.dcache.chunk_cnt, ol.mtu, ctypes.byref(seqv),
                 ctypes.byref(chunkv), st["pay"].ctypes.data,
                 st["offs"].ctypes.data, st["lens"].ctypes.data,
                 st["sigs"].ctypes.data, st["ts"].ctypes.data,
-                mask8.ctypes.data, ctypes.byref(cursor), n,
+                ctls_fwd.ctypes.data, mask8.ctypes.data,
+                ctypes.byref(cursor), n,
                 min(ol.cr_avail, n_ok - published), now32,
                 bytes_out.ctypes.data)
             ol.seq = seqv.value
@@ -1500,11 +1680,29 @@ class DedupTile(Tile):
         if ol.lat is not None:
             ol.lat.add_many(st["ts"][:n][~filt][:published], now)
 
+    def _filter(self, frag: Frag) -> None:
+        self.in_cur.fseq.diag_add(DIAG_FILT_CNT, 1)
+        self.in_cur.fseq.diag_add(DIAG_FILT_SZ, frag.sz)
+
     def on_frag(self, frag: Frag, payload: bytes) -> None:
         # A CTL_ERR frag is dropped before the tcache insert.
-        if frag.ctl & CTL_ERR or self.tcache.insert(frag.sig):
-            self.in_cur.fseq.diag_add(DIAG_FILT_CNT, 1)
-            self.in_cur.fseq.diag_add(DIAG_FILT_SZ, frag.sz)
+        if frag.ctl & CTL_ERR:
+            self._filter(frag)
+            return
+        if frag.ctl & CTL_NOVEL:
+            # The drain's claim (the JAX :3291-3315): the verdict is the
+            # filter's, the insert keeps the ring's order, and the
+            # tripwire drops a contradicted claim as a duplicate.
+            self.stat_drain_probe_skip += 1
+            if self.tcache.insert_novel_batch([frag.sig])[0]:
+                self.stat_drain_false_novel += 1
+                self._filter(frag)
+                return
+            self.publish_backp(payload, frag.sig, tsorig=frag.tsorig)
+            return
+        self.stat_drain_probed += 1
+        if self.tcache.insert(frag.sig):
+            self._filter(frag)
             return
         self.publish_backp(payload, frag.sig, tsorig=frag.tsorig)
 
@@ -1545,9 +1743,13 @@ class PackTile(Tile):
     caller passes device="cpu"; the kernel, one launch a block), passes
     the waves through the gate (``_gate_device_waves``) and publishes
     them wave by wave, round-robin over the banks; leftovers wait for the
-    next block. A txn whose estimate exceeds a bank's CU budget, that
-    does not parse or whose compute-budget instructions are malformed is
-    filtered."""
+    next block. A frag with the fd_drain's color in its ctl word (the
+    verify tile's drain_pack) joins the device block of its block id
+    instead (``_dev_block``); a new block id, a full block or an idle
+    poll closes it (``_close_dev_block``, the JAX :3500): its colors
+    become waves, which pass the same gate. A txn whose estimate exceeds
+    a bank's CU budget, that does not parse or whose compute-budget
+    instructions are malformed is filtered."""
 
     name = "pack"
 
@@ -1570,12 +1772,17 @@ class PackTile(Tile):
         self._payloads: dict = {}
         self._tsorig: dict = {}
         self._rr_bank = 0
+        # The open device block: [(color, PackTxn)] of one block id.
+        self._dev_block: list = []
+        self._dev_block_id: Optional[int] = None
         self._seq0 = self.in_link.seq
         # Frags published or filtered; with in_link.seq, the quiescence
         # check's proof that no consumed frag is still held.
         self.stat_done = 0
         self.stat_cu_drop = 0
-        # The gc gate's accounting: block_device + sched_fallback = blocks.
+        # The gc gate's accounting: block_device + sched_fallback = blocks,
+        # of which dev_blocks came colored by the verify tile's drain.
+        self.stat_dev_blocks = 0
         self.stat_block_device = 0
         self.stat_wave_device = 0
         self.stat_sched_fallback = 0
@@ -1587,7 +1794,8 @@ class PackTile(Tile):
     def drained(self) -> bool:
         """Every frag consumed so far was published or filtered."""
         return (self.stat_done >= self.in_link.seq - self._seq0
-                and self.pack.pending_cnt() == 0 and not self._gc_pending)
+                and self.pack.pending_cnt() == 0 and not self._gc_pending
+                and not self._dev_block)
 
     def _filter(self, sz: int = 0) -> None:
         self.in_cur.fseq.diag_add(DIAG_FILT_CNT, 1)
@@ -1611,6 +1819,19 @@ class PackTile(Tile):
         self._payloads[pt.txn_id] = payload
         self._tsorig[pt.txn_id] = frag.tsorig
         if self.scheduler == "gc":
+            color = ctl_color(frag.ctl)
+            if color >= 0:
+                # A device color: frags arrive in publish order, so a
+                # block's txns are contiguous and a new id closes it.
+                blk = ctl_block(frag.ctl)
+                if self._dev_block_id is not None \
+                        and blk != self._dev_block_id:
+                    self._close_dev_block()
+                self._dev_block_id = blk
+                self._dev_block.append((color, pt))
+                if len(self._dev_block) >= self.gc_block:
+                    self._close_dev_block()
+                return
             self._gc_pending.append(pt)
             if len(self._gc_pending) >= self.gc_block:
                 self._drain_gc()
@@ -1620,6 +1841,8 @@ class PackTile(Tile):
 
     def on_idle(self) -> None:
         if self.scheduler == "gc":
+            if self._dev_block:
+                self._close_dev_block()
             if self._gc_pending:
                 self._drain_gc()
             return
@@ -1656,6 +1879,28 @@ class PackTile(Tile):
             return dev_waves, dev_left
         self.stat_sched_fallback += 1
         return cpu_waves, cpu_left
+
+    def _close_dev_block(self) -> None:
+        """Publish the open device block: its colors as waves (in color
+        order) through the gate, as a block of the pack's own; leftovers
+        join the pending block. The gate validates the txns that arrived,
+        never the hint (a subset of an admissible wave is admissible, but
+        it is checked anyway). The block stays in _dev_block until its
+        waves are published: the quiescence check reads it."""
+        entries = list(self._dev_block)
+        self.stat_dev_blocks += 1
+        waves_map: dict = {}
+        for color, pt in entries:
+            waves_map.setdefault(color, []).append(pt)
+        dev_waves = [waves_map[c] for c in sorted(waves_map)]
+        t0 = time.perf_counter_ns()
+        waves, leftover = self._gate_device_waves(
+            [pt for _, pt in entries], dev_waves, [])
+        self.stat_gate_ns += time.perf_counter_ns() - t0
+        self._publish_waves(waves)
+        self._gc_pending.extend(leftover)
+        self._dev_block = []
+        self._dev_block_id = None
 
     def _publish(self, txn: PackTxn, bank: int) -> None:
         payload = self._payloads.pop(txn.txn_id)

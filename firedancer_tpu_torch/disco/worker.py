@@ -20,8 +20,8 @@ The result file (JSON) holds, by tile, the tile's thread CPU seconds and
 the latency samples of its out-link (``tiles.LatReservoir`` as [stamps,
 ticks]); the replay's publish ticks (by payload index), the sink's
 counters with, when recording, each frag's digest, tsorig and receipt
-tick, and the pack's counters. The main process reads the end-to-end
-latency and stage_latency from them.
+tick, and the pack's and the dedup tile's counters. The main process
+reads the end-to-end latency and stage_latency from them.
 
 Options (``--opts``): mtu, tcache_depth, bank_cnt, pack_scheduler,
 record_digests, and for the replay payloads_path (a pickled list of
@@ -63,7 +63,7 @@ def build_tile(wksp, name: str, opts: dict):
 
 def tile_result(name: str, tile) -> dict:
     """One tile's part of the result file."""
-    from firedancer_tpu_torch.disco.pipeline import _pack_stats
+    from firedancer_tpu_torch.disco.pipeline import _dedup_stats, _pack_stats
 
     out = {"cpu_s": tile.cpu_ns / 1e9}
     if tile.out_link is not None:
@@ -73,6 +73,8 @@ def tile_result(name: str, tile) -> dict:
         out["pub_ticks"] = list(tile.pub_ticks)
     elif name == "pack":
         out["stats"] = _pack_stats(tile)
+    elif name == "dedup":
+        out["stats"] = _dedup_stats(tile)
     elif name == "sink":
         out.update(recv_cnt=tile.recv_cnt, recv_sz=tile.recv_sz,
                    bank_hist={str(k): v for k, v in tile.bank_hist.items()},

@@ -2,8 +2,8 @@
 ``firedancer_tpu/tango/rings.py`` (``ensure_native_built``:47, ``lib``:221,
 ``pylib``:250, ``Workspace``:443, ``MCache``, ``DCache``, ``FSeq``,
 ``Cnc``, ``Frag``; ``require_drain`` stands for ``native_available``:278
-and ``verify_drain_abi2``:324; ``fd_frag_publish_bulk`` is bound as at
-:154-168).
+and ``verify_drain_abi2``:324; ``fd_frag_publish_bulk_ctl``
+(``native/tango.cc:636``) is bound as at :169-184).
 
 Both packages bind the one library ``build/libfdtango.so``, built by
 ``make`` from ``native/`` (``tango.cc``, ``verify_drain.cc``), so they
@@ -18,8 +18,9 @@ overlap other threads.
 
 The port needs the current drain ABI (``fd_verify_drain`` with the
 publish stamp and payload-hash outputs, ``fd_frag_drain`` with the ctl
-and stamp outputs, and the bulk publisher ``fd_frag_publish_bulk``,
-which copies a round's surviving frags into a link in one call). A
+and stamp outputs, and the bulk publisher ``fd_frag_publish_bulk_ctl``,
+which copies a round's surviving frags into a link in one call, each
+frag's ctl word from an array: the fd_drain's verdicts travel in it). A
 library without them raises (``require_drain``) and names the rebuild;
 there is no slower Python poll to fall back to.
 """
@@ -143,14 +144,14 @@ def load_lib() -> ctypes.CDLL:
             _vp, _vp,                           # ctls, tspubs
             _vp,                                # counters
         ]
-    if hasattr(lib, "fd_frag_publish_bulk"):
-        lib.fd_frag_publish_bulk.restype = ctypes.c_int
-        lib.fd_frag_publish_bulk.argtypes = [
+    if hasattr(lib, "fd_frag_publish_bulk_ctl"):
+        lib.fd_frag_publish_bulk_ctl.restype = ctypes.c_int
+        lib.fd_frag_publish_bulk_ctl.argtypes = [
             _vp, _vp, _u32, _u32,               # mcache, dcache, chunks, mtu
             ctypes.POINTER(_u64),               # seq_io
             ctypes.POINTER(_u32),               # chunk_io
             _vp, _vp, _vp, _vp,                 # payloads, offs, lens, sigs
-            _vp, _vp,                           # tsorigs, mask
+            _vp, _vp, _vp,                      # tsorigs, ctls, mask
             ctypes.POINTER(_u32),               # txn_io
             _u32, _u32, _u32,                   # n_txn, max_pub, now32
             _vp,                                # bytes_out
@@ -201,12 +202,12 @@ def require_drain() -> None:
     L = lib()
     if not all(hasattr(L, name) for name in (
             "fd_verify_drain_abi2", "fd_frag_drain_has_ctl",
-            "fd_frag_drain_has_tspub", "fd_frag_publish_bulk")):
+            "fd_frag_drain_has_tspub", "fd_frag_publish_bulk_ctl")):
         raise RuntimeError(
             f"{LIB_PATH} lacks the current drain entry points "
             "(fd_verify_drain_abi2, fd_frag_drain_has_ctl, "
-            "fd_frag_drain_has_tspub, fd_frag_publish_bulk): rebuild it "
-            f"with `{REBUILD}`")
+            "fd_frag_drain_has_tspub, fd_frag_publish_bulk_ctl): rebuild "
+            f"it with `{REBUILD}`")
 
 
 @dataclass

@@ -11,7 +11,9 @@
   and the JAX feed runner (``verify_backend="cpu"``, ``FD_DRAIN=off``,
   ``FD_FEED_PROC=0``) deliver ``expected_sink_digests`` and count the
   same HA and SV filters; the worker run's six stage latencies
-  (``replay_pub`` included) all have samples.
+  (``replay_pub`` included) all have samples; the fd_drain, armed by
+  default, filters every feed batch and its verdicts balance against the
+  dedup tile's probes in process and in the worker's result file.
 * The ring 32 deep: the held-back ack and the credits drive the
   feeder, nothing overruns, the sink is exact.
 * Routing: the oracle backend warns and records its fallback reason; a
@@ -216,6 +218,18 @@ def test_worker_run_ships_every_stage(runs):
                                    "dedup", "pack", "sink"}
     assert sum(res.bank_hist.values()) == res.recv_cnt
     assert res.pack_stats["scheduler"] == "greedy"
+
+
+def test_worker_run_ships_the_drain_counters(runs):
+    """The drain is armed by default; the dedup worker's counters come
+    home in its result file and balance against verify's verdicts."""
+    for mode in ("feed", "proc"):
+        vs, dd = runs[mode].verify_stats[0], runs[mode].dedup_stats
+        assert vs["drain_batches"] == vs["batches"]
+        assert dd["probe_skip"] + dd["probed"] \
+            == vs["drain_novel"] + vs["drain_maybe"] > 0
+        assert dd["probe_skip"] > 0 and dd["false_novel"] == 0
+    assert runs["legacy"].dedup_stats["probe_skip"] == 0
 
 
 def test_jax_feed_runner_gives_the_same_sink(corpus, runs, tmp_path,

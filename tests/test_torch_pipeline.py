@@ -4,7 +4,7 @@ JAX package's, on the CPU.
 * ``TCache.insert_batch`` equals ``insert`` tag by tag and the JAX
   ``insert_batch``, eviction in the middle of a round included.
 * ``DedupTile``: the bulk round (``fd_frag_drain``, ``insert_batch``,
-  ``fd_frag_publish_bulk``), the per-frag path and the JAX ``DedupTile``
+  ``fd_frag_publish_bulk_ctl``), the per-frag path and the JAX ``DedupTile``
   forward the same frags and count the same filters, on frags with
   repeated signatures across rounds and CTL_ERR copies, two in-links.
 * ``run_pipeline(verify_backend="gpu", device="cpu", verify_batch=32,
