@@ -156,16 +156,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    count, batches, fill ratio, flush verdicts, fallbacks and the
    device's busy share (torch.profiler).
 8. Pack: (a) pack_gc.cu's pack_schedule (the graph coloring of
-   ops/pack_gc.py; one block of 256 threads, the lock sets in 66 KB of
-   dynamic shared memory) against pack_schedule_ref on the same CUDA
-   tensors, lane for lane, on six blocks (the mainnet mix of phase 7's
+   ops/pack_gc.py; a compaction launch, then the scan on one warp, the
+   per-bucket color masks in 64 KB of dynamic shared memory at H = 4096)
+   against pack_schedule_ref on the same CUDA
+   tensors, lane for lane, on seven blocks (the mainnet mix of phase 7's
    dirty corpus and the fixtures as the pack tile sees them,
-   conflict-heavy, disjoint, capped by CUs, equal scores, padding) at
+   conflict-heavy, wide rows of 30-70 valid and partly repeating
+   buckets, disjoint, capped by CUs, equal scores, padding) at
    n = 1, 31, 1024, 2048, 4096 and 8192 (the N of phase 9's drain_pack
    colorings), with C = 64 colors, H = 4096 buckets,
-   35 + 35 bucket columns; times at 1024 and 2048 (CUDA events, the
-   trace's device time, the chain's floor from the same block's step
-   skeleton, the plain version). (b) run_pipeline(feed=False) on the
+   35 + 35 bucket columns; the conflict-heavy and wide blocks also at
+   n = 1024 with C = 100, 150, 300 and 1000 (2, 3, 5 and 16 mask words a
+   bucket set); and on bench.py pack_worker's block (65,536 txns over
+   16,384 accounts, seed 7, H = 8192) at n = 16384; times of the mainnet
+   block at 1024, 2048 and 8192, the padding block at 1024 and the bench
+   block at 65,536 (its waves validated): CUDA events, the trace's
+   device time of both launches, ns a step, the chain's floor (one
+   warp's step skeleton), the plain version. (b) run_pipeline(feed=False) on the
    card (the in-process step loop), replay -> verify (direct, B = 8192)
    -> dedup -> pack -> sink on phase 7's dirty
    corpus and the fixtures (depth 32768, a dedup window of 2^18 that
@@ -289,8 +296,17 @@ TILE_WKSP = 1 << 28
 # parameters (ops/pack_gc.py: C colors, H buckets, the CU cap a wave;
 # ballet/txn.py MAX_ACCT_CNT bucket columns each of writes and reads).
 PACK_N = (1, 31, 1024, 2048, 4096, B)
-PACK_TIMED = (1024, 2048)
+PACK_TIMED = (1024, 2048, B)
 PACK_C, PACK_H, PACK_CAP, PACK_A = 64, 4096, 12_000_000, 35
+# Colors past one 64-bit mask word, with the H whose masks fit shared
+# memory: K = 2, 3, 5 and 16 words (the scan's KT = 2, 4, 8 and 16
+# instantiations), held to the plain version on PACK_K_N rows.
+PACK_K = ((100, PACK_H), (150, PACK_H), (300, 1024), (1000, 256))
+PACK_K_N = 1024
+# bench.py pack_worker's block (bench.py:341-350): txns, accounts, the
+# seed, its h_bits; held to the plain version on its first PACK_BENCH_EQ.
+PACK_BENCH_N, PACK_BENCH_ACCTS, PACK_BENCH_SEED = 65_536, 16_384, 7
+PACK_BENCH_H, PACK_BENCH_EQ = 8192, 16_384
 # The pipeline runs' dedup window (the verify tile's HA filter and the
 # dedup tile): it must span the corpus for the sink to get each valid
 # txn once, as the JAX bench's replay gate sets it (bench.py:309); at
@@ -2096,19 +2112,72 @@ def tile_phase(torch, card, n: int = TILE_N, batch: int = B):
 
 # ------------------------------------------------------------- pack
 
+def synthetic_blocks(n: int) -> dict:
+    """Phase 8's blocks of n PackTxns that need no corpus: conflict-heavy
+    (256 accounts, up to 4 writes and 4 reads a txn,
+    tests/test_pack_gc.py's _mk_txns), wide (15-35 writes and 15-35
+    reads a txn over 512 accounts, 128 of them four to a bucket at
+    PACK_H, so that rows pass the record's 29 head slots and repeat
+    buckets), disjoint (one account a txn), capped by CUs (1-9 M a
+    txn), equal scores (the conflict-heavy locks, one score), and
+    padding."""
+    import random
+
+    from firedancer_tpu_torch.ballet.pack import PackTxn
+    from firedancer_tpu_torch.ops.pack_gc import PackTxnPad, hash_accounts
+
+    rng = random.Random(0)
+    keys = [bytes([i % 256]) * 4 + i.to_bytes(4, "little") + bytes(24)
+            for i in range(256)]
+    conflict = []
+    for i in range(n):
+        w = frozenset(rng.sample(keys, rng.randint(1, 4)))
+        r = frozenset(k for k in rng.sample(keys, rng.randint(0, 4))
+                      if k not in w)
+        conflict.append(PackTxn(i, rng.randint(1_000, 2_000_000),
+                                rng.randint(10_000, 1_400_000), w, r))
+
+    cand = [b"wide" + i.to_bytes(8, "little") + bytes(20)
+            for i in range(4 * PACK_H)]
+    by_bucket = {}
+    for k, b in zip(cand, hash_accounts(cand, PACK_H).tolist()):
+        by_bucket.setdefault(b, []).append(k)
+    shared = [ks[:4] for ks in by_bucket.values() if len(ks) >= 4][:32]
+    pool = [k for ks in shared for k in ks]
+    taken = set(pool)
+    pool += [k for k in cand if k not in taken][:512 - len(pool)]
+    wide = []
+    for i in range(n):
+        w = rng.sample(pool, rng.randint(15, 35))
+        ws = set(w)
+        r = rng.sample([k for k in pool if k not in ws], rng.randint(15, 35))
+        wide.append(PackTxn(i, rng.randint(1_000, 2_000_000),
+                            rng.randint(10_000, 400_000), frozenset(w),
+                            frozenset(r)))
+
+    def own(i):
+        return frozenset({i.to_bytes(4, "little") + bytes(28)})
+
+    return {
+        "conflict": conflict,
+        "wide": wide,
+        "disjoint": [PackTxn(i, 1000 + i, 1000, own(i), frozenset())
+                     for i in range(n)],
+        "cu_cap": [PackTxn(i, rng.randint(1_000, 9_000), rng.randint(
+            1_000_000, 9_000_000), own(i), frozenset()) for i in range(n)],
+        "equal_scores": [PackTxn(t.txn_id, 1000, 1000, t.writable,
+                                 t.readonly) for t in conflict],
+        "padding": [PackTxnPad] * n,
+    }
+
+
 def pack_blocks(fixtures, corpus) -> dict:
     """Phase 8's blocks, each of PACK_N[-1] PackTxns: (m)'s mainnet mix
     (the fixtures and the corpus's unique valid txns as the pack tile
-    sees them), conflict-heavy (256 accounts, up to 4 writes and 4
-    reads a txn, tests/test_pack_gc.py's _mk_txns), disjoint (one
-    account a txn), capped by CUs (1-9 M a txn), equal scores (the
-    conflict-heavy locks, one score), and padding."""
-    import random
-
-    from firedancer_tpu_torch.ballet.pack import CuEstimator, PackTxn
+    sees them), then synthetic_blocks."""
+    from firedancer_tpu_torch.ballet.pack import CuEstimator
     from firedancer_tpu_torch.disco import corpus as dcorpus
     from firedancer_tpu_torch.disco.tiles import pack_txn
-    from firedancer_tpu_torch.ops.pack_gc import PackTxnPad
 
     n = PACK_N[-1]
     est = CuEstimator()
@@ -2121,31 +2190,68 @@ def pack_blocks(fixtures, corpus) -> dict:
             mainnet.append(t)
         if len(mainnet) == n:
             break
-    rng = random.Random(0)
-    keys = [bytes([i % 256]) * 4 + i.to_bytes(4, "little") + bytes(24)
-            for i in range(256)]
-    conflict = []
+    return {"mainnet": mainnet, **synthetic_blocks(n)}
+
+
+def bench_block(n: int = PACK_BENCH_N) -> list:
+    """bench.py pack_worker's block (bench.py:341-350) of the port's
+    PackTxns: n txns over PACK_BENCH_ACCTS accounts, random.Random(7),
+    1-3 writes and 0-3 reads a txn."""
+    import random
+
+    from firedancer_tpu_torch.ballet.pack import PackTxn
+
+    rng = random.Random(PACK_BENCH_SEED)
+    keys = [i.to_bytes(8, "little") + bytes(24)
+            for i in range(PACK_BENCH_ACCTS)]
+    txns = []
     for i in range(n):
-        w = frozenset(rng.sample(keys, rng.randint(1, 4)))
-        r = frozenset(k for k in rng.sample(keys, rng.randint(0, 4))
+        w = frozenset(rng.sample(keys, rng.randint(1, 3)))
+        r = frozenset(k for k in rng.sample(keys, rng.randint(0, 3))
                       if k not in w)
-        conflict.append(PackTxn(i, rng.randint(1_000, 2_000_000),
-                                rng.randint(10_000, 1_400_000), w, r))
+        txns.append(PackTxn(txn_id=i, rewards=rng.randint(1_000, 2_000_000),
+                            est_cus=rng.randint(10_000, 1_400_000),
+                            writable=w, readonly=r))
+    return txns
 
-    def own(i):
-        return frozenset({i.to_bytes(4, "little") + bytes(28)})
 
-    return {
-        "mainnet": mainnet,
-        "conflict": conflict,
-        "disjoint": [PackTxn(i, 1000 + i, 1000, own(i), frozenset())
-                     for i in range(n)],
-        "cu_cap": [PackTxn(i, rng.randint(1_000, 9_000), rng.randint(
-            1_000_000, 9_000_000), own(i), frozenset()) for i in range(n)],
-        "equal_scores": [PackTxn(t.txn_id, 1000, 1000, t.writable,
-                                 t.readonly) for t in conflict],
-        "padding": [PackTxnPad] * n,
-    }
+def ptxas_entries(build, name: str) -> list:
+    """(entry function, registers, stack, spill stores, spill loads) of
+    each kernel of a library, from nvcc -Xptxas -v."""
+    out, fn, frame = [], None, None
+    for ln in build.ptxas_report().get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *(frame or (-1, -1, -1))))
+            fn = frame = None
+    return out
+
+
+def pack_device_ms(torch, fn, reps: int = REPS) -> dict:
+    """Device ms a call of pack_schedule_cuda by kernel (the trace's mean
+    a launch; a call launches each once), over reps warm calls of fn:
+    {"compact": ..., "scan": ...}, each None when the trace shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for part in ("compact", "scan"):
+        total, count = trace_kernels_ms(prof, f"pack_{part}_kernel")
+        out[part] = total / count if count and total > 0 else None
+    return out
 
 
 def bound_pack_schedule(w_idx: np.ndarray, r_idx: np.ndarray):
@@ -2164,70 +2270,127 @@ def bound_pack_schedule(w_idx: np.ndarray, r_idx: np.ndarray):
 
 def pack_kernel_phase(torch, record, blocks) -> None:
     """Phase 8 (a): pack_schedule_cuda against pack_schedule_ref on the
-    same CUDA tensors, lane for lane, on every block at every PACK_N;
-    times at PACK_TIMED (CUDA events, which include the wrapper's sort,
-    and the trace's device time), the chain's floor (the same block's
-    step skeleton, pack_chain_floor) and the plain version."""
+    same CUDA tensors, lane for lane, on every block at every PACK_N and
+    on the conflict-heavy and wide blocks at PACK_K_N for each PACK_K,
+    and on the bench block at PACK_BENCH_EQ; times of the mainnet block
+    at PACK_TIMED, the padding block and the bench block at PACK_BENCH_N
+    (CUDA events, which include the wrapper's sort and allocations, and
+    the trace's device time of both launches), ns a step, the chain's
+    floor (pack_chain_floor: one warp's step skeleton) and the plain
+    version."""
+    from firedancer_tpu_torch.ballet.pack import validate_schedule
     from firedancer_tpu_torch.ops import build, pack_gc, pack_gc_cuda
 
     dev = torch.device("cuda", 0)
     kw = {"n_colors": PACK_C, "h_bits": PACK_H, "cu_cap": PACK_CAP}
+    bkw = {**kw, "h_bits": PACK_BENCH_H}
 
-    def tensors(txns):
-        arrs = pack_gc.build_arrays(txns, PACK_H, max_w=PACK_A,
-                                    max_r=PACK_A)
+    def tensors(txns, h_bits=PACK_H, width=PACK_A):
+        arrs = pack_gc.build_arrays(txns, h_bits, max_w=width, max_r=width)
         return arrs, [torch.from_numpy(a).to(dev) for a in arrs]
+
+    def equal(label, args, params):
+        got = pack_gc_cuda.pack_schedule_cuda(*args, **params)
+        want = pack_gc.pack_schedule_ref(*args, **params)
+        if not torch.equal(got, want):
+            fail(f"pack_schedule {label}: {int((got != want).sum())} lanes "
+                 f"differ from the plain version")
+        return (max_abs_err(torch, got, want),
+                f"{int((got >= 0).sum())} colored, {int(got.max()) + 1} waves")
 
     err = 0.0
     for name, txns in blocks.items():
         summary = []
         for n in PACK_N:
             _, args = tensors(txns[:n])
-            got = pack_gc_cuda.pack_schedule_cuda(*args, **kw)
-            want = pack_gc.pack_schedule_ref(*args, **kw)
-            err = max(err, max_abs_err(torch, got, want))
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                fail(f"pack_schedule {name} n={n}: {bad} lanes differ from "
-                     f"the plain version")
-            colored = int((got >= 0).sum())
-            summary.append(f"n={n}: {colored} colored, "
-                           f"{int(got.max()) + 1} waves")
+            e, note = equal(f"{name} n={n}", args, kw)
+            err = max(err, e)
+            summary.append(f"n={n}: {note}")
         say(f"pack_schedule {name}: equal at every n ({'; '.join(summary)})")
-    threads, smem = pack_gc_cuda.geometry(PACK_C, PACK_H, 2 * PACK_A)
-    say(f"pack_schedule resources: one block of {threads} threads, {smem} B "
-        f"of dynamic shared memory; {ptxas_line(build, 'pack_gc')}")
-    row_ms = row_plain = None
-    for n in PACK_TIMED:
-        arrs, args = tensors(blocks["mainnet"][:n])
+    # The wide block must reach the records' overflow words (more than
+    # 29 valid buckets, and past 61, where the lanes loop twice) and
+    # repeat buckets within a row.
+    arrs, _ = tensors(blocks["wide"])
+    rows = np.concatenate(arrs[:2], axis=1)
+    cnt = (rows >= 0).sum(axis=1)
+    rep = sum(len(set(r[r >= 0].tolist())) < c for r, c in zip(rows, cnt))
+    say(f"pack_schedule wide: {int((cnt > 29).sum())} of {len(cnt)} rows "
+        f"past 29 valid buckets, {int((cnt > 61).sum())} past 61, "
+        f"{rep} with a repeated bucket, at most {int(cnt.max())}")
+    if not ((cnt > 61).any() and rep):
+        fail("pack_schedule wide: the block misses the records' overflow "
+             "or a repeated bucket")
+    for c, h in PACK_K:
+        notes = []
+        for name in ("conflict", "wide"):
+            _, args = tensors(blocks[name][:PACK_K_N], h)
+            e, note = equal(f"{name} C={c} H={h} n={PACK_K_N}", args,
+                            {**kw, "n_colors": c, "h_bits": h})
+            err = max(err, e)
+            notes.append(f"{name}: {note}")
+        say(f"pack_schedule C={c} H={h}: equal at n={PACK_K_N} "
+            f"({'; '.join(notes)})")
+    bench = bench_block()
+    # build_arrays' default widths, as schedule_block gives pack_worker.
+    _, bargs = tensors(bench[:PACK_BENCH_EQ], PACK_BENCH_H, None)
+    e, note = equal(f"bench n={PACK_BENCH_EQ}", bargs, bkw)
+    err = max(err, e)
+    say(f"pack_schedule bench (pack_worker's block, H = {PACK_BENCH_H}): "
+        f"equal at n={PACK_BENCH_EQ} ({note})")
+    threads, pre_blocks, pre_threads, smem = pack_gc_cuda.geometry(
+        PACK_C, PACK_H, B)
+    say(f"pack_schedule resources at n={B}: the compaction in {pre_blocks} "
+        f"blocks of {pre_threads} threads, the scan in one block of "
+        f"{threads} threads with {smem} B of dynamic shared memory "
+        f"({pack_gc_cuda.geometry(PACK_C, PACK_BENCH_H, 1)[3]} B at "
+        f"H = {PACK_BENCH_H})")
+    for fn, regs, stack, sp_st, sp_ld in ptxas_entries(build, "pack_gc"):
+        say(f"  ptxas {fn}: {regs} registers, {stack} B stack, spills "
+            f"{sp_st} / {sp_ld} B")
 
+    def timed(label, n, args, params, plain=False):
         def kern():
-            return pack_gc_cuda.pack_schedule_cuda(*args, **kw)
+            return pack_gc_cuda.pack_schedule_cuda(*args, **params)
 
         k_ms = time_ms(torch, kern, REPS)
-        dev_ms = traced_ms(torch, kern, "pack_schedule_kernel")
-        floor = pack_gc_cuda.chain_floor_ms(n, threads, dev)
-        p_ms = time_ms(torch, lambda: pack_gc.pack_schedule_ref(*args, **kw),
-                       1)
+        parts = pack_device_ms(torch, kern)
+        dev_ms = (None if None in parts.values()
+                  else parts["compact"] + parts["scan"])
+        floor = pack_gc_cuda.chain_floor_ms(n, dev)
+        p_ms = (time_ms(torch, lambda: pack_gc.pack_schedule_ref(
+            *args, **params), 1) if plain else None)
+        dev_s = ("not measured" if dev_ms is None else
+                 f"{dev_ms:.4f} ms (compaction {parts['compact']:.4f}, scan "
+                 f"{parts['scan']:.4f}; {1e6 * parts['scan'] / n:.1f} ns a "
+                 f"step)")
+        plain_s = "" if p_ms is None else f", plain {p_ms:.1f} ms"
+        say(f"  pack_schedule {label} n={n}: kernel {k_ms:.4f} ms (CUDA "
+            f"events, with the sort), device {dev_s} (trace); chain floor "
+            f"{floor:.4f} ms ({1e6 * floor / n:.1f} ns a step: one warp's "
+            f"store, __syncwarp, load, REDUX){plain_s}")
+        return k_ms, p_ms
+
+    row_ms = row_plain = row_bound = None
+    for n in PACK_TIMED:
+        arrs, args = tensors(blocks["mainnet"][:n])
+        k_ms, p_ms = timed("mainnet", n, args, kw, plain=n == PACK_TIMED[0])
         bound = bound_pack_schedule(arrs[0], arrs[1])
-        dev_s = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        say(f"  pack_schedule mainnet n={n}: kernel {k_ms:.4f} ms (CUDA "
-            f"events, with the sort), device {dev_s} (trace), chain floor "
-            f"{floor:.4f} ms ({n} steps of a shared-memory round and two "
-            f"barriers, {1e6 * floor / n:.1f} ns a step; the kernel "
-            f"{1e6 * (dev_ms or k_ms) / n:.1f} ns a step), plain "
-            f"{p_ms:.1f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+        say(f"  pack_schedule mainnet n={n}: bound {bound[0]:.6f} ms "
+            f"({bound[1]})")
         if n == PACK_TIMED[0]:
             row_ms, row_plain, row_bound = k_ms, p_ms, bound
-    # The step with no bucket to test (every column -1): the loads, the
-    # shuffles, the color choice and the barriers alone.
+    # The step with no bucket to test (every column -1): the row loads,
+    # the CU ballot, the color choice and the warp's exchanges alone.
     _, args = tensors(blocks["padding"][:PACK_TIMED[0]])
-    pad_ms = traced_ms(torch, lambda: pack_gc_cuda.pack_schedule_cuda(
-        *args, **kw), "pack_schedule_kernel")
-    if pad_ms is not None:
-        say(f"  pack_schedule padding n={PACK_TIMED[0]}: device "
-            f"{pad_ms:.4f} ms (trace), {1e6 * pad_ms / PACK_TIMED[0]:.1f} ns "
-            f"a step with no bucket to test")
+    timed("padding", PACK_TIMED[0], args, kw)
+    _, bargs = tensors(bench, PACK_BENCH_H, None)
+    timed("bench", PACK_BENCH_N, bargs, bkw)
+    waves, _ = pack_gc.schedule_block(bench, n_colors=PACK_C,
+                                      h_bits=PACK_BENCH_H)
+    if not validate_schedule(waves):
+        fail("pack_schedule bench: its waves fail validate_schedule")
+    say(f"  pack_schedule bench n={PACK_BENCH_N}: {len(waves)} waves, "
+        f"{sum(map(len, waves))} txns scheduled, validate_schedule passes")
     record("pack_schedule", err, row_ms, row_plain, row_bound,
            "firedancer_tpu/ops/pack_gc.py:64",
            "firedancer_tpu_torch/ops/csrc/pack_gc.cu")

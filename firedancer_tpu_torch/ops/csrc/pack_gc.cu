@@ -9,221 +9,296 @@
 // read set of H hashed account buckets (bit-packed, C x H/32 words each)
 // and the CU total; each step ANDs the transaction's dense (H/32)-word
 // masks with every color's sets. The same booleans come from testing
-// only the transaction's own buckets (at most AW + AR of them) against
-// each color, which is what this kernel does.
+// only the transaction's own buckets, which is what this kernel does.
 //
 // Bound on this card: neither bytes (a block's rows are read once, ~0.3
-// MB at N = 1024) nor operations (C x (2 AW + AR) bit tests a step): the
-// scan is a chain of N dependent steps, each at least one shared-memory
-// round and two barriers. Design: one block; the two sets (2 x C x H/32
-// words with an odd pitch of H/32 + 1, so the colors of one bucket word
-// lie in distinct banks; 66 KB at C = 64, H = 4096) and the C CU totals
-// in dynamic shared memory. Thread t serves color t / G, bucket slots
-// t % G, t % G + G, ... (G, a power of two up to 32, threads a color, so
-// a color's threads are lanes of one warp); threads j < AW + AR load
-// bucket j of the next transaction (thread AW + AR its CUs) into a
-// double-buffered stage while the colors are tested, so the global loads
-// of step i + 1 overlap step i. Per step:
-//   1. every color's threads test their buckets (a write bucket against
-//      the color's write and read sets, a read bucket against its write
-//      set; only buckets b with 0 <= b and b / 32 < H / 32, as the dense
-//      masks count them), thread 0 of the color the CU cap; the G
-//      threads OR their verdicts by full-mask shuffles, and each free
-//      color takes part in a shared-memory atomicMin;
-//   2. barrier; the least free color's threads set its bits by
-//      shared-memory atomicOr (a write and a read bucket may share a
-//      word), its thread 0 adds the CUs; the loader threads store the
-//      next transaction's row, thread AW + AR writes the color (input
-//      order) and resets the other minimum;
-//   3. barrier.
-// Every thread runs every step (no early exit past a barrier); threads
-// past the last color test nothing. CU sums wrap as the reference's
-// int32 does.
+// MB at N = 1024) nor operations: the scan is a chain of N dependent
+// steps, each at least one shared-memory round. The least such a step
+// costs on one warp (a shared store, __syncwarp, a shared load and one
+// REDUX) is what pack_chain_floor_kernel runs.
+//
+// State by bucket, not by color: for each bucket b < H' = 32 (H / 32),
+// two masks of K = ceil(C / 64) 64-bit words side by side, W[b] (bit c:
+// color c holds a write lock in b) then R[b] (a read lock), 16 K H' bytes
+// of dynamic shared memory (64 KB at C = 64, H = 4096). A transaction's
+// conflicts are the OR of W[b] | R[b] over its write buckets and of W[b]
+// over its read buckets: one gather a bucket, whatever C is. Buckets with
+// b < 0 or b / 32 >= H / 32 count for nothing, as in the dense masks.
+//
+// Two launches:
+//   1. pack_compact_kernel, a warp a sorted position i: row order[i]'s
+//      valid buckets, each as 2 b + (1 if a read), packed by a ballot
+//      into a record of pg_record_words(AW + AR) words: slots 0..28 in
+//      words 0..28, -1 past the count, the CUs in word 29, the input
+//      index in word 30, the count in word 31, slots 29.. in words 32..
+//      (rows of more than 29 valid buckets only; the record is 32 words
+//      when AW + AR <= 29).
+//   2. pack_scan_kernel, one warp in one block, no block barrier. Lane l
+//      holds word l of the step's record and the CU totals of colors
+//      l, l + 32, ... in registers. Per step: each lane with a bucket
+//      loads its masks (one 16-byte load when K = 1) and ORs its
+//      conflicts; __reduce_or_sync (REDUX) ORs them across the warp, two
+//      32-bit halves a word; each lane tests its colors' CU sums against
+//      the cap (int32 wrapping, as the reference) and __ballot_sync
+//      gathers the verdicts; colors >= C are masked off; the least free
+//      color is the first set bit (__ffs of each half), or -1; the lanes
+//      OR its bit into W[b] or R[b] by a shared atomicOr on the 32-bit
+//      half that holds it (a bucket may repeat within a row), lane m % 32
+//      adds the CUs, lane 30 stores the color at the input index;
+//      __syncwarp orders the scatter before the next step's gather.
+// The records stream in order, PG_DEPTH steps ahead of the step that
+// reads them, each lane one word a row, in registers: the step loop is
+// unrolled PG_DEPTH times, and step i loads row i + PG_DEPTH into the
+// register its own record leaves free. Depth 16: a step takes ~0.19 us
+// on an H100 and an L2 hit ~0.3 us (a miss to HBM under ~1 us; launch 1
+// wrote the records just before, so they are in L2), so 16 steps (~3 us)
+// cover either; 8 measured 2-3 % slower (the loop's overhead over fewer
+// steps), and a shared ring filled by cp.async 10-20 % slower.
+//
+// A step is bound by its chain of dependent instructions on one warp
+// (~100 of them: the gather, two REDUX, two ballots, the first set bit,
+// the CU update), not by memory.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define PG_MAX_THREADS 1024
-#define PG_SET_PITCH_PAD 1
+#define PG_DEPTH 16          // steps a record is loaded ahead
+#define PG_FULL 0xffffffffu
+#define PG_HEAD 29          // bucket slots in a record's first 32 words
+#define PG_CU 29            // record word: the row's CUs
+#define PG_INDEX 30         // record word: the row's input index
+#define PG_COUNT 31         // record word: its valid bucket count
+#define PG_PRE_ROWS 8       // rows (a warp each) of a compaction block
+#define PG_MAX_K 16         // mask words a bucket set: C <= 1024
 
-// Threads a color: the largest power of two up to 32 with G C <= 256.
-__host__ __device__ inline int pg_group(int n_colors) {
-  int g = 32;
-  while (g > 1 && g * n_colors > 256) g >>= 1;
-  return g;
+// Words of a record for a row of a = AW + AR bucket columns.
+__host__ __device__ inline int pg_record_words(int a) {
+  const int over = a > PG_HEAD ? a - PG_HEAD : 0;
+  return 32 + (over + 31) / 32 * 32;
 }
 
-// Threads of the block: G C, and at least AW + AR + 1 loaders, in warps.
-__host__ __device__ inline int pg_threads(int n_colors, int a) {
-  int t = pg_group(n_colors) * n_colors;
-  if (t < a + 1) t = a + 1;
-  return (t + 31) / 32 * 32;
-}
-
-// Dynamic shared memory: the two sets, the CU totals, the two stages.
-__host__ __device__ inline long long pg_smem_bytes(int n_colors, int n_words,
-                                                   int a) {
-  return 4LL * (2LL * n_colors * (n_words + PG_SET_PITCH_PAD) + n_colors +
-                2LL * a);
-}
-
-__global__ void __launch_bounds__(PG_MAX_THREADS)
-    pack_schedule_kernel(const int32_t *__restrict__ w_idx,
-                         const int32_t *__restrict__ r_idx,
-                         const int64_t *__restrict__ order,
-                         const int32_t *__restrict__ cus,
-                         int32_t *__restrict__ colors, long long n, int aw,
-                         int ar, int n_colors, int n_words, int cu_cap) {
-  extern __shared__ uint32_t pg_smem[];
-  __shared__ int s_cu[2];
-  __shared__ int s_min[2];
-  const int pitch = n_words + PG_SET_PITCH_PAD;
-  uint32_t *used_w = pg_smem;
-  uint32_t *used_r = used_w + n_colors * pitch;
-  int *cu_used = (int *)(used_r + n_colors * pitch);
-  int *s_idx = cu_used + n_colors;  // [2][a]
+__global__ void __launch_bounds__(PG_PRE_ROWS * 32)
+    pack_compact_kernel(const int32_t *__restrict__ w_idx,
+                        const int32_t *__restrict__ r_idx,
+                        const int64_t *__restrict__ order,
+                        const int32_t *__restrict__ cus,
+                        int32_t *__restrict__ rows, long long n, int aw,
+                        int ar, int n_words, int stride) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * PG_PRE_ROWS + (threadIdx.x >> 5);
+  if (i >= n) return;  // a whole warp
+  const long long o = order[i];
+  int32_t *rec = rows + i * stride;
   const int a = aw + ar;
-  const int tid = threadIdx.x;
-  const int g = pg_group(n_colors);
-  const int c = tid / g;     // this thread's color (none past n_colors)
-  const int part = tid % g;  // its first bucket slot
-  const bool loader = tid <= a;
-
-  for (int k = tid; k < 2 * n_colors * pitch + n_colors; k += blockDim.x)
-    pg_smem[k] = 0;
-  // o_next: order[i + 1] at step i (loaders); o_cur: order[i] (thread a).
-  long long o_cur = 0, o_next = 0;
-  if (loader) {
-    const long long o0 = order[0];
-    if (tid < aw)
-      s_idx[tid] = w_idx[o0 * aw + tid];
-    else if (tid < a)
-      s_idx[tid] = r_idx[o0 * ar + tid - aw];
-    else
-      s_cu[0] = cus[o0];
-    o_cur = o0;
-    if (n > 1) o_next = order[1];
+  int cnt = 0;
+  for (int base = 0; base < a; base += 32) {
+    const int col = base + lane;
+    int b = -1;
+    if (col < aw)
+      b = w_idx[o * aw + col];
+    else if (col < a)
+      b = r_idx[o * ar + col - aw];
+    const bool valid = b >= 0 && (b >> 5) < n_words;
+    const unsigned bal = __ballot_sync(PG_FULL, valid);
+    if (valid) {
+      const int t = cnt + __popc(bal & ((1u << lane) - 1u));
+      rec[t < PG_HEAD ? t : t + 32 - PG_HEAD] = 2 * b + (col >= aw);
+    }
+    cnt += __popc(bal);
   }
-  if (tid == 0) {
-    s_min[0] = n_colors;
-    s_min[1] = n_colors;
-  }
-  __syncthreads();
+  if (lane < PG_HEAD && lane >= cnt) rec[lane] = -1;
+  if (lane == PG_CU) rec[PG_CU] = cus[o];
+  if (lane == PG_INDEX) rec[PG_INDEX] = (int32_t)o;
+  if (lane == PG_COUNT) rec[PG_COUNT] = cnt;
+}
 
-  for (long long i = 0; i < n; ++i) {
-    const int buf = (int)(i & 1);
-    // Prefetch step i + 1's row and step i + 2's index into registers.
-    int pre = 0;
-    long long o_after = 0;
-    if (loader && i + 1 < n) {
-      if (tid < aw)
-        pre = w_idx[o_next * aw + tid];
-      else if (tid < a)
-        pre = r_idx[o_next * ar + tid - aw];
-      else
-        pre = cus[o_next];
-      if (i + 2 < n) o_after = order[i + 2];
-    }
-    const int *idx = s_idx + buf * a;
-    const int cu = s_cu[buf];
-
-    // 1. Test this thread's buckets against its color.
-    uint32_t conflict = 0;
-    if (c < n_colors) {
-      const uint32_t *uw = used_w + c * pitch;
-      const uint32_t *ur = used_r + c * pitch;
-      for (int k = part; k < a; k += g) {
-        const int b = idx[k];
-        if (b >= 0 && (b >> 5) < n_words) {
-          const uint32_t busy =
-              k < aw ? (uw[b >> 5] | ur[b >> 5]) : uw[b >> 5];
-          conflict |= busy & (1u << (b & 31));
-        }
-      }
-      if (part == 0 &&
-          (int)((uint32_t)cu_used[c] + (uint32_t)cu) > cu_cap)
-        conflict = 1;
-    }
-    for (int off = 1; off < g; off <<= 1)
-      conflict |= __shfl_xor_sync(0xffffffffu, conflict, off);
-    if (c < n_colors && part == 0 && conflict == 0)
-      atomicMin(&s_min[buf], c);
-    __syncthreads();
-
-    // 2. The least free color takes the transaction.
-    const int m = s_min[buf];
-    if (m < n_colors && c == m) {
-      for (int k = part; k < a; k += g) {
-        const int b = idx[k];
-        if (b >= 0 && (b >> 5) < n_words)
-          atomicOr((k < aw ? used_w : used_r) + m * pitch + (b >> 5),
-                   1u << (b & 31));
-      }
-      if (part == 0) cu_used[m] = (int)((uint32_t)cu_used[m] + (uint32_t)cu);
-    }
-    if (tid == a) {
-      colors[o_cur] = m < n_colors ? m : -1;
-      o_cur = o_next;
-    }
-    if (loader && i + 1 < n) {
-      if (tid < a)
-        s_idx[(buf ^ 1) * a + tid] = pre;
-      else
-        s_cu[buf ^ 1] = pre;
-      o_next = o_after;
-    }
-    if (tid == 0) s_min[buf ^ 1] = n_colors;
-    // 3. The sets and the next stage are complete.
-    __syncthreads();
+// The colors that bucket entry e (2 b + read) conflicts with, OR'd into
+// conf: W[b] | R[b] for a write, W[b] for a read.
+template <int KT>
+__device__ __forceinline__ void pg_busy(const unsigned long long *masks,
+                                        int kw, int e,
+                                        unsigned long long (&conf)[KT]) {
+  const unsigned long long *p = masks + (e >> 1) * 2 * kw;
+  if constexpr (KT == 1) {
+    const ulonglong2 wr = *(const ulonglong2 *)p;
+    conf[0] |= (e & 1) ? wr.x : (wr.x | wr.y);
+  } else {
+#pragma unroll
+    for (int k = 0; k < KT; ++k)
+      if (k < kw) conf[k] |= (e & 1) ? p[k] : (p[k] | p[kw + k]);
   }
 }
 
-// The chain's floor: the same block shape and step skeleton with no
-// work, n steps of one shared-memory round (thread 0 stores a word, every
-// thread loads it) and two barriers. No transaction path launches it; it
-// measures the least a step of the scan costs on this card.
-__global__ void __launch_bounds__(PG_MAX_THREADS)
-    pack_chain_floor_kernel(int32_t *out, long long n) {
-  __shared__ int s_val[2];
-  int acc = 0;
-  for (long long i = 0; i < n; ++i) {
-    const int buf = (int)(i & 1);
-    if (threadIdx.x == 0) s_val[buf] = acc + (int)i;
-    __syncthreads();
-    acc += s_val[buf];
-    __syncthreads();
+// Color m's bit into W[b] (a write) or R[b] (a read): a 32-bit atomicOr
+// on the half of the 64-bit word that holds it.
+__device__ __forceinline__ void pg_set(unsigned long long *masks, int kw,
+                                       int e, int m) {
+  unsigned *w =
+      (unsigned *)(masks + (e >> 1) * 2 * kw + (e & 1) * kw + (m >> 6));
+  atomicOr(w + ((m >> 5) & 1), 1u << (m & 31));
+}
+
+template <int KT>
+__global__ void __launch_bounds__(32, 1)
+    pack_scan_kernel(const int32_t *__restrict__ rows,
+                     int32_t *__restrict__ colors, int n, int stride,
+                     int n_buckets, int kw, int n_colors, int cu_cap) {
+  extern __shared__ ulonglong2 pg_smem[];
+  unsigned long long *masks = (unsigned long long *)pg_smem;
+  const int lane = threadIdx.x;
+  for (int j = lane; j < n_buckets * kw; j += 32)
+    pg_smem[j] = make_ulonglong2(0ull, 0ull);
+  uint32_t cu_used[2 * KT];
+#pragma unroll
+  for (int q = 0; q < 2 * KT; ++q) cu_used[q] = 0;
+  // Word lane of row i + PG_DEPTH, the next record to load, and of the
+  // last row, which a load past the end reads instead.
+  const int32_t *next = rows + (long long)PG_DEPTH * stride + lane;
+  const int32_t *last = rows + (long long)(n - 1) * stride + lane;
+
+  int pre[PG_DEPTH];
+#pragma unroll
+  for (int d = 0; d < PG_DEPTH; ++d)
+    pre[d] = __ldg(d < n ? rows + (long long)d * stride + lane : last);
+  __syncwarp();
+
+  for (int i0 = 0; i0 < n; i0 += PG_DEPTH) {
+#pragma unroll
+    for (int d = 0; d < PG_DEPTH; ++d) {
+      const int i = i0 + d;
+      if (i >= n) break;
+      const int v = pre[d];
+      const uint32_t cu = (uint32_t)__shfl_sync(PG_FULL, v, PG_CU);
+      const int cnt = __shfl_sync(PG_FULL, v, PG_COUNT);
+      // Lanes past the row's buckets gather bucket 0's masks and drop
+      // them, so that the common path has no divergent branch.
+      const bool mine = lane < PG_HEAD && v >= 0;
+      const int e = mine ? v : 0;
+      const int32_t *ext = rows + (long long)i * stride + 32;
+
+      // The conflicts of the row's buckets, ORed across the warp.
+      unsigned long long conf[KT], busy[KT];
+#pragma unroll
+      for (int k = 0; k < KT; ++k) busy[k] = 0;
+      pg_busy<KT>(masks, kw, e, busy);
+#pragma unroll
+      for (int k = 0; k < KT; ++k) conf[k] = mine ? busy[k] : 0;
+      if (cnt > PG_HEAD) {
+#pragma unroll 1
+        for (int t = lane; t < cnt - PG_HEAD; t += 32)
+          pg_busy<KT>(masks, kw, __ldg(ext + t), conf);
+      }
+      // The least color free of conflicts and within the CU cap.
+      int m = -1;
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        if (KT > 1 && k >= kw) break;
+        const unsigned lo = __reduce_or_sync(PG_FULL, (unsigned)conf[k]);
+        const unsigned hi =
+            __reduce_or_sync(PG_FULL, (unsigned)(conf[k] >> 32));
+        const unsigned ok_lo = __ballot_sync(
+            PG_FULL, 64 * k + lane < n_colors &&
+                         (int)(cu_used[2 * k] + cu) <= cu_cap);
+        const unsigned ok_hi = __ballot_sync(
+            PG_FULL, 64 * k + 32 + lane < n_colors &&
+                         (int)(cu_used[2 * k + 1] + cu) <= cu_cap);
+        // __ffs is 0 when no bit is set: selects, not branches.
+        const int f_lo = __ffs(~lo & ok_lo), f_hi = __ffs(~hi & ok_hi);
+        const int f = f_lo ? f_lo - 1 : (f_hi ? f_hi + 31 : -1);
+        m = m < 0 && f >= 0 ? 64 * k + f : m;
+      }
+      // It takes the row: its bits, its CUs, its color.
+      if (m >= 0 && mine) pg_set(masks, kw, v, m);
+      if (m >= 0 && cnt > PG_HEAD) {
+#pragma unroll 1
+        for (int t = lane; t < cnt - PG_HEAD; t += 32)
+          pg_set(masks, kw, __ldg(ext + t), m);
+      }
+      const bool adds = m >= 0 && lane == (m & 31);
+#pragma unroll
+      for (int q = 0; q < 2 * KT; ++q)
+        cu_used[q] += adds && q == (m >> 5) ? cu : 0u;
+      if (lane == PG_INDEX) colors[v] = m;
+      // Row i + PG_DEPTH's record, loaded after v's last use and without a
+      // condition (past the end it reads the last row again), so that it
+      // lands in v's register and nothing waits for it before step
+      // i + PG_DEPTH.
+      pre[d] = __ldg(i + PG_DEPTH < n ? next : last);
+      next += stride;
+      __syncwarp();
+    }
   }
-  if (threadIdx.x == 0) out[0] = acc;
+}
+
+// The chain's floor: one warp, n steps of a shared store, __syncwarp, a
+// shared load and one REDUX, the skeleton of a step of any one-warp scan.
+// No transaction path launches it; it measures the least a step costs on
+// this card.
+__global__ void __launch_bounds__(32, 1)
+    pack_chain_floor_kernel(int32_t *out, long long n) {
+  __shared__ uint32_t s_val[32];
+  const int lane = threadIdx.x;
+  uint32_t acc = lane;
+  for (long long i = 0; i < n; ++i) {
+    s_val[lane] = acc;
+    __syncwarp();
+    acc = __reduce_add_sync(PG_FULL, s_val[lane ^ 1]) + (uint32_t)i;
+  }
+  if (lane == 0) out[0] = (int32_t)acc;
+}
+
+template <int KT>
+static int pg_scan_launch(const int32_t *rows, int32_t *colors, int n,
+                          int stride, int n_buckets, int kw, int n_colors,
+                          int cu_cap, cudaStream_t stream) {
+  const long long smem = 16LL * kw * n_buckets;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        pack_scan_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  pack_scan_kernel<KT><<<1, 32, (size_t)smem, stream>>>(
+      rows, colors, n, stride, n_buckets, kw, n_colors, cu_cap);
+  return (int)cudaGetLastError();
 }
 
 // w_idx: (n, aw), r_idx: (n, ar) int32 buckets, -1 padded; order: (n,)
 // int64, a permutation (descending score, ties in input order); cus: (n,)
-// int32; colors: (n,) int32 out, in input order. n >= 1.
+// int32; rows: (n, pg_record_words(aw + ar)) int32 scratch; colors: (n,)
+// int32 out, in input order. 1 <= n_colors <= 64 PG_MAX_K.
 extern "C" int fd_pack_schedule(const void *w_idx, const void *r_idx,
-                                const void *order, const void *cus,
+                                const void *order, const void *cus, void *rows,
                                 void *colors, long long n, int aw, int ar,
                                 int n_colors, int h_bits, int cu_cap,
                                 void *stream) {
   if (n <= 0) return 0;
+  const int kw = (n_colors + 63) / 64;
+  if (n_colors < 1 || kw > PG_MAX_K || n >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   const int n_words = h_bits / 32;
-  const int a = aw + ar;
-  const long long smem = pg_smem_bytes(n_colors, n_words, a);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        pack_schedule_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  pack_schedule_kernel<<<1, pg_threads(n_colors, a), (size_t)smem,
-                         (cudaStream_t)stream>>>(
-      (const int32_t *)w_idx, (const int32_t *)r_idx,
-      (const int64_t *)order, (const int32_t *)cus, (int32_t *)colors, n, aw,
-      ar, n_colors, n_words, cu_cap);
-  return (int)cudaGetLastError();
+  const int stride = pg_record_words(aw + ar);
+  const cudaStream_t s = (cudaStream_t)stream;
+  pack_compact_kernel<<<(unsigned)((n + PG_PRE_ROWS - 1) / PG_PRE_ROWS),
+                        PG_PRE_ROWS * 32, 0, s>>>(
+      (const int32_t *)w_idx, (const int32_t *)r_idx, (const int64_t *)order,
+      (const int32_t *)cus, (int32_t *)rows, n, aw, ar, n_words, stride);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  const int32_t *r = (const int32_t *)rows;
+  int32_t *c = (int32_t *)colors;
+  // At least one bucket: lanes with no bucket gather bucket 0's masks.
+  const int nb = n_words > 0 ? 32 * n_words : 1;
+  const int ni = (int)n;
+  if (kw == 1) return pg_scan_launch<1>(r, c, ni, stride, nb, kw, n_colors, cu_cap, s);
+  if (kw == 2) return pg_scan_launch<2>(r, c, ni, stride, nb, kw, n_colors, cu_cap, s);
+  if (kw <= 4) return pg_scan_launch<4>(r, c, ni, stride, nb, kw, n_colors, cu_cap, s);
+  if (kw <= 8) return pg_scan_launch<8>(r, c, ni, stride, nb, kw, n_colors, cu_cap, s);
+  return pg_scan_launch<16>(r, c, ni, stride, nb, kw, n_colors, cu_cap, s);
 }
 
-extern "C" int fd_pack_chain_floor(void *out, long long n, int threads,
-                                   void *stream) {
-  pack_chain_floor_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      (int32_t *)out, n);
+// n steps of pack_chain_floor_kernel on one warp.
+extern "C" int fd_pack_chain_floor(void *out, long long n, void *stream) {
+  pack_chain_floor_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((int32_t *)out,
+                                                               n);
   return (int)cudaGetLastError();
 }

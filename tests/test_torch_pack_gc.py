@@ -6,16 +6,20 @@
 * ``pack_schedule_ref`` gives the JAX ``pack_schedule``'s colors exactly
   on the cases of ``tests/test_pack_gc.py`` (dense and sparse conflicts,
   disjoint txns, writers that serialise, readers that share, the CU cap,
-  equal scores, padding) at two JAX shapes, so that XLA:CPU compiles
-  twice: N = 64, C = 8, H = 256, AW = AR = 4, and the pack tile's
-  C = 64, H = 4096, AW = AR = 35 on mainnet-shaped and conflicting
-  blocks. ``schedule_block``'s waves and leftover are the JAX ones.
-* ``csrc/pack_gc.cu``'s algorithm, transcribed (each color tests only the
-  transaction's own buckets, b >= 0 and b / 32 < H / 32; the least free
-  color takes it; CU sums wrap at 32 bits), gives the plain version's
-  colors at odd C, H and widths, with buckets past the last word, no
-  accounts and CU sums past 2^31; the wrapper's launch geometry is the
-  kernel's, and it refuses CPU tensors.
+  equal scores, padding) at three JAX shapes, so that XLA:CPU compiles
+  three times: N = 64, C = 8, H = 256, AW = AR = 4, and C = 64, AW = AR
+  = 35 on mainnet-shaped and conflicting blocks at the pack tile's H =
+  4096 and ``bench.py`` ``pack_worker``'s H = 8192.
+  ``schedule_block``'s waves and leftover are the JAX ones.
+* ``csrc/pack_gc.cu``'s algorithm, transcribed (the compaction of each
+  sorted row's valid buckets, b >= 0 and b / 32 < H / 32, into a record;
+  per-bucket write and read masks of K = ceil(C / 64) words; the lanes'
+  CU ballot, CU sums wrapping at 32 bits; the least free color as the
+  first set bit), gives the plain version's colors at odd C (K = 1 and
+  2), H and widths, with buckets past the last word, rows of more than
+  29 buckets, no accounts and CU sums past 2^31; the wrapper's launch
+  geometry is the kernel's, it refuses what its shared memory cannot
+  hold, and it refuses CPU tensors.
 """
 
 import random
@@ -127,21 +131,23 @@ def _mainnet_block(mod_txns):
     return out[:64]
 
 
+@pytest.mark.parametrize("h_bits", [4096, 8192])
 @pytest.mark.parametrize("block", ["mainnet", "conflicts"])
-def test_colors_equal_jax_at_the_tiles_shape(block):
-    """C = 64, H = 4096, AW = AR = MAX_ACCT_CNT: the pack tile's shape."""
+def test_colors_equal_jax_at_the_tiles_shape(block, h_bits):
+    """C = 64, AW = AR = MAX_ACCT_CNT, H = 4096 (the pack tile's shape)
+    and 8192 (bench.py pack_worker's)."""
+    params = {**PATH, "h_bits": h_bits}
     def txns(m):
         if block == "mainnet":
             return _mainnet_block(m)
         return _mk_txns(m, 64, n_accounts=40, seed=9, max_w=12, max_r=20)
 
-    kw = {"h_bits": PATH["h_bits"], "max_w": MAX_ACCT_CNT,
-          "max_r": MAX_ACCT_CNT}
+    kw = {"h_bits": h_bits, "max_w": MAX_ACCT_CNT, "max_r": MAX_ACCT_CNT}
     ja = _arrays(jgc, txns(jpack), 64, **kw)
     pa = _arrays(pgc, txns(ppack), 64, **kw)
     for a, b in zip(ja, pa):
         assert np.array_equal(a, b)
-    assert np.array_equal(_port_colors(pa, PATH), _jax_colors(ja, PATH))
+    assert np.array_equal(_port_colors(pa, params), _jax_colors(ja, params))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -179,33 +185,73 @@ def _wrap32(x):
     return (int(x) + 2**31) % 2**32 - 2**31
 
 
+def _records(w, r, s, cu, n_words):
+    """pack_compact_kernel, transcribed: for each sorted position, the
+    record of pack_gc_cuda.record_words(AW + AR) words (slots 0..28 the
+    valid buckets as 2 b + read, -1 past the count; word 29 the CUs, 30
+    the input index, 31 the count; slots 29.. from word 32), its slots
+    placed by a ballot's prefix count over 32 columns at a time."""
+    aw, ar = w.shape[1], r.shape[1]
+    stride = pack_gc_cuda.record_words(aw + ar)
+    order = torch.sort(-torch.from_numpy(s), stable=True).indices.tolist()
+    recs = np.full((len(order), stride), 0x7EADBEEF, np.int64)
+    for i, o in enumerate(order):
+        cols = [*w[o], *r[o]]
+        cnt = 0
+        for base in range(0, aw + ar, 32):
+            lanes = [(c, int(cols[c])) for c in range(base, min(base + 32,
+                                                                aw + ar))]
+            valid = [(c, b) for c, b in lanes if b >= 0 and b >> 5 < n_words]
+            for t, (c, b) in enumerate(valid, start=cnt):
+                recs[i, t if t < 29 else t + 3] = 2 * b + (c >= aw)
+            cnt += len(valid)
+        recs[i, cnt:29] = -1
+        recs[i, 29:32] = int(cu[o]), o, cnt
+    return recs
+
+
 def _kernel_model(w, r, s, cu, n_colors, h_bits, cu_cap):
-    """pack_schedule_kernel's step, transcribed: the transaction's own
-    buckets against each color, the least free color, the bits set."""
-    n, aw = w.shape
+    """pack_scan_kernel's step over _records, transcribed: lane l holds
+    word l of the record and the CU totals of colors l + 32 q; each
+    lane's buckets gather W[b] | R[b] (a write) or W[b] (a read), K
+    64-bit words a set, ORed across the lanes; the lanes' CU verdicts
+    (int32 wrapping) make a ballot a 32 colors, colors >= C off; the
+    least free color is the first set bit; its bit is ORed into each
+    bucket's W or R, lane m % 32 adds the CUs, lane 30's index takes the
+    color."""
     n_words = h_bits // 32
-    used_w = np.zeros((n_colors, n_words + 1), np.uint32)
-    used_r = np.zeros_like(used_w)
-    cu_used = [0] * n_colors
-    colors = np.full(n, -7, np.int32)
-    for o in torch.sort(-torch.from_numpy(s), stable=True).indices.tolist():
-        idx = [(k < aw, int(b)) for k, b in enumerate([*w[o], *r[o]])
-               if b >= 0 and (b >> 5) < n_words]
-        m = n_colors
-        for c in range(n_colors):
-            conflict = any(
-                (used_w[c, b >> 5] | (used_r[c, b >> 5] if is_w else 0))
-                >> (b & 31) & 1 for is_w, b in idx)
-            if _wrap32(cu_used[c] + int(cu[o])) > cu_cap:
-                conflict = True
-            if not conflict:
-                m = min(m, c)
-        if m < n_colors:
-            for is_w, b in idx:
-                (used_w if is_w else used_r)[m, b >> 5] |= np.uint32(
-                    1 << (b & 31))
-            cu_used[m] = _wrap32(cu_used[m] + int(cu[o]))
-        colors[o] = m if m < n_colors else -1
+    kw = -(-n_colors // 64)
+    masks = np.zeros((32 * n_words, 2, kw), np.uint64)     # [b][W, R][k]
+    cu_used = [[0] * 32 for _ in range(2 * kw)]           # [q][lane], u32
+    colors = np.full(len(s), -7, np.int32)
+    for rec in _records(w, r, s, cu, n_words).tolist():
+        cnt, c_row = rec[31], rec[29]
+        ents = [rec[j] for j in range(29) if rec[j] >= 0]
+        ents += [rec[32 + t] for t in range(max(cnt - 29, 0))]
+        assert len(ents) == cnt
+        conf = [0] * kw
+        for e in ents:
+            for k in range(kw):
+                conf[k] |= int(masks[e >> 1, 0, k]) | (
+                    0 if e & 1 else int(masks[e >> 1, 1, k]))
+        m = -1
+        for k in range(kw):
+            ok = 0
+            for half in range(2):
+                q = 2 * k + half
+                for lane in range(32):
+                    if (32 * q + lane < n_colors and _wrap32(
+                            cu_used[q][lane] + c_row) <= cu_cap):
+                        ok |= 1 << (32 * half + lane)
+            free = ~conf[k] & ok
+            if m < 0 and free:
+                m = 64 * k + (free & -free).bit_length() - 1
+        if m >= 0:
+            for e in ents:
+                masks[e >> 1, e & 1, m >> 6] |= np.uint64(1 << (m & 63))
+            q, lane = m >> 5, m & 31
+            cu_used[q][lane] = (cu_used[q][lane] + c_row) % 2**32
+        colors[rec[30]] = m
     return colors
 
 
@@ -230,10 +276,21 @@ def test_kernel_algorithm_equals_plain(seed):
 
 
 def test_launch_geometry():
-    assert pack_gc_cuda.geometry(64, 4096, 70) == (256, 66864)
-    assert pack_gc_cuda.geometry(8, 256, 8) == (256, 4 * (2 * 8 * 9 + 8 + 16))
-    assert pack_gc_cuda.geometry(1, 4096, 70) == (96, 4 * (2 * 129 + 1 + 140))
-    assert pack_gc_cuda.geometry(300, 64, 2)[0] == 320
+    """(scan threads, compaction blocks, their threads, 16 K H' bytes)."""
+    assert pack_gc_cuda.geometry(64, 4096, 1024) == (32, 128, 256, 65536)
+    assert pack_gc_cuda.geometry(64, 8192, 65536) == (32, 8192, 256, 131072)
+    assert pack_gc_cuda.geometry(100, 4096, 20) == (32, 3, 256, 131072)
+    assert pack_gc_cuda.geometry(5, 100, 33) == (32, 5, 256, 16 * 96)
+    assert pack_gc_cuda.geometry(8, 31, 1) == (32, 1, 256, 16)  # 1 bucket
+    assert [pack_gc_cuda.record_words(a) for a in (0, 6, 29, 30, 61, 62, 70)] \
+        == [32, 32, 32, 64, 64, 96, 96]
+    a = torch.zeros(4, 2, dtype=torch.int32)
+    s, c = torch.zeros(4), torch.ones(4, dtype=torch.int32)
+    for kw in ({"n_colors": 64, "h_bits": 16384},     # 256 KB of masks
+               {"n_colors": 1025, "h_bits": 32}, {"n_colors": 0,
+                                                  "h_bits": 256}):
+        with pytest.raises(ValueError, match="shared memory"):
+            pack_gc_cuda.pack_schedule_cuda(a, a, s, c, cu_cap=1, **kw)
 
 
 def test_wrapper_refuses_cpu_tensors():
