@@ -22,17 +22,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
    paths (pack_schedule in phase 8, dedup_filter in phase 9) against
    its plain PyTorch version on the same CUDA tensors, at the main
    paths' shapes; they must agree exactly (canonical bytes, limbs and
-   masks). The fd_drain's dedup_filter (dedup_filter.cu, two passes over
-   a hash table of lane indices) runs at the start of phase 9, on the
-   meta sigs of its corpus: against dedup_filter_ref, novel mask, new
-   bank A and count equal and both input banks unchanged, on the
+   masks). The fd_drain's dedup_filter (dedup_filter.cu: one launch of
+   one CTA whose shared memory holds a hash table of lane indices and
+   the window, up to 2,048 lanes; past them, or for a wider window, a
+   memset and two launches over a grid) runs at the start of phase 9,
+   on the meta sigs of its corpus: against dedup_filter_ref, novel mask,
+   new bank A and count equal and both input banks unchanged, on the
    corpus's tags, on the same with in-batch repeats, invalid lanes, the
    all-ones tag before and after an invalid lane, forced bucket
    collisions and random banks planted, and with an invalid prefix, at
-   n = 1, 31, 33, 8191 and 65536 and windows of 2^10, 2^17 and 2^20
-   bits, then over 16 chained rounds of 8192 lanes with a rotation
-   halfway; timed by CUDA events and the trace at 8192 lanes and 2^17
-   bits and at 65536 and 2^20, with ptxas's registers, stack and spills. The bucket fill and
+   n = 1, 31, 33, 1200, 2048, 2049, 8191 and 65536 and windows of 2^10,
+   2^17 and 2^20 bits, at 131072 lanes and 2^17 bits and at 1200 lanes
+   and 2^23 bits, then over 16 chained rounds of 8192 lanes and of
+   their first 1200 with a rotation halfway; a window of 3 words must
+   be refused before any launch; timed by CUDA events and the trace
+   (after a discarded warm-up step, 90 % of the launches held, one
+   device operation a call on the one block and four on the grid, or
+   the run fails) at the main path's 1200 staged
+   lanes, n = 1, 8192 lanes, 65536 and 2^20 bits, both launches at 2048
+   and 4096 lanes, and the parent's launch on the main path, with each
+   shape's geometry and ptxas's registers (0 stack and 0 spills). The
+   bucket fill and
    aggregation split a lane's slots and a column's buckets over a warp:
    their plain versions are the split mirrors (*_split_ref), and each
    launch must also give the same points as the JAX-order version
@@ -235,6 +245,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import os
 import re
@@ -324,9 +335,18 @@ FEED_OPTS = {"inflight": 4, "max_wait_us": 200_000, "verify_mode": "direct"}
 # bits) and the chained rounds at B with one rotation halfway. Phase 9's
 # runs take the verify tile's automatic rotation quota (drain.rot_quota
 # of their TCache, ring and batch), which no run of PIPE_TCACHE reaches.
-DRAIN_N = (1, 31, 33, B - 1, 65536)
+# The one block serves up to dedup_filter_cuda.ONE_CTA_LANES = 2048 lanes
+# (and windows up to 2^19 bits), the grid the rest.
+DRAIN_N = (1, 31, 33, 1200, 2048, 2049, B - 1, 65536)
 DRAIN_H = (1 << 10, 1 << 17, 1 << 20)
 DRAIN_ROUNDS = 16
+# The grid's widest parity shapes: lanes past what any earlier launch
+# took, and a window of 2^23 bits behind a feed batch's staged txns.
+DRAIN_WIDE = ((131072, 1 << 17), (1200, 1 << 23))
+# The staged txns of a feed batch of B in phase 9 (f), which fills
+# 0.13-0.15 of its lanes (PERF.md section 5): the lanes the tile's filter
+# takes on the main path.
+DRAIN_MAIN = 1200
 ALL_ONES = (1 << 64) - 1
 # Phase 9 (r): run_pipeline's default TCache (4096), whose automatic
 # quota (4096 + FEED_DEPTH + B = 16,384 confirmed-novel publishes) the
@@ -2474,17 +2494,36 @@ def drain_kernel_phase(torch, record, tags_all: np.ndarray,
     """Phase 3's dedup_filter (run once phase 9's corpus exists, whose
     meta sigs it filters): dedup_filter.cu against dedup_filter_ref on
     the same CUDA tensors, equal outputs and inputs left as they were, at
-    every (n, h_bits) of DRAIN_N x DRAIN_H on drain_cases, then
-    DRAIN_ROUNDS chained rounds of B lanes with a rotation halfway (the
-    corpus's tags in order, wrapping to its start); its
-    time by CUDA events and by the trace at B, 2^17 bits and at 65536,
-    2^20; ptxas's registers, stack and spills."""
-    from firedancer_tpu_torch.ops import build
+    every (n, h_bits) of DRAIN_N x DRAIN_H and DRAIN_WIDE on drain_cases
+    (both launches, the one block and the grid), then DRAIN_ROUNDS chained
+    rounds of B lanes with a rotation halfway (the corpus's tags in
+    order, wrapping to its start), and DRAIN_MAIN lanes of each round
+    through the one block; a window that is not a power of two refused
+    before any launch; ptxas's registers, stack and spills (none
+    allowed) beside each shape's geometry. Times (CUDA events and the
+    trace, which must hold 90 % of the launches): the main path's
+    DRAIN_MAIN staged lanes, n = 1 (the one block's fixed cost), both
+    launches at ONE_CTA_LANES and twice that, the parent's launch (the
+    grid on all B lanes at the least table, as the tile called it before)
+    at DRAIN_MAIN of B lanes valid, and the wrapper at B and at 65536
+    lanes and 2^20 bits; the one block must show one device operation a
+    call and the grid four."""
+    from firedancer_tpu_torch.ops import backend, build
     from firedancer_tpu_torch.ops import dedup_filter as df
-    from firedancer_tpu_torch.ops.dedup_filter_cuda import dedup_filter_cuda
+    from firedancer_tpu_torch.ops import dedup_filter_cuda as dfc
 
+    dedup_filter_cuda = dfc.dedup_filter_cuda
     dev = torch.device(device)
     rng = np.random.RandomState(17)
+    # The corpus's tags, then seeded random ones up to the widest shape.
+    wide_n = max(n for n, _ in DRAIN_WIDE)
+    if len(tags_all) < wide_n:
+        k = wide_n - len(tags_all)
+        extra = (rng.randint(0, 2 ** 63, k, dtype=np.int64).astype(np.uint64)
+                 | rng.randint(0, 2, k).astype(np.uint64) << np.uint64(63))
+        tags_wide = np.concatenate([tags_all, extra])
+    else:
+        tags_wide = tags_all
 
     def up(*arrs):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -2503,7 +2542,7 @@ def drain_kernel_phase(torch, record, tags_all: np.ndarray,
         for part, g, w in zip(("novel", "bank A", "count"), got, want):
             e = max_abs_err(torch, g, w)
             err = max(err, e)
-            if e != 0 or g.dtype != w.dtype:
+            if e != 0 or g.dtype != w.dtype or g.shape != w.shape:
                 fail(f"dedup_filter {label}: {part} differs from the plain "
                      f"version (max_abs_err {e})")
         if not (torch.equal(keep[0], args[3])
@@ -2511,86 +2550,230 @@ def drain_kernel_phase(torch, record, tags_all: np.ndarray,
             fail(f"dedup_filter {label}: the kernel wrote an input bank")
         return got
 
-    by_bucket = {h: colliders(h) for h in DRAIN_H}
+    shapes = [(n, h) for n in DRAIN_N for h in DRAIN_H] + list(DRAIN_WIDE)
+    # A 2^23-bit window plants no colliders: their table would take
+    # 8 x 2^23 candidate tags.
+    by_bucket = {h: colliders(h) if h <= 1 << 20 else {} for _, h in shapes}
     checked = []
-    for n in DRAIN_N:
-        for h_bits in DRAIN_H:
-            for label, tags, valid, *banks in drain_cases(
-                    tags_all, n, h_bits, rng, by_bucket[h_bits]):
-                got = check(f"{label}, n = {n}, h_bits = {h_bits}",
-                            lanes_up(tags, valid) + up(*banks))
-                checked.append((n, h_bits, label, int(got[2])))
+    for n, h_bits in shapes:
+        for label, tags, valid, *banks in drain_cases(
+                tags_wide, n, h_bits, rng, by_bucket[h_bits]):
+            got = check(f"{label}, n = {n}, h_bits = {h_bits}",
+                        lanes_up(tags, valid) + up(*banks))
+            checked.append((n, h_bits, label, int(got[2])))
+    routes = collections.Counter(dfc.geometry(n, h)[0] for n, h in shapes)
     say("dedup_filter: equal to the plain version (novel, bank A, count; "
         "inputs unchanged) on " + "; ".join(
-            f"{lab} n={n} h={h.bit_length() - 1} novel {c}"
-            for n, h, lab, c in checked if n in DRAIN_N[-2:]) + f"; and "
-        f"at n = {', '.join(map(str, DRAIN_N))} x h_bits 2^10, 2^17, 2^20")
+            f"{lab} n={n} h={h.bit_length() - 1} "
+            f"{dfc.geometry(n, h)[0]} novel {c}" for n, h, lab, c in checked
+            if (n, h) in DRAIN_WIDE or n in (DRAIN_MAIN, B - 1)) +
+        f"; and at n = {', '.join(map(str, DRAIN_N))} x h_bits 2^10, 2^17, "
+        f"2^20 ({routes['block']} shapes on the one block, "
+        f"{routes['grid']} on the grid)")
+    if set(routes) != {"block", "grid"}:
+        fail(f"dedup_filter: the parity shapes ran one launch only: {routes}")
+    # A window that is not a power of two: ValueError before any launch.
+    before = dict(backend.launches)
+    bad = lanes_up(tags_wide[:8], np.ones(8, np.bool_)) + up(
+        np.zeros(3, np.int32), np.zeros(3, np.int32))
+    try:
+        dedup_filter_cuda(*bad)
+        fail("dedup_filter: a window of 3 words launched")
+    except ValueError as e:
+        if dict(backend.launches) != before:
+            fail("dedup_filter: the refused shape counted a launch")
+        say(f"dedup_filter refuses a window of 3 words before any launch: "
+            f"{e}")
     # Chained rounds: bank A carried on the device, both chains rotating
-    # after round DRAIN_ROUNDS / 2.
-    k_banks = r_banks = df.empty_banks(df.DEFAULT_FILTER_BITS, dev)
-    counts = []
-    for r in range(DRAIN_ROUNDS):
-        # Past the corpus's end the rounds wrap to its start: tags the
-        # window saw rounds before, across the rotation.
-        tags = tags_all[np.arange(r * batch, (r + 1) * batch)
-                        % len(tags_all)]
-        lanes = lanes_up(tags, rng.rand(batch) > 0.03)
-        got = dedup_filter_cuda(*lanes, *k_banks)
-        want = df.dedup_filter_ref(*lanes, *r_banks)
-        e = max_abs_err(torch, got, want)
-        err = max(err, e)
-        if e != 0:
-            fail(f"dedup_filter: chained round {r} differs from the plain "
-                 f"version (max_abs_err {e})")
-        counts.append(int(got[2]))
-        k_banks, r_banks = (got[1], k_banks[1]), (want[1], r_banks[1])
-        if r == DRAIN_ROUNDS // 2 - 1:
-            k_banks = (torch.zeros_like(got[1]), got[1])
-            r_banks = (torch.zeros_like(want[1]), want[1])
-    say(f"dedup_filter: {DRAIN_ROUNDS} chained rounds of {batch} lanes (bank A "
-        f"carried, a rotation after round {DRAIN_ROUNDS // 2}) equal; novel "
-        f"counts {counts}")
-    say(f"dedup_filter resources: {ptxas_line(build, 'dedup_filter')}")
-    timed = {}
-    for n, h_bits in ((batch, df.DEFAULT_FILTER_BITS),
-                      (DRAIN_N[-1], DRAIN_H[-1])):
-        _, tags, valid, *banks = drain_cases(tags_all, n, h_bits, rng,
-                                             by_bucket[h_bits])[0]
-        args = lanes_up(tags, valid) + up(*banks)
+    # after round DRAIN_ROUNDS / 2; all B lanes on the grid, then the
+    # round's first DRAIN_MAIN lanes on the one block.
+    counts = {}
+    for n in (batch, DRAIN_MAIN):
+        k_banks = r_banks = df.empty_banks(df.DEFAULT_FILTER_BITS, dev)
+        counts[n] = []
+        for r in range(DRAIN_ROUNDS):
+            # Past the corpus's end the rounds wrap to its start: tags the
+            # window saw rounds before, across the rotation.
+            tags = tags_all[np.arange(r * batch, r * batch + n)
+                            % len(tags_all)]
+            lanes = lanes_up(tags, rng.rand(n) > 0.03)
+            got = dedup_filter_cuda(*lanes, *k_banks)
+            want = df.dedup_filter_ref(*lanes, *r_banks)
+            e = max_abs_err(torch, got, want)
+            err = max(err, e)
+            if e != 0:
+                fail(f"dedup_filter: chained round {r} of {n} lanes differs "
+                     f"from the plain version (max_abs_err {e})")
+            counts[n].append(int(got[2]))
+            k_banks, r_banks = (got[1], k_banks[1]), (want[1], r_banks[1])
+            if r == DRAIN_ROUNDS // 2 - 1:
+                k_banks = (torch.zeros_like(got[1]), got[1])
+                r_banks = (torch.zeros_like(want[1]), want[1])
+    say(f"dedup_filter: {DRAIN_ROUNDS} chained rounds (bank A carried, a "
+        f"rotation after round {DRAIN_ROUNDS // 2}) equal; novel counts "
+        + "; ".join(f"{n} lanes ({dfc.geometry(n, df.DEFAULT_FILTER_BITS)[0]}"
+                    f") {c}" for n, c in counts.items()))
+    check_no_stack(build, "dedup_filter")
+    say("dedup_filter geometry (route, threads a block, dynamic shared "
+        "bytes, table slots): " + "; ".join(
+            f"n = {n}, h_bits = 2^{h.bit_length() - 1}: {dfc.geometry(n, h)}"
+            for n, h in ((1, df.DEFAULT_FILTER_BITS),
+                         (DRAIN_MAIN, df.DEFAULT_FILTER_BITS),
+                         (batch, df.DEFAULT_FILTER_BITS),
+                         (DRAIN_N[-1], DRAIN_H[-1]), *DRAIN_WIDE)))
+
+    def timed_call(label, fn, route, n, h_bits, plain=None):
+        """Say the call's CUDA-event and traced device time; the trace must
+        hold every launch and the route's device operations a call."""
+        kernels, want_ops = (1, 1) if route == "block" else (2, 4)
+        ms = time_ms(torch, fn, REPS)
+        dev_ms, ops, held, ok = traced_call_ms(torch, fn, "dedup_", kernels,
+                                               want_ops)
+        if not ok:
+            fail(f"dedup_filter {label}: no trace held 90 % of the "
+                 f"{kernels * REPS} launches with {want_ops} device "
+                 f"operations a call (launches held {held})")
+        plain_ms = time_ms(torch, plain, 2) if plain is not None else None
+        bound = bound_dedup_filter(n, h_bits)
+        plain_txt = f", plain {plain_ms:.3f} ms" if plain is not None else ""
+        say(f"  dedup_filter {label} ({route}): {ms:.4f} ms (CUDA events), "
+            f"device {dev_ms:.4f} ms in {ops:g} operations a call (trace, "
+            f"launches held {'/'.join(map(str, held))} of "
+            f"{kernels * REPS}){plain_txt}, bound {bound[0]:.6f} ms "
+            f"({bound[1]})")
+        return ms, dev_ms, plain_ms, bound
+
+    def case_args(n, h_bits, n_lanes=None):
+        """drain_cases' corpus case at n lanes, valid on the first n of
+        n_lanes lanes (n_lanes = n unless given)."""
+        n_lanes = n if n_lanes is None else n_lanes
+        _, tags, _, *banks = drain_cases(tags_wide, n_lanes, h_bits, rng,
+                                         by_bucket[h_bits])[0]
+        valid = np.arange(n_lanes) < n
+        return lanes_up(tags, valid) + up(*banks)
+
+    def forced(args, route, slots):
+        """The library's launch of route on args, as the wrapper makes it
+        but at a given table size, outside the wrapper's count."""
+        hi, lo, valid, a, b = args
+        n, w = hi.shape[0], a.shape[0]
+        scr_words = dfc.scratch_words(n, route, slots)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr, cint = ctypes.c_void_p, ctypes.c_int
+        if route == "block":
+            fn = build.bind("dedup_filter", "fd_dedup_filter_block",
+                            [ptr] * 8 + [cint] * 4 + [ptr])
+            tail = (n, w, slots, dfc.smem_bytes(n, 32 * w, slots), stream)
+        else:
+            fn = build.bind("dedup_filter", "fd_dedup_filter_grid",
+                            [ptr] * 9 + [cint] * 3 + [ptr])
+            tail = (n, w, slots, stream)
+
+        def call():
+            _, novel, bits_out, cnt, scr = dfc.outputs(n, w, dev, scr_words)
+            ptrs = (hi.data_ptr(), lo.data_ptr(), valid.data_ptr(),
+                    a.data_ptr(), b.data_ptr(), novel.data_ptr(),
+                    bits_out.data_ptr(), cnt.data_ptr())
+            if route == "grid":
+                ptrs += (scr.data_ptr(),)
+            build.check_rc(f"fd_dedup_filter_{route}", fn(*ptrs, *tail))
+            return novel, bits_out, cnt
+
+        want = df.dedup_filter_ref(*args)
+        if max_abs_err(torch, call(), want) != 0:
+            fail(f"dedup_filter: the forced {route} launch at n = {n}, "
+                 f"{slots} slots differs from the plain version")
+        return call
+
+    h17 = df.DEFAULT_FILTER_BITS
+    times = {}
+    for label, n, h_bits in (("main path, the staged lanes", DRAIN_MAIN,
+                              h17),
+                             ("n = 1, the fixed cost", 1, h17),
+                             ("a full batch", batch, h17),
+                             ("the widest timed", DRAIN_N[-1], DRAIN_H[-1])):
+        args = case_args(n, h_bits)
 
         def kern():
             return dedup_filter_cuda(*args)
 
-        ms = time_ms(torch, kern, REPS)
-        dev_ms = traced_call_ms(torch, kern)
-        plain_ms = time_ms(torch, lambda: df.dedup_filter_ref(*args), 2)
-        bound = bound_dedup_filter(n, h_bits)
-        timed[n] = (ms, plain_ms, bound)
-        say(f"  dedup_filter n = {n}, h_bits = {h_bits}: {ms:.4f} ms (CUDA "
-            f"events), device {dev_ms} (trace: both passes and the two "
-            f"memsets a call), plain {plain_ms:.3f} ms, bound "
-            f"{bound[0]:.5f} ms ({bound[1]})")
-    ms, plain_ms, bound = timed[batch]
+        route = dfc.geometry(n, h_bits)[0]
+        times[label] = timed_call(
+            f"{label}, n = {n}, h_bits = 2^{h_bits.bit_length() - 1}", kern,
+            route, n, h_bits, lambda: df.dedup_filter_ref(*args))
+    # The geometry's choices against their alternatives: the one block's
+    # table on the main path; both launches on each side of
+    # ONE_CTA_LANES, at the table the wrapper would give each; the grid's
+    # table on a full batch.
+    def block_slots(n):
+        least = slots = dfc.table_slots(n)
+        while (slots < dfc.TABLE_GROWTH * least and dfc.smem_bytes(
+                n, h17, 2 * slots) <= dfc.SMEM_LIMIT):
+            slots *= 2
+        return slots
+
+    least = dfc.table_slots
+    for n, route, slots in (
+            (DRAIN_MAIN, "block", least(DRAIN_MAIN)),
+            (DRAIN_MAIN, "block", 2 * least(DRAIN_MAIN)),
+            (DRAIN_MAIN, "block", 4 * least(DRAIN_MAIN)),
+            (dfc.ONE_CTA_LANES, "block", block_slots(dfc.ONE_CTA_LANES)),
+            (dfc.ONE_CTA_LANES, "grid",
+             dfc.TABLE_GROWTH * least(dfc.ONE_CTA_LANES)),
+            (2 * dfc.ONE_CTA_LANES, "block",
+             block_slots(2 * dfc.ONE_CTA_LANES)),
+            (2 * dfc.ONE_CTA_LANES, "grid",
+             dfc.TABLE_GROWTH * least(2 * dfc.ONE_CTA_LANES)),
+            (batch, "grid", least(batch)),
+            (batch, "grid", 4 * least(batch))):
+        timed_call(f"{route} forced, n = {n}, {slots} slots "
+                   f"({slots // least(n)} x the least)",
+                   forced(case_args(n, h17), route, slots), route, n, h17)
+    # The parent's launch on the main path: the grid at the least table
+    # over all B lanes, DRAIN_MAIN of them valid.
+    args = case_args(DRAIN_MAIN, h17, batch)
+    timed_call(f"the parent's launch: grid on all {batch} lanes, "
+               f"{DRAIN_MAIN} valid, {dfc.table_slots(batch)} slots",
+               forced(args, "grid", dfc.table_slots(batch)), "grid", batch,
+               h17)
+    ms, _, plain_ms, bound = times["main path, the staged lanes"]
     record("dedup_filter", err, ms, plain_ms, bound,
            "firedancer_tpu/ops/dedup_filter.py:84",
            "firedancer_tpu_torch/ops/csrc/dedup_filter.cu")
 
 
-def traced_call_ms(torch, fn, reps: int = REPS) -> str:
-    """The device time a call of fn keeps the card busy, by the trace
-    (every device operation of reps warm calls over reps), as text."""
-    from torch.profiler import ProfilerActivity, profile
+def traced_call_ms(torch, fn, prefix: str, kernels: int, want_ops: int,
+                   reps: int = REPS, tries: int = 3):
+    """(device ms a call, device operations a call, launches held by each
+    trace taken, accepted) of reps warm calls of fn by the trace, each
+    call launching `kernels` kernels whose names start with prefix and
+    want_ops device operations in all. The profiler's collection can
+    start late (in a full run of this script a plain trace held 4 of 20
+    launches, and the next one all 20), so each trace first runs a
+    warm-up step of reps calls that it discards. A trace is accepted when
+    it holds at least 90 % of the reps' launches and want_ops operations
+    for each call it holds; its times are over the calls it holds.
+    Otherwise it is taken again, up to tries times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    held = []
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    busy, ops = trace_busy(prof)
-    if busy <= 0:
-        return "not measured"
-    return f"{busy * 1e3 / reps:.4f} ms in {ops / reps:.1f} operations"
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        busy, ops = trace_busy(prof)
+        held.append(trace_kernels_ms(prof, prefix)[1])
+        calls = held[-1] / kernels
+        if held[-1] >= 0.9 * kernels * reps and ops == want_ops * calls:
+            return busy * 1e3 / calls, ops / calls, held, True
+    return 0.0, 0.0, held, False
 
 
 def pipe_traffic(fixtures, fx_ok, corpus) -> dict:

@@ -200,21 +200,22 @@ class EngineEntry:
         return bool(self._drain_warmed)
 
     def warm_drain(self, h_bits: int) -> bool:
-        """Run the drain's pre-filter once at the batch's shape and an
-        h_bits window on the engine's device (building the kernels first
-        on CUDA), so the first filter of a run loads nothing. Returns
+        """Run the drain's pre-filter once on one lane and once on the
+        batch's lanes, with an h_bits window, on the engine's device
+        (building the kernels first on CUDA), so the first filter of a
+        run loads nothing whichever launch its staged txns take. Returns
         True when this call warmed."""
         with self._lock:
             if h_bits in self._drain_warmed:
                 return False
-            b = self.spec.batch
             if self.device.type == "cuda":
                 build.build_all()
-            zeros = torch.zeros(b, dtype=torch.int32, device=self.device)
-            valid = torch.zeros(b, dtype=torch.bool, device=self.device)
-            _, _, cnt = dedup_filter(zeros, zeros, valid,
-                                     *empty_banks(h_bits, self.device))
-            int(cnt)
+            for n in sorted({1, self.spec.batch}):
+                zeros = torch.zeros(n, dtype=torch.int32, device=self.device)
+                valid = torch.zeros(n, dtype=torch.bool, device=self.device)
+                _, _, cnt = dedup_filter(zeros, zeros, valid,
+                                         *empty_banks(h_bits, self.device))
+                int(cnt)
             self._drain_warmed.add(h_bits)
             return True
 

@@ -997,19 +997,21 @@ class VerifyTile(Tile):
 
     def _drain_dispatch(self, slot) -> _DrainBatch:
         """Launch the drain for a slot right behind its verify launches,
-        on the same stream: the meta sigs' halves and the staged-txn mask
-        go up from the slot's pinned arenas (the slot is held until the
-        batch retires), the filter (and with drain_pack the coloring)
-        runs, and the window adopts the new bank A at once, so the next
-        batch filters against this one's inserts with no sync. An error
+        on the same stream: the staged txns' meta sig halves and mask go
+        up from the slot's pinned arenas (the slot is held until the
+        batch retires), the filter runs on those n lanes only (the
+        verdicts past them are never read, and the kernel's launch is
+        chosen by n), the coloring with drain_pack on the whole batch,
+        and the window adopts the new bank A at once, so the next batch
+        filters against this one's inserts with no sync. An error
         propagates."""
         n = slot.n_txn
         slot.tag_hi[:], slot.tag_lo[:] = split_tags(slot.psigs)
         slot.valid[:n] = True
-        slot.valid[n:] = False
         dev = self.device
-        tags_hi, tags_lo, valid = (t.to(dev, non_blocking=True) for t in (
-            slot.t_tag_hi, slot.t_tag_lo, slot.t_valid))
+        tags_hi, tags_lo, valid = (t[:n].to(dev, non_blocking=True)
+                                   for t in (slot.t_tag_hi, slot.t_tag_lo,
+                                             slot.t_valid))
         bits_a, bits_b = self._drain.banks()
         colors = None
         block = 0

@@ -6,12 +6,15 @@
   before invalid lanes, forced bucket collisions, tags with the top bits
   set and random banks, at h_bits 2^10 and 2^17 (B = 256, so XLA:CPU
   compiles twice), and over 8 chained rounds with one rotation.
-* ``csrc/dedup_filter.cu``'s two passes, transcribed (the hash table of
-  lane indices, every atomic of pass 1 in a random interleaving of the
-  lanes, the invalid lanes' warp minimum, pass 2's first-occurrence
-  test, bank bits and warp counts), give the plain version's outputs at
-  ragged n on the same cases; the wrapper's table size and its refusal
-  of CPU tensors.
+* ``csrc/dedup_filter.cu``, transcribed (the table, the window A | B and
+  the new bank; phase 1's atomics of every thread in a random
+  interleaving, each thread's lanes in order, the invalid lanes' warp
+  minimum; phase 2's first-occurrence test from the kept slots, the
+  window, bank bits and per-warp counts), gives the plain version's
+  outputs at ragged n on the same cases, at the wrapper's geometry and
+  with 32, 64 and 256 threads in flight; the wrapper's table size, its
+  choice of the one block or the grid, one output buffer, its refusals
+  and that of CPU tensors.
 * The contract tests of ``tests/test_drain.py`` on the port: one-sided
   against a window oracle, ``rot_quota``, ``DrainWindow`` rotation, both
   ``TCache`` novel paths and their tripwires against the JAX ``TCache``,
@@ -245,67 +248,105 @@ def _k_slot(key: int, mask: int) -> int:
     return k & mask
 
 
-def _k_dedup_filter(tags, valid, bits_a, bits_b, seed):
-    """dedup_filter.cu: pass 1's atomics of every valid lane in a random
-    interleaving (a lane's probe is a sequence of atomicCAS and at most
-    one atomicMin), the warp minimum of the invalid lanes, then pass 2."""
+def _k_dedup_filter(tags, valid, bits_a, bits_b, seed, threads=None,
+                    slots=None):
+    """dedup_filter.cu at the wrapper's geometry, or with `threads` threads
+    in flight over a table of `slots` slots where given: lane i on thread
+    i mod threads (the one block's DF_THREADS threads; the grid's blocks
+    of DF_GRID_THREADS, as many as cover the lanes and the window). The
+    table starts empty, the window is A | B and the new bank A (the one
+    block stages both, the grid reads them from global memory); phase 1
+    runs every thread's lanes in order, the threads' atomics in a random
+    interleaving (a lane's probe is a sequence of atomicCAS and at most one
+    atomicMin), each lane's slot kept, a warp's least invalid lane into
+    the least-invalid word; phase 2 reads the table at each lane's slot
+    and the window, ORs the bits into the new bank and adds each warp's
+    novel lanes to the count."""
     n = len(tags)
     keys = [int(t) for t in tags]
     valid = [bool(v) for v in valid]
-    slots = pdf_cuda.table_slots(n)
-    assert slots >= 2 * n and slots & (slots - 1) == 0
+    n_words = len(bits_a)
+    h_bits = 32 * n_words
+    route, g_t, smem, g_slots = pdf_cuda.geometry(n, h_bits)
+    if route == "block":
+        assert g_t == pdf_cuda.THREADS and n <= pdf_cuda.ONE_CTA_LANES
+        assert smem == pdf_cuda.smem_bytes(n, h_bits, g_slots)
+        assert smem <= pdf_cuda.SMEM_LIMIT
+        g_threads = g_t
+    else:
+        assert (g_t, smem) == (pdf_cuda.GRID_THREADS, 0)
+        g_threads = g_t * max(-(-n // g_t), -(-n_words // g_t), 1)
+    nt = g_threads if threads is None else threads
+    slots = g_slots if slots is None else slots
+    assert nt % 32 == 0
+    assert slots >= pdf_cuda.table_slots(n) >= 2 * n
+    assert slots & (slots - 1) == 0
     mask = slots - 1
+    a = [int(x) & M32 for x in bits_a]
+    b = [int(x) & M32 for x in bits_b]
     table = [EMPTY] * slots
-    slot_of = [None] * n
-    bits_out = [int(x) & M32 for x in bits_a]
-    first_invalid = EMPTY
-    for w0 in range(0, max(n, 1), 32):
-        inv = min([i for i in range(w0, min(w0 + 32, n)) if not valid[i]],
-                  default=EMPTY)
-        first_invalid = min(first_invalid, inv)
+    win = [x | y for x, y in zip(a, b)]
+    newb = list(a)
+    least_inv = EMPTY
 
-    def lane(i):
-        s = _k_slot(keys[i], mask)
-        while True:
-            yield
-            prev = table[s]                  # atomicCAS(EMPTY -> i)
-            if prev == EMPTY:
-                table[s] = i
-                break
-            assert valid[prev]               # only valid lanes insert
-            if keys[prev] == keys[i]:
+    def lanes(t):
+        return range(t, n, nt)
+
+    # Phase 1: a generator a thread, its lanes in order.
+    slot = {}
+
+    def thread(t):
+        for i in lanes(t):
+            if not valid[i]:
+                continue
+            s = _k_slot(keys[i], mask)
+            for _ in range(slots):
                 yield
-                table[s] = min(table[s], i)  # atomicMin
-                break
-            s = (s + 1) & mask
-        slot_of[i] = s
+                prev = table[s]              # atomicCAS(EMPTY -> i)
+                if prev == EMPTY:
+                    table[s] = i
+                    break
+                assert valid[prev]           # only valid lanes insert
+                if keys[prev] == keys[i]:
+                    yield
+                    table[s] = min(table[s], i)  # atomicMin
+                    break
+                s = (s + 1) & mask
+            else:
+                raise AssertionError("a probe cycled the table")
+            slot[i] = s
 
+    for w0 in range(0, nt, 32):              # one atomicMin a warp
+        inv = min([i for t in range(w0, w0 + 32) for i in lanes(t)
+                   if not valid[i]], default=EMPTY)
+        least_inv = min(least_inv, inv)
     rng = random.Random(seed)
-    live = [lane(i) for i in range(n) if valid[i]]
+    live = [thread(t) for t in range(nt) if lanes(t)]
     while live:
-        g = rng.choice(live)
+        gen = rng.choice(live)
         try:
-            next(g)
+            next(gen)
         except StopIteration:
-            live.remove(g)
+            live.remove(gen)
+    # Phase 2.
     novel = np.zeros(n, np.bool_)
-    h_bits = 32 * len(bits_a)
-    for i in range(n):
-        if not valid[i]:
-            continue
-        b = _bucket_py(keys[i], h_bits)
-        w, bit = b >> 5, 1 << (b & 31)
-        hit = ((int(bits_a[w]) | int(bits_b[w])) & M32 & bit) != 0
-        first = table[slot_of[i]] == i
-        if keys[i] == ALL_ONES:
-            first = first and i < first_invalid
-        if first:
-            novel[i] = not hit
-            bits_out[w] |= bit                # atomicOr
     cnt = 0
-    for w0 in range(0, n, 32):                # one atomicAdd a warp
-        cnt += int(novel[w0:w0 + 32].sum())
-    return novel, np.array(bits_out, np.uint32).view(np.int32), cnt
+    for w0 in range(0, nt, 32):
+        mine = 0
+        for t in range(w0, w0 + 32):
+            for i in lanes(t):
+                s = slot.get(i)
+                if s is None or table[s] != i:
+                    continue
+                if keys[i] == ALL_ONES and not i < least_inv:
+                    continue
+                bkt = _bucket_py(keys[i], h_bits)
+                w, bit = bkt >> 5, 1 << (bkt & 31)
+                novel[i] = not win[w] & bit
+                newb[w] |= bit               # atomicOr
+                mine += int(novel[i])
+        cnt += mine                          # one atomicAdd a warp
+    return novel, np.array(newb, np.uint32).view(np.int32), cnt
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 100, B])
@@ -321,9 +362,110 @@ def test_kernel_transcription_equals_ref(name, n):
         assert np.array_equal(a_new, want[1]) and cnt == want[2], seed
 
 
+@pytest.mark.parametrize("threads", [32, 64, 256])
+@pytest.mark.parametrize("n", [1, 31, 33, 100])
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_transcription_equals_ref_on_fewer_threads(name, n, threads):
+    """The same cases with 32, 64 and 256 threads in flight (a thread runs
+    several lanes in order, as the one block's threads do past 1,024
+    lanes and the grid's past its blocks), at the least table (at most
+    half full: long probes) and at 8 times its size."""
+    tags, valid, bits_a, bits_b = _case(name, H_SMALL, seed=n, n=max(n, B))
+    tags, valid = tags[:n], valid[:n]
+    want = _port(tags, valid, bits_a, bits_b)
+    least = pdf_cuda.table_slots(n)
+    for seed, slots in ((0, least), (1, least), (2, 8 * least)):
+        novel, a_new, cnt = _k_dedup_filter(tags, valid, bits_a, bits_b,
+                                            seed, threads=threads,
+                                            slots=slots)
+        assert np.array_equal(novel, want[0]), seed
+        assert np.array_equal(a_new, want[1]) and cnt == want[2], seed
+
+
+def test_kernel_transcription_windows_of_one_and_two_words():
+    """Windows of 1 and 2 words (the one block's scalar staging), with 32
+    threads and with the one block's 1,024."""
+    for h_bits in (32, 64):
+        for name in ("banks", "repeats", "sentinel", "collisions"):
+            tags, valid, bits_a, bits_b = _case(name, h_bits, seed=5)
+            tags, valid = tags[:100], valid[:100]
+            want = _port(tags, valid, bits_a, bits_b)
+            for threads in (32, None):
+                novel, a_new, cnt = _k_dedup_filter(
+                    tags, valid, bits_a, bits_b, seed=h_bits,
+                    threads=threads, slots=pdf_cuda.table_slots(100))
+                assert np.array_equal(novel, want[0]), (h_bits, name)
+                assert np.array_equal(a_new, want[1]), (h_bits, name)
+                assert cnt == want[2], (h_bits, name)
+
+
 def test_kernel_table_geometry_and_cpu_refusal():
+    import chip_smoke
+
     assert [pdf_cuda.table_slots(n) for n in (0, 1, 16, 17, 8192, 65536)] \
         == [32, 32, 32, 64, 16384, 131072]
+    limit = pdf_cuda.SMEM_LIMIT
+    assert limit == 232_448 and pdf_cuda.ONE_CTA_LANES == 2048
+    # One block up to 2,048 lanes (a feed batch's staged txns), its table
+    # grown up to 8 times its least size while it fits; the grid past
+    # them, or for a window too wide for the block's shared memory.
+    assert pdf_cuda.geometry(1200, 1 << 17) == ("block", 1024, 172_048,
+                                                32768)
+    assert pdf_cuda.geometry(2048, 1 << 17)[0] == "block"
+    assert pdf_cuda.geometry(2049, 1 << 17) == ("grid", 256, 0, 65536)
+    assert pdf_cuda.geometry(8192, 1 << 17) == ("grid", 256, 0, 131072)
+    assert pdf_cuda.geometry(65536, 1 << 20) == ("grid", 256, 0, 1 << 20)
+    assert pdf_cuda.geometry(1, 1 << 19)[::3] == ("block", 256)
+    assert pdf_cuda.geometry(1, 1 << 20) == ("grid", 256, 0, 256)
+    shapes = [(n, h) for n in chip_smoke.DRAIN_N for h in chip_smoke.DRAIN_H]
+    shapes += [(131072, 1 << 17), (0, 32), (2048, 1 << 19), (4097, 32),
+               (8192, 1 << 23), (1, 1 << 26), (pdf_cuda.MAX_LANES, 32)]
+    for n, h in shapes:
+        route, threads, smem, slots = pdf_cuda.geometry(n, h)
+        least = pdf_cuda.table_slots(n)
+        assert slots & (slots - 1) == 0 and least <= slots <= 8 * least
+        fits = pdf_cuda.smem_bytes(n, h, least) <= limit
+        if route == "block":
+            assert n <= pdf_cuda.ONE_CTA_LANES and fits, (n, h)
+            assert threads == pdf_cuda.THREADS == 1024
+            assert smem == pdf_cuda.smem_bytes(n, h, slots) <= limit, (n, h)
+            assert slots == 8 * least or \
+                pdf_cuda.smem_bytes(n, h, 2 * slots) > limit, (n, h)
+            assert pdf_cuda.scratch_words(n, route, slots) == 0
+        else:
+            assert route == "grid" and (threads, smem) == (256, 0), (n, h)
+            assert n > pdf_cuda.ONE_CTA_LANES or not fits, (n, h)
+            assert slots == min(8 * least, 1 << 30) and slots < 2 ** 31
+            assert pdf_cuda.scratch_words(n, route, slots) == slots + 1 + n
+    # Refused before any tensor check or launch: past MAX_LANES, and a
+    # window that is not a power of two.
+    backend.reset_counts()
+    with pytest.raises(ValueError, match="lanes"):
+        pdf_cuda.geometry(pdf_cuda.MAX_LANES + 1, 32)
+    with pytest.raises(ValueError, match="power of two"):
+        pdf_cuda.geometry(8, 48)
+    lanes = torch.zeros(8, dtype=torch.int32)
+    bank = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        pdf_cuda.dedup_filter_cuda(lanes, lanes,
+                                   torch.ones(8, dtype=torch.bool), bank,
+                                   bank)
+    assert not backend.launches
+    # The call's one allocation: bank, count, scratch and verdicts as views.
+    for scratch in (0, 100):
+        buf, novel, bank, cnt, scr = pdf_cuda.outputs(33, 4096, "cpu",
+                                                      scratch)
+        assert buf.dtype == torch.uint8
+        assert buf.numel() == 4 * 4096 + 16 + 4 * scratch + 33
+        assert (novel.dtype, tuple(novel.shape)) == (torch.bool, (33,))
+        assert (bank.dtype, tuple(bank.shape)) == (torch.int32, (4096,))
+        assert (scr.dtype, tuple(scr.shape)) == (torch.int32, (scratch,))
+        assert (cnt.dtype, cnt.dim()) == (torch.int32, 0)
+        base = buf.data_ptr()
+        assert bank.data_ptr() == base and cnt.data_ptr() == base + 4 * 4096
+        assert novel.data_ptr() == base + 4 * 4096 + 16 + 4 * scratch
+        if scratch:
+            assert scr.data_ptr() == base + 4 * 4096 + 16
     hi = torch.zeros(4, dtype=torch.int32)
     a, b = pdf.empty_banks(32)
     with pytest.raises(ValueError, match="CUDA"):
