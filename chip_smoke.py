@@ -210,8 +210,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    mainnet_corpus(n=100000, seed=1234) built and signed on the card,
    rings 4,096 deep in a 2^27-byte workspace, B = 8192, a dedup window
    of 2^18, inflight 4, a 200 ms deadline, direct, greedy, the source
-   and dedup/pack/sink in worker processes, four times in turns: drain
-   on, off, off, on (the A/B, with its txn/s and latencies side by
+   and dedup/pack/sink in worker processes, twice: drain on, then off
+   (the A/B, cut from four runs in turns to keep the script within half
+   its time limit, with its txn/s and latencies side by
    side). (r) The window's rotation at run_pipeline's default TCache of
    4,096 (quota 4,096 + 4,096 + 8,192): 48,000 of (a)'s valid txns, each
    followed by a copy with a corrupted signature, and a repeat every 50
@@ -235,7 +236,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
    after they exit) and the host's cores. The kernel rows' launches in
    the JSON line are those of the phase-9 run that runs them: (a)'s
    first drain-on run for the direct rows and dedup_filter, the gc run
-   for pack_schedule, the rlc run for the RLC rows.
+   for pack_schedule, the rlc run for the RLC rows. Then the engine
+   ladder: K1-K4 at 16,384 and 32,768 and dedup_filter on the staged
+   txns of a 32,768-lane batch against their plain versions
+   (rung_kernel_parity); (l) (a)'s corpus and options at B = 32,768 on
+   rings 32,768 deep with the default ladder 8,192 / 16,384 / 32,768,
+   scheduler on, then off (the A/B), beside (a)'s figures: every batch
+   in rung_hist, at least two rungs used, every rung WARM and each used
+   rung with a service EMA, launches = the batches' plus those of the
+   warm passes the run made; (k) the same run with a ReconfigController
+   on a request file: to rlc on the ladder [16,384] once a batch has
+   shipped, back to direct with the drain off once that applied, a
+   third request refused while the second pends; two reconfigs, one
+   refusal, the sink exact, the retired engines gone from the registry.
 10. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
@@ -355,6 +368,25 @@ ALL_ONES = (1 << 64) - 1
 ROT_TCACHE = 4096
 ROT_UNIQUE = 48_000
 ROT_EVERY = 50
+# Phase 9 (l) and (k): the engine ladder at full width. A staging batch
+# of LADDER_B tops the default ladder (engine.DEFAULT_LADDER); (a)'s
+# corpus, dedup window, inflight and deadline, with rings TILE_DEPTH
+# deep: at (a)'s 4,096 the held-back ack commits every slot by 4,032
+# txns (about 4,400 lanes), so no batch could pass the smallest rung.
+LADDER_B = 32768
+LADDER_RUNGS = [8192, 16384, 32768]
+# K1-K4 at the rungs above the main path's B (row 17 at a LADDER_B-lane
+# batch's staged txns).
+RUNG_B = (16384, 32768)
+# (k)'s live reconfig requests, written to the controller's file in
+# turn; the third is made as soon as the second is accepted, while it is
+# pending, and must be refused.
+# (k) takes the first RECONFIG_N payloads of (a)'s corpus, enough for
+# its two swaps, to keep the script within half its time limit.
+RECONFIG_N = 60_000
+RECONFIG_1 = {"verify_mode": "rlc", "frontend": "fused", "ladder": [16384]}
+RECONFIG_2 = {"verify_mode": "direct", "drain": "off"}
+RECONFIG_3 = {"ladder": [8192]}
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -2903,20 +2935,31 @@ def drain_pack_parity(torch, kept) -> None:
 
 def pipeline_run(torch, card, label, traffic, sched, batch, *,
                  depth=TILE_DEPTH, wksp_sz=TILE_WKSP, tcache_depth=PIPE_TCACHE,
-                 verify_opts=None, feed=False, feed_proc=None):
+                 verify_opts=None, feed=False, feed_proc=None, tile_hook=None,
+                 mixed=False):
     """One run_pipeline on the card, replay -> verify -> dedup -> pack
     (sched) -> sink, with feed=False the in-process step loop (phase 8
-    (b)), with feed=True the fd_feed runtime (phase 9); exact
-    accounting, launches and numbers. A feed run arms the fd_drain
-    unless verify_opts say drain="off": every batch filtered once (one
-    dedup_filter launch each), the novel and maybe publishes equal to
-    verify's publishes and to the dedup tile's skipped and made probes,
-    no false novel; with drain_pack, pack_schedule also launches once a
-    verify batch and no block falls back to the greedy waves. Where the
-    traffic gives "ha", "dedup" and "min_rot", the HA and dedup filters
-    must drop exactly those counts and the window rotate at least
-    min_rot times. Returns (result, launches)."""
+    (b)), with feed=True the fd_feed runtime (phase 9; with tile_hook,
+    run_feed_pipeline given the hook); exact accounting, launches and
+    numbers. Launches are the batches' and those of the warm passes the
+    run made (a rung warmed in the background: a direct batch each); the
+    counts are read once the prewarm queue is idle. A feed run arms the
+    fd_drain unless verify_opts say drain="off": every batch filtered
+    once (one dedup_filter launch each), the novel and maybe publishes
+    equal to verify's publishes and to the dedup tile's skipped and made
+    probes, no false novel; with drain_pack, pack_schedule also launches
+    once a verify batch and no block falls back to the greedy waves.
+    Where the traffic gives "ha", "dedup" and "min_rot", the HA and
+    dedup filters must drop exactly those counts and the window rotate
+    at least min_rot times. mixed (a live reconfig's run: both verify
+    modes, the drain switched off mid-run): every direct, fused RLC and
+    dedup_filter kernel launched, some batches and not all filtered,
+    the dedup tile's skipped probes equal to the novel claims and its
+    probes to verify's publishes, no false novel. Returns (result,
+    launches)."""
     from firedancer_tpu_torch.disco import pipeline
+    from firedancer_tpu_torch.disco.engine import registry
+    from firedancer_tpu_torch.disco.feed.runtime import run_feed_pipeline
     from firedancer_tpu_torch.ops import backend
     from torch.profiler import ProfilerActivity, profile
 
@@ -2926,19 +2969,30 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     path = os.path.join(REPO, "build", "pipeline_smoke.wksp")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     topo = pipeline.build_topology(path, depth=depth, wksp_sz=wksp_sz)
+    reg = registry()
+    warms0 = {e: e.warms for e in reg.entries()}
     try:
         torch.cuda.synchronize()
         backend.reset_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res = pipeline.run_pipeline(
-                topo, payloads, verify_backend="gpu", verify_batch=batch,
-                tcache_depth=tcache_depth, record_digests=True,
-                pack_scheduler=sched, timeout_s=600.0, verify_opts=vopts,
-                feed=feed, feed_proc=feed_proc)
+            kw = dict(verify_backend="gpu", verify_batch=batch,
+                      tcache_depth=tcache_depth, record_digests=True,
+                      pack_scheduler=sched, timeout_s=600.0,
+                      verify_opts=vopts, feed_proc=feed_proc)
+            if tile_hook is None:
+                res = pipeline.run_pipeline(topo, payloads, feed=feed, **kw)
+            else:
+                res = run_feed_pipeline(topo, payloads, tile_hook=tile_hook,
+                                        **kw)
+            idle_by = time.perf_counter() + 120.0
+            while not reg.prewarm_idle() and time.perf_counter() < idle_by:
+                time.sleep(0.01)
             torch.cuda.synchronize()
         launches, plain = dict(backend.launches), dict(backend.plain_calls)
     finally:
         os.remove(path)
+    warmed = {e.key: (e.spec.mode, e.warms - warms0.get(e, 0))
+              for e in reg.entries() if e.warms > warms0.get(e, 0)}
 
     d = res.diag
     filt = (d["tile.verify"]["ha_filt_cnt"] + d["tile.verify"]["sv_filt_cnt"]
@@ -2962,10 +3016,26 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     if len(res.bank_hist) < 2:
         problems.append(f"one bank only: {res.bank_hist}")
     want_l = tile_want_launches(mode, vs["batches"], vs["rlc_fallback"])
+    for key, (wmode, n) in warmed.items():
+        if wmode != "direct" and not mixed:
+            problems.append(f"an {wmode} warm in the run ({key})")
+        for k in DIRECT_KERNELS:
+            want_l[k] = want_l.get(k, 0) + n
     drained = feed and vopts.get("drain", "auto") != "off"
     ds = res.dedup_stats
     claims = vs["drain_novel"] + vs["drain_maybe"]
-    if drained:
+    if mixed:
+        pubs = d["link.verify_dedup"]["tx_seq"]
+        if not 0 < vs["drain_batches"] < vs["batches"]:
+            problems.append(f"drain batches {vs['drain_batches']} not in "
+                            f"(0, {vs['batches']})")
+        if (ds["probe_skip"] != vs["drain_novel"]
+                or ds["probe_skip"] + ds["probed"] != pubs):
+            problems.append(f"dedup probes {ds} against novel "
+                            f"{vs['drain_novel']} and publishes {pubs}")
+        if ds["false_novel"]:
+            problems.append(f"false novel {ds['false_novel']}")
+    elif drained:
         want_l["dedup_filter"] = vs["drain_batches"]
         if vs["drain_batches"] != vs["batches"]:
             problems.append(f"drain batches {vs['drain_batches']} != "
@@ -3006,7 +3076,14 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
                 problems.append(f"drain_pack: {ps['sched_fallback']} blocks "
                                 "fell back to the greedy waves")
     want_l = {k: v for k, v in want_l.items() if v}
-    if launches != want_l:
+    if mixed:
+        want_l = {k: launches.get(k, 0) for k in (
+            *DIRECT_KERNELS, *FRONT_LAUNCHES["fused"], *RLC_PASS,
+            "dedup_filter")}
+        if not all(want_l.values()):
+            problems.append(f"a kernel of the run's paths was not "
+                            f"launched: {want_l}")
+    elif launches != want_l:
         problems.append(f"launches {launches} != {want_l}")
     if plain:
         problems.append(f"plain versions ran: {plain}")
@@ -3078,7 +3155,8 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     if problems:
         fail(f"{label}: " + "; ".join(problems))
     say(f"{label}: sink multiset and filter accounting exact, launches = "
-        f"{want_l}, no plain call")
+        f"{launches if mixed else want_l}, no plain call; warm passes in "
+        f"the run {warmed or 'none'}")
     return res, launches
 
 
@@ -3101,8 +3179,7 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
     (drain_kernel_phase). (a) the bench's replay shape (bench.py:287-315):
     FEED_N txns of mainnet_corpus(seed=1234) built and signed on the
     card, rings of FEED_DEPTH, inflight 4, a 200 ms deadline, greedy,
-    worker processes, four times in turns: drain on, off, off, on (the
-    A/B); (r) rotation_traffic at run_pipeline's default TCache, whose
+    worker processes, twice: drain on, then off (the A/B); (r) rotation_traffic at run_pipeline's default TCache, whose
     automatic quota the run passes; (b) phase 8's traffic in five runs: in
     process and in worker processes (greedy, direct), gc (in process,
     forced), rlc (worker processes), and gc with drain_pack (each verify
@@ -3130,7 +3207,7 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
         registry().acquire(EngineSpec(mode, batch))[0].warm_drain(
             DEFAULT_FILTER_BITS)
     runs = {}
-    for arm in ("auto", "off", "off", "auto"):
+    for arm in ("auto", "off"):
         opts = dict(FEED_OPTS, drain=arm)
         res, launches = pipeline_run(
             torch, card, f"feed (a) bench replay, worker processes, drain "
@@ -3141,7 +3218,7 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
     for name in DIRECT_KERNELS + ("dedup_filter",):
         rows[name]["launches"] = runs["auto"][0][1][name]
     n_txn = len(bench.payloads)
-    say("feed (a) drain A/B, in turns on, off, off, on: " + "; ".join(
+    say("feed (a) drain A/B, on then off: " + "; ".join(
         f"{arm} " + ", ".join(
             f"{n_txn / r.span_s:.0f} txn/s p50 {r.latency_p50_ns / 1e6:.1f} "
             f"p99 {r.latency_p99_ns / 1e6:.1f} ms" for r, _ in rs)
@@ -3177,6 +3254,288 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
             for name in ("frontend_rlc", *RLC_PASS):
                 for row in TAILS_ROWS if name == "msm_tails" else (name,):
                     rows[row]["launches"] = launches[name]
+    rung_kernel_parity(torch, bench)
+    ladder_runs(torch, card, bench, [r for rs in runs.values()
+                                     for r, _ in rs])
+    reconfig_run(torch, card, bench)
+
+
+def rung_kernel_parity(torch, bench, device="cuda") -> None:
+    """Rows 1-4 at the rungs above B (RUNG_B) against their plain
+    versions on the same CUDA tensors, as phase 3 holds them at B: K1 on
+    n rows of the bench's 256 bytes with lengths 0-256 (0, 111, 112, 239,
+    240 planted), K2 on 2n encodings (the edge corpus first, then random
+    bytes), K3 on n of K2's decoded points with random h and s, K4 on
+    those points against (x Z : y Z : Z) at a random Z with X moved by
+    one on about half the lanes. Then row 17 on the staged txns of a
+    LADDER_B-lane batch of the bench corpus (its first txns that parse,
+    up to LADDER_B signature lanes) at the tile's window: drain_cases'
+    three inputs, the grid launch."""
+    from firedancer_tpu_torch.ballet.ed25519 import corpus
+    from firedancer_tpu_torch.ballet.txn import TxnParseError, parse_txn
+    from firedancer_tpu_torch.disco.tiles import meta_sig
+    from firedancer_tpu_torch.ops import curve_cuda, dsm_cuda
+    from firedancer_tpu_torch.ops import dedup_filter as df
+    from firedancer_tpu_torch.ops import dedup_filter_cuda as dfc
+    from firedancer_tpu_torch.ops import fe25519 as fe
+    from firedancer_tpu_torch.ops import frontend_cuda
+
+    dev = torch.device(device)
+    rng = np.random.RandomState(23)
+
+    def gpu(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def parity(name, got, want):
+        err = max_abs_err(torch, got, want)
+        if err != 0:
+            fail(f"{name}: kernel disagrees with its plain version "
+                 f"(max_abs_err {err})")
+
+    edge = np.frombuffer(b"".join(corpus.edge_encodings(rng)),
+                         np.uint8).reshape(-1, 32)
+    row = 64 + MSG_LEN
+    for n in RUNG_B:
+        lens = rng.randint(0, row + 1, n).astype(np.int32)
+        lens[:5] = [0, 111, 112, 239, 240]
+        msgs, lens = gpu(rng.randint(0, 256, (n, row), dtype=np.uint8)), \
+            gpu(lens)
+        parity(f"sha512_mod_l at {n}",
+               frontend_cuda.sha512_mod_l_cuda(msgs, lens),
+               frontend_cuda.sha512_mod_l_ref(msgs, lens))
+        enc = rng.randint(0, 256, (2 * n, 32), dtype=np.uint8)
+        enc[:len(edge)] = edge
+        enc = gpu(enc)
+        k2 = curve_cuda.decompress_so_cuda(enc)
+        parity(f"decompress_so at {2 * n} lanes", k2,
+               curve_cuda.decompress_so_ref(enc))
+        ok_idx = torch.nonzero(k2[1]).flatten()
+        a_pt = k2[0][ok_idx[torch.arange(n, device=dev)
+                            % ok_idx.numel()]].contiguous()
+        h, s = (gpu(rng.randint(0, 256, (n, 32), dtype=np.uint8))
+                for _ in range(2))
+        parity(f"double_scalarmult at {n}",
+               dsm_cuda.double_scalarmult_cuda(h, a_pt, s),
+               dsm_cuda.double_scalarmult_ref(h, a_pt, s))
+        z = fe.fe_from_bytes(gpu(rng.randint(0, 256, (n, 32),
+                                              dtype=np.uint8)))
+        x, y = (fe.fe_from_limbs51(a_pt[:, c]) for c in (0, 1))
+        one = fe.fe_from_limbs51(torch.tensor(
+            [1, 0, 0, 0, 0], dtype=torch.int64, device=dev).expand(n, 5))
+        X = fe.fe_mul(x, z)
+        moved = gpu(rng.randint(0, 2, n).astype(np.bool_))
+        X = torch.where(moved[:, None], fe.fe_add(X, one), X)
+        proj = torch.stack([fe.fe_to_limbs51(c)
+                            for c in (X, fe.fe_mul(y, z), z)], dim=1)
+        proj = proj.contiguous()
+        eq = curve_cuda.point_eq_affine_cuda(a_pt, proj)
+        parity(f"point_eq at {n}", eq,
+               curve_cuda.point_eq_affine_ref(a_pt, proj))
+        if not bool((eq == ~moved).all()):
+            fail(f"point_eq at {n}: a lane's verdict is not its own")
+        say(f"rungs: sha512_mod_l, decompress_so ({2 * n} lanes), "
+            f"double_scalarmult and point_eq equal to their plain versions "
+            f"at n = {n} ({int(k2[1].sum())} encodings decode, "
+            f"{int(eq.sum())} points equal)")
+    tags, lanes = [], 0
+    for p in bench.payloads:
+        try:
+            cnt = parse_txn(p).signature_cnt
+        except TxnParseError:
+            continue
+        if lanes + cnt > LADDER_B:
+            break
+        lanes += cnt
+        tags.append(meta_sig(p))
+    tags = np.array(tags, np.uint64)
+    n, h_bits = len(tags), df.DEFAULT_FILTER_BITS
+    route = dfc.geometry(n, h_bits)[0]
+    if route != "grid":
+        fail(f"dedup_filter at {n} lanes: route {route}, want grid")
+    for label, t, valid, bits_a, bits_b in drain_cases(
+            tags, n, h_bits, rng, colliders(h_bits)):
+        args = tuple(gpu(a) for a in (*df.split_tags(t), valid, bits_a,
+                                      bits_b))
+        for part, g, w in zip(("novel", "bank A", "count"),
+                              dfc.dedup_filter_cuda(*args),
+                              df.dedup_filter_ref(*args)):
+            parity(f"dedup_filter {label} at {n} lanes ({part})", g, w)
+    say(f"rungs: dedup_filter equal to its plain version on the {n} staged "
+        f"txns ({lanes} lanes) of a {LADDER_B}-lane batch of the bench "
+        f"corpus, window 2^{h_bits.bit_length() - 1}, route {route}, three "
+        "inputs")
+
+
+def ladder_runs(torch, card, bench, fixed) -> None:
+    """Phase 9 (l), the engine ladder at full width: (a)'s corpus and
+    options at B = LADDER_B on rings TILE_DEPTH deep, greedy, worker
+    processes, the default ladder with the scheduler on (its primary
+    engine and filter warmed before the run; the other rungs warm in the
+    background during it), then off (the A/B): the sink exact, the
+    ladder LADDER_RUNGS, every batch in rung_hist and at least two rungs
+    used, every rung WARM, each rung used with a service EMA. fixed:
+    (a)'s runs, printed beside."""
+    from firedancer_tpu_torch.disco.engine import ENGINE_WARM, EngineSpec
+    from firedancer_tpu_torch.disco.engine import registry
+    from firedancer_tpu_torch.ops.dedup_filter import DEFAULT_FILTER_BITS
+
+    reg = registry()
+    traffic = pipe_traffic([], [], bench)
+    n_txn = len(bench.payloads)
+    t0 = time.perf_counter()
+    prim, _ = reg.acquire(EngineSpec("direct", LADDER_B))
+    prim.warm_drain(DEFAULT_FILTER_BITS)
+    say(f"ladder: {prim.key} warmed in {time.perf_counter() - t0:.2f} s "
+        f"(warm_s {prim.warm_s:.3f})")
+    runs = {}
+    for sched in (True, False):
+        res, launches = pipeline_run(
+            torch, card, f"feed (l) ladder B={LADDER_B}, sched {sched}, "
+            "worker processes", traffic, "greedy", LADDER_B,
+            verify_opts=dict(FEED_OPTS, sched=sched), feed=True,
+            feed_proc=True)
+        runs[sched] = res
+        vs = res.verify_stats[0]
+        say(f"feed (l) sched {sched}: rung_ladder {vs['rung_ladder']}, "
+            f"rung_hist {vs['rung_hist']}, batches {vs['batches']}, fill "
+            f"{vs['fill_ratio']}, switches {vs['rung_switches']}, rung_cur "
+            f"{vs['rung_cur']}; launches {launches}")
+    vs, problems = runs[True].verify_stats[0], []
+    hist = vs["rung_hist"]
+    if vs["rung_ladder"] != LADDER_RUNGS:
+        problems.append(f"rung_ladder {vs['rung_ladder']}")
+    if sum(hist.values()) != vs["batches"] or len(hist) < 2:
+        problems.append(f"rung_hist {hist} against {vs['batches']} batches")
+    off = runs[False].verify_stats[0]
+    if off["rung_ladder"] or off["rung_hist"] or off["rung_switches"]:
+        problems.append(f"sched=False run scheduled: {off['rung_ladder']}, "
+                        f"{off['rung_hist']}")
+    for r in LADDER_RUNGS:
+        e = reg.entry(EngineSpec("direct", r))
+        say(f"feed (l) rung {r}: {e.state}, warm_s {e.warm_s:.4f} "
+            f"({e.warms} warm passes), service_ns {e.service_ns}, "
+            f"dispatches {e.dispatches} [{card}]")
+        if e.state != ENGINE_WARM or (str(r) in hist and not e.service_ns):
+            problems.append(f"rung {r}: {e.state}, service_ns "
+                            f"{e.service_ns}, err {e.err}")
+    if problems:
+        fail("feed (l): " + "; ".join(problems))
+    say("feed (l) against (a)'s fixed B: " + "; ".join(
+        f"{label} {n_txn / r.span_s:.0f} txn/s p50 "
+        f"{r.latency_p50_ns / 1e6:.1f} p99 {r.latency_p99_ns / 1e6:.1f} ms"
+        for label, r in ([("(a) B=8192 ring 4096", r) for r in fixed]
+                         + [(f"(l) sched on B={LADDER_B}", runs[True]),
+                            (f"(l) sched off B={LADDER_B}", runs[False])]))
+        + f" [{card}]")
+
+
+def reconfig_run(torch, card, bench) -> None:
+    """Phase 9 (k), live reconfig on the card: (l)'s run on the first
+    RECONFIG_N payloads of (a)'s corpus with a ReconfigController on a
+    request file in a temporary directory. Once
+    a batch has been dispatched RECONFIG_1 is written to it, once that
+    applied RECONFIG_2, and the controller makes RECONFIG_3 as soon as
+    RECONFIG_2 is accepted: two reconfigs and one refusal, the sink
+    exact, the retired engines gone from the registry, the final mode
+    and ladder RECONFIG_2's on RECONFIG_1's rungs, no leaked slot."""
+    import tempfile
+    import threading
+
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.disco.soak import ReconfigController
+
+    import hashlib
+
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+
+    reg = registry()
+    payloads = bench.payloads[:RECONFIG_N]
+    # The corpus is shuffled, so a duplicate may come before its
+    # original: in a prefix the first copy of each valid txn reaches
+    # the sink, and every other payload lands in a filter.
+    valid = {p for p, e in zip(payloads, bench.expected[:RECONFIG_N])
+             if e in (dcorpus.OK, dcorpus.DUP)}
+    traffic = {"payloads": payloads, "want": collections.Counter(
+        hashlib.sha256(p).digest() for p in valid),
+        "not_ok": len(payloads) - len(valid), "fx_over_cap": 0,
+        "fx_bad_budget": 0}
+    n_txn = len(payloads)
+    dev = reg.acquire(EngineSpec("direct", LADDER_B))[0].device
+    tmp = tempfile.mkdtemp(prefix="fd_reconfig_")
+    path = os.path.join(tmp, "reconfig.json")
+
+    def write(req):
+        with open(path + ".tmp", "w", encoding="utf-8") as f:
+            json.dump(req, f)
+        os.replace(path + ".tmp", path)
+
+    class Controller(ReconfigController):
+        def apply(self, req):
+            ent = super().apply(req)
+            if req == RECONFIG_2 and ent["ok"]:
+                super().apply(RECONFIG_3)
+            return ent
+
+    write({})   # there at start: does not fire
+    ctl = Controller(path, poll_s=0.02)
+    stop = threading.Event()
+    seen, asked = {}, []
+
+    def drive(v):
+        for req, ready in ((RECONFIG_1, lambda: v.stat_batches >= 1),
+                           (RECONFIG_2, lambda: v.stat_reconfigs >= 1)):
+            while not ready():
+                if stop.wait(0.002):
+                    return
+            asked.append((v.stat_batches, v.stat_reconfigs))
+            write(req)
+
+    def hook(v):
+        seen["tile"] = v
+        ctl.attach(v)
+        ctl.start()
+        threading.Thread(target=drive, args=(v,), daemon=True).start()
+
+    # Retired: the direct rungs RECONFIG_1 left behind, then the rlc
+    # rungs RECONFIG_2 left.
+    final = sorted(set(RECONFIG_1["ladder"]) | {LADDER_B})
+    old = ({EngineSpec("direct", r) for r in LADDER_RUNGS if r not in final}
+           | {EngineSpec("rlc", r) for r in final})
+    try:
+        res, launches = pipeline_run(
+            torch, card, f"feed (k) live reconfig B={LADDER_B}, worker "
+            "processes", traffic, "greedy", LADDER_B,
+            verify_opts=dict(FEED_OPTS), feed=True, feed_proc=True,
+            tile_hook=hook, mixed=True)
+    finally:
+        stop.set()
+        ctl.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    vs, v, problems = res.verify_stats[0], seen["tile"], []
+    if (vs["reconfigs"], vs["reconfig_refused"]) != (2, 1):
+        problems.append(f"reconfigs {vs['reconfigs']}, refused "
+                        f"{vs['reconfig_refused']}")
+    log = [(e["ok"], e["detail"]) for e in ctl.log]
+    if [ok for ok, _ in log] != [True, True, False] \
+            or "already pending" not in log[2][1]:
+        problems.append(f"controller log {log}")
+    keys = {s["key"] for s in reg.snapshot() if s["device"] == str(dev)}
+    left = sorted(keys & {s.key for s in old})
+    if left:
+        problems.append(f"retired engines still registered: {left}")
+    if (vs["mode"], vs["rung_ladder"]) != ("direct", final):
+        problems.append(f"final mode {vs['mode']}, ladder "
+                        f"{vs['rung_ladder']}")
+    say(f"feed (k): requests written at (batches, reconfigs) {asked}; "
+        f"controller log {log}; {vs['batches']} batches "
+        f"(rung_hist {vs['rung_hist']}), {vs['drain_batches']} filtered, "
+        f"RLC fallbacks {vs['rlc_fallback']}, mode now {v.verify_mode} on "
+        f"{v._engine_entry.key}; registered {sorted(keys)}; launches "
+        f"{launches}; {n_txn / res.span_s:.0f} txn/s p50 "
+        f"{res.latency_p50_ns / 1e6:.1f} p99 {res.latency_p99_ns / 1e6:.1f}"
+        f" ms [{card}]")
+    if problems:
+        fail("feed (k): " + "; ".join(problems))
 
 
 def main() -> int:

@@ -114,9 +114,11 @@ def stage_latency(pub_ticks, samples: Dict[str, tuple]) -> Dict[str, dict]:
 
 def verify_tile_stats(v) -> Dict[str, object]:
     """The verify_stats record of one VerifyTile, the fields of the JAX
-    record that the port's stat_* counters fill (its chaos, breaker,
-    rung, shard and reconfig fields have no counterpart yet; the drain's
-    are the JAX :124-130).
+    record that the port's stat_* counters fill: the rung ladder's
+    (``rung_hist`` keyed by str(rung), ``rung_ladder``, ``rung_switches``,
+    ``rung_cur``; {} / [] / 0 / 0 with the scheduler off), the drain's and
+    the live reconfig's (the JAX :105-134; its chaos, breaker, compile and
+    shard fields have no counterpart yet).
     ``cpu_failover`` is always 0: the port's feeder never verifies on
     the host."""
     fill = v.stat_lanes / float(v.stat_batches * v.batch) \
@@ -144,6 +146,13 @@ def verify_tile_stats(v) -> Dict[str, object]:
         "drain_novel": v.stat_drain_novel,
         "drain_maybe": v.stat_drain_maybe,
         "drain_rot": v.stat_drain_rot,
+        "rung_hist": {str(k): n for k, n in sorted(v.stat_rung_hist.items())},
+        "rung_ladder": (list(v.rung_sched.rungs)
+                        if v.rung_sched is not None else []),
+        "rung_switches": v.stat_rung_switches,
+        "rung_cur": v.stat_rung_cur,
+        "reconfigs": v.stat_reconfigs,
+        "reconfig_refused": v.stat_reconfig_refused,
     }
 
 
@@ -181,14 +190,16 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       verify_opts: Optional[dict] = None,
                       record_digests: bool = False,
                       pack_scheduler: str = "greedy", device="cuda",
-                      feed_proc: Optional[bool] = None):
+                      feed_proc: Optional[bool] = None, tile_hook=None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
     feed_proc: True runs the source and dedup/pack/sink in worker
     processes, False on threads here, None (auto) processes on 4 or more
-    cores; pack_scheduler "gc" always runs in process. Raises on a tile
-    error, a worker's early exit and a timeout."""
+    cores; pack_scheduler "gc" always runs in process. tile_hook, if
+    given, is called with the verify tile right after the tile threads
+    start (a live reconfig's control channel, the JAX :367-371). Raises
+    on a tile error, a worker's early exit and a timeout."""
     from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
     from .. import pipeline as pl
     from ..monitor import snapshot
@@ -255,6 +266,8 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                 results["replay"], tmp)
         for th in threads:
             th.start()
+        if tile_hook is not None:
+            tile_hook(verify)
 
         links = [(MCache(wksp, f"{k}.mcache"), FSeq(wksp, f"{k}.fseq"))
                  for k in ("verify_dedup", "dedup_pack", "pack_sink")]

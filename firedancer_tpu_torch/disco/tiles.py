@@ -52,7 +52,20 @@ the stager makes none. A slot returns to the pool only when its batch
 has retired, since the engine's copy from the slot's pinned arena runs
 after the dispatch returns. An engine error raises out of the
 dispatcher as on the other paths (the JAX feeder's CPU failover, its
-breaker, rungs, the fd_drain and the chaos hooks are not ported).
+breaker and the chaos hooks are not ported).
+
+The feeder's rung ladder (the JAX :1097-1155, :1947-2014): with
+``sched`` on and a staging batch that tops two or more rungs of
+``ladder`` (``engine.rung_ladder``, capped at the batch, floored at
+``MAX_SIG_CNT``, the batch appended), a ``RungScheduler`` picks the rung
+each slot fills toward from the ring's sequence numbers and the staged
+batch's deadline slack (the stager makes no torch call for it), and the
+dispatcher ships the slot on the smallest WARM rung engine covering its
+lanes, copying only that many rows of the arena to the card; a rung not
+yet WARM dispatches on the tile's primary engine. ``prewarm`` warms the
+other rungs (``EngineRegistry.prewarm_ladder``). ``request_reconfig``
+(the JAX :2347-2536) parks one live reconfig, which the dispatcher
+applies when no batch is in flight while the stager keeps staging.
 """
 
 from __future__ import annotations
@@ -101,6 +114,7 @@ from ..tango.rings import (
     MCache,
     Workspace,
 )
+from ..ops.frontend_cuda import DEFAULT_FRONTEND, FRONTENDS
 from ..tango.tcache import TCache
 from ..utils.rng import Rng
 from . import engine as fd_engine
@@ -156,6 +170,21 @@ STAGER_BACKOFF_S = 0.010
 STAGER_BACKOFF_CAP_S = 2.0
 
 _U64 = (1 << 64) - 1
+# The keys of a live reconfig request (VerifyTile.request_reconfig): the
+# JAX request's FD_FRONTEND_IMPL and FD_DRAIN flips are the port's
+# frontend and drain; its decompress flip has no counterpart.
+RECONFIG_KEYS = ("verify_mode", "ladder", "frontend", "drain")
+
+
+def tile_rungs(ladder, batch: int) -> List[int]:
+    """The rungs a feed tile of staging batch `batch` schedules over:
+    the ladder's rungs from MAX_SIG_CNT up to the batch, and the batch
+    (its arenas' size) on top; [] when that leaves fewer than two, which
+    keeps the fixed batch. A malformed ladder raises ValueError."""
+    rungs = fd_engine.rung_ladder(ladder, cap=batch, floor=MAX_SIG_CNT)
+    if batch not in rungs:
+        rungs.append(batch)
+    return rungs if len(rungs) >= 2 else []
 
 
 def idle_pause(idle_spins: int) -> float:
@@ -594,6 +623,7 @@ class _InflightBatch:
     t_dispatch: int      # tick count at dispatch
     slot: object = None  # the fd_feed slot the batch was staged in
     drain: object = None  # the batch's _DrainBatch (fd_drain armed)
+    entry: object = None  # the EngineEntry it runs on (its service EMA)
 
     def is_ready(self) -> bool:
         """The statuses and, with the drain, its verdicts are done."""
@@ -663,7 +693,14 @@ class VerifyTile(Tile):
     and ``drain_pack`` colors each batch for the gc pack (the JAX flags
     FD_DRAIN, FD_DRAIN_FILTER_BITS, FD_DRAIN_PACK and their defaults;
     the JAX FD_DRAIN_ROT_QUOTA has no counterpart, since the quota
-    follows from the depths the tile is given).
+    follows from the depths the tile is given). The feed's rung ladder
+    takes ``sched`` (on by default), ``ladder`` (``engine.rung_ladder``'s
+    "8192,16384,32768" by default) and ``prewarm`` ("background",
+    "sync" or "off"), the JAX flags FD_ENGINE_SCHED, FD_ENGINE_LADDER
+    and FD_ENGINE_PREWARM and their defaults; ``frontend`` is the rlc
+    engine's front half (``frontend_cuda.FRONTENDS``, the JAX
+    FD_FRONTEND_IMPL). With the default ladder and a batch of 8,192 or
+    less the scheduler stays off.
     """
 
     name = "verify"
@@ -688,10 +725,18 @@ class VerifyTile(Tile):
         drain: str = "auto",
         drain_filter_bits: int = DEFAULT_FILTER_BITS,
         drain_pack: bool = False,
+        sched: bool = True,
+        ladder=fd_engine.DEFAULT_LADDER,
+        prewarm: str = fd_engine.DEFAULT_PREWARM,
+        frontend: str = DEFAULT_FRONTEND,
         **kw,
     ):
         self.verify_mode = fd_engine.resolve_verify_mode(backend, verify_mode)
         self.drain_mode = fd_engine.resolve_drain_mode(drain)
+        if prewarm not in fd_engine.PREWARM_POLICIES:
+            raise ValueError(f"unknown prewarm policy {prewarm!r} "
+                             "(want background|sync|off)")
+        rungs = tile_rungs(ladder, batch)
         if feed and (backend != "gpu" or not native_drain
                      or in_link is None):
             raise ValueError("feed=True needs backend='gpu', the native "
@@ -747,14 +792,37 @@ class VerifyTile(Tile):
         self._drain: Optional[DrainWindow] = None
         self._drain_pack = False
         self._drain_block = 0
+        self._drain_h_bits = drain_filter_bits
+        self._drain_pack_req = bool(drain_pack)
+        # The rung ladder: the scheduler (None: the fixed batch), the
+        # rung engines, batches by rung, rung switches and the current
+        # target rung (0 with the scheduler off).
+        self.sched = bool(sched)
+        self.prewarm = prewarm
+        self.frontend = frontend
+        self.rung_sched: Optional[fd_engine.RungScheduler] = None
+        self._rung_entries: dict = {}
+        self._rung_last = 0
+        self.stat_rung_hist: dict = {}
+        self.stat_rung_switches = 0
+        self.stat_rung_cur = 0
+        # Live reconfig: one pending request at a time (any thread parks
+        # it; the dispatcher applies it at the inflight barrier).
+        self._reconfig_lock = threading.Lock()
+        self._reconfig_pending: Optional[dict] = None
+        self._reconfig_seq = 0
+        self.stat_reconfigs = 0
+        self.stat_reconfig_refused = 0
         self._engine_entry = None
+        self._engine_spec = None
         self._verify_batch_fn = None
         self.device = None
         if backend == "gpu":
+            self._engine_spec = fd_engine.EngineSpec.for_tile(
+                backend, self.verify_mode, batch, frontend)
             entry, _ = fd_engine.registry().acquire(
-                fd_engine.EngineSpec.for_tile(backend, self.verify_mode,
-                                              batch),
-                warm=True, device=device, max_msg_len=max_msg_len)
+                self._engine_spec, warm=True, device=device,
+                max_msg_len=max_msg_len)
             self._engine_entry = entry
             self._verify_batch_fn = entry.fn
             self.device = entry.device
@@ -764,7 +832,9 @@ class VerifyTile(Tile):
             self._nd_setup(staging=not feed)
         if feed:
             self._feed_setup(feed_slots)
-            self._drain_setup(drain_filter_bits, drain_pack)
+            self._drain_setup()
+            if self.sched and rungs:
+                self._rung_setup(rungs)
 
     @property
     def stat_batches(self) -> int:
@@ -913,9 +983,9 @@ class VerifyTile(Tile):
             arrs = tuple(a.copy() for a in arrs)
         return arrs
 
-    def _launch(self, args):
+    def _launch(self, args, fn=None):
         t0 = time.perf_counter_ns()
-        out = self._verify_batch_fn(*args)
+        out = (fn or self._verify_batch_fn)(*args)
         if isinstance(out, torch.Tensor):
             out = _DeviceBatch(out)
         self.stat_dispatch_ns += time.perf_counter_ns() - t0
@@ -938,7 +1008,8 @@ class VerifyTile(Tile):
         out = self._launch(self._engine_args(
             self._nd_msgs, self._nd_lens, self._nd_sigs, self._nd_pubs))
         self._inflight.append(_InflightBatch(
-            out=out, todo=self._pending, t_dispatch=tempo.tickcount()))
+            out=out, todo=self._pending, t_dispatch=tempo.tickcount(),
+            entry=self._engine_entry))
         self.batch_log.append((lanes, verdict))
         self._pending = []
         self._pending_lanes = 0
@@ -963,11 +1034,16 @@ class VerifyTile(Tile):
         # Source publish -> stager drain of every staged txn.
         self.drain_lat = LatReservoir()
 
-    def _drain_setup(self, h_bits: int, pack: bool) -> None:
-        """Arm the fd_drain (feed mode, an out-link, drain "auto"): the
-        window on the engine's device and the pre-filter warmed there at
-        the batch's shape. The ring library's ctl publisher is required
-        (Tile.__init__ ran rings.require_drain)."""
+    def _drain_setup(self) -> None:
+        """Arm the fd_drain (feed mode, an out-link, drain "auto"), or
+        disarm it: a fresh window on the engine's device and the
+        pre-filter warmed there at the batch's shape. The ring library's
+        ctl publisher is required (Tile.__init__ ran rings.require_drain).
+        A live reconfig's drain flip runs this again; a window armed
+        mid-run knows nothing published before, and the dedup tile's
+        tripwire (false novel) keeps its verdicts exact."""
+        self._drain = None
+        self._drain_pack = False
         if self.drain_mode == "off" or self.out_link is None:
             return
         # The proof's quota for a dedup TCache as deep as this tile's
@@ -975,11 +1051,31 @@ class VerifyTile(Tile):
         # assumes 4096 whatever the depth (tiles.py:1453-1459).
         quota = rot_quota(self.ha_tcache.depth, self.out_link.mcache.depth,
                           self.batch)
-        self._drain = DrainWindow(h_bits, quota, self.device)
-        self._engine_entry.warm_drain(h_bits)
-        self._drain_pack = bool(pack)
-        if pack:
+        self._drain = DrainWindow(self._drain_h_bits, quota, self.device)
+        self._engine_entry.warm_drain(self._drain_h_bits)
+        self._drain_pack = self._drain_pack_req
+        if self._drain_pack:
             self._drain_est = CuEstimator()
+
+    def _rung_setup(self, rungs: List[int]) -> set:
+        """Install the rung ladder on the primary engine's spec: an entry
+        for each rung (each one's service EMA is the scheduler's cost
+        model), the other rungs warmed by the prewarm policy, and a
+        RungScheduler whose AdaptiveFlush becomes the stager's flush
+        policy (one policy object). Returns the rung specs."""
+        reg = fd_engine.registry()
+        spec = self._engine_spec
+        ents = {r: reg.entry(spec.with_batch(r), self.device) for r in rungs}
+        self._rung_entries = ents
+        reg.prewarm_ladder([spec.with_batch(r) for r in rungs
+                            if r != self.batch], device=self.device,
+                           max_msg_len=self.max_msg_len, policy=self.prewarm)
+        self.rung_sched = fd_engine.RungScheduler(
+            rungs, self.max_wait_ns,
+            cost_ns=lambda r: ents[r].service_est_ns())
+        self.flush_policy = self.rung_sched.flush
+        self.stat_rung_cur = self._rung_last = rungs[0]
+        return {spec.with_batch(r) for r in rungs}
 
     def _drain_pack_arrays(self, slot):
         """The coloring's arrays for a slot's txns, a pad row for each
@@ -1154,7 +1250,10 @@ class VerifyTile(Tile):
                     self._feed_slot = slot
                 seq_before = il.seq
                 n = self._stager_drain(slot)
-                if slot.n_lane >= self.batch:
+                # The rung this slot fills toward (the batch with the
+                # scheduler off).
+                rung = self._sched_rung(slot)
+                if slot.n_lane >= rung:
                     self._feed_commit(slot, FLUSH_FULL)
                     idle_spins = 0
                     continue
@@ -1173,7 +1272,7 @@ class VerifyTile(Tile):
                         self._feed_commit(slot, FLUSH_RING)
                         continue
                     verdict = self.flush_policy.due(
-                        tempo.tickcount(), slot.n_lane, self.batch,
+                        tempo.tickcount(), slot.n_lane, rung,
                         slot.t_first, starved=True,
                         device_idle=(not self._inflight
                                      and pool.ready_cnt() == 0),
@@ -1190,30 +1289,63 @@ class VerifyTile(Tile):
         finally:
             self.stager_cpu_ns += time.thread_time_ns() - t0
 
+    def _sched_rung(self, slot) -> int:
+        """The rung scheduler's target for the slot being staged (the
+        stager's; the JAX :1947-1976): staged lanes, the in-ring backlog
+        from the ring's sequence numbers, the deadline slack; saturation
+        when the backlog is half the ring. Counts a switch when the
+        target changes. The batch with the scheduler off."""
+        sched = self.rung_sched
+        if sched is None:
+            return self.batch
+        il = self.in_link
+        backlog = max(0, il.mcache.seq_next() - il.seq)
+        rung = sched.pick(tempo.tickcount(), slot.n_lane, slot.t_first,
+                          backlog, backlog_full=backlog * 2 >= il.mcache.depth)
+        if rung != self._rung_last:
+            self.stat_rung_switches += 1
+            self.stat_rung_cur = self._rung_last = rung
+        return rung
+
     def _feed_commit(self, slot, verdict: str) -> None:
         slot.flush_verdict = verdict
         self._feed_slot = None
         self.feed_pool.commit(slot)
 
     def _feed_dispatch(self, slot) -> None:
-        """Ship one READY slot to the engine. The slot stays with its
-        batch until the batch retires: the engine's copy reads the
-        pinned arena after this returns, and the completion publishes
-        from the slot's sidecar."""
-        if slot.n_lane < self.batch:
+        """Ship one READY slot to the engine: with the rung scheduler, on
+        the smallest rung covering its lanes whose engine is WARM, else
+        on the primary engine (the JAX :1989-2014), the arena's first
+        rung rows copied up. The slot stays with its batch until the
+        batch retires: the engine's copy reads the pinned arena after
+        this returns, and the completion publishes from the slot's
+        sidecar."""
+        rung, entry, fn = self.batch, self._engine_entry, None
+        if self.rung_sched is not None:
+            rung = self.rung_sched.dispatch_rung(slot.n_lane)
+            if rung != self.batch:
+                e = fd_engine.registry().warm_entry(
+                    self._engine_spec.with_batch(rung), self.device)
+                if e is None:
+                    rung = self.batch
+                else:
+                    entry, fn = e, e.fn
+            self.stat_rung_hist[rung] = self.stat_rung_hist.get(rung, 0) + 1
+        if slot.n_lane < rung:
             # Lanes past the staged ones verify as pad lanes (zero len,
-            # sig and pub), not as a previous batch's leftovers.
-            slot.lens[slot.n_lane:] = 0
-            slot.sigs[slot.n_lane:] = 0
-            slot.pubs[slot.n_lane:] = 0
-        out = self._launch((slot.t_msgs, slot.t_lens, slot.t_sigs,
-                            slot.t_pubs))
+            # sig and pub), not as a previous batch's leftovers; only the
+            # rows the rung's engine reads.
+            slot.lens[slot.n_lane:rung] = 0
+            slot.sigs[slot.n_lane:rung] = 0
+            slot.pubs[slot.n_lane:rung] = 0
+        out = self._launch((slot.t_msgs[:rung], slot.t_lens[:rung],
+                            slot.t_sigs[:rung], slot.t_pubs[:rung]), fn)
         drain = None
         if self._drain is not None and slot.n_txn:
             drain = self._drain_dispatch(slot)
         self._inflight.append(_InflightBatch(
             out=out, todo=[], t_dispatch=tempo.tickcount(), slot=slot,
-            drain=drain))
+            drain=drain, entry=entry))
         self.batch_log.append((slot.n_lane, slot.flush_verdict))
 
     def _feed_poll(self):
@@ -1226,8 +1358,14 @@ class VerifyTile(Tile):
         self._stager_supervise()
         self._complete(block=False)
         self._ack_if_idle()
+        if self._reconfig_pending is not None and not self._inflight:
+            # The live reconfig's barrier: with a request pending no new
+            # batch ships until the in-flight ones retired (the stager
+            # keeps staging); the swap happens in that gap.
+            self._apply_reconfig()
         progressed = False
-        while len(self._inflight) < self.inflight_max:
+        while (self._reconfig_pending is None
+               and len(self._inflight) < self.inflight_max):
             slot = self.feed_pool.pop_ready()
             if slot is None:
                 break
@@ -1340,6 +1478,115 @@ class VerifyTile(Tile):
             ol.lat.add_many(slot.tsorigs[:n][ok][:published], now)
         return slot.drain_end
 
+    # -- live reconfig ----------------------------------------------------
+
+    def request_reconfig(self, req: dict) -> tuple:
+        """Validate and park one live reconfig (any thread; the JAX
+        :2347-2414). The dispatcher applies it at the next inflight
+        barrier (_feed_poll, _apply_reconfig). Returns (accepted, detail).
+
+        req's keys (RECONFIG_KEYS), each optional: "verify_mode"
+        (auto|direct|rlc), "ladder" (rung batch sizes; the staging batch
+        is always on top, since the arenas are sized to it), "frontend"
+        (the rlc front half) and "drain" (auto|off). A request that could
+        not give a dispatchable configuration is refused whole, the
+        running one untouched: a mode the backend cannot run (rlc on
+        "oracle"), a tile without the feed, a ladder with the scheduler
+        off or with fewer than two usable rungs, a "decompress" flip
+        (the port's decompress is always its kernel), an unknown key,
+        and a request while another is pending (one barrier, one
+        swap)."""
+
+        def refuse(reason: str) -> tuple:
+            self.stat_reconfig_refused += 1
+            return False, reason
+
+        try:
+            mode = fd_engine.resolve_verify_mode(
+                self.backend, req.get("verify_mode") or self.verify_mode)
+        except ValueError as e:
+            return refuse(str(e))
+        if not self._feed:
+            return refuse("reconfig requires the fd_feed staging path")
+        if "decompress" in req:
+            return refuse("no decompress flip: the port's decompress is "
+                          "always its kernel (decompress_so.cu, "
+                          "decompress_niels.cu)")
+        unknown = sorted(set(req) - set(RECONFIG_KEYS))
+        if unknown:
+            return refuse(f"unknown reconfig keys {unknown} (want "
+                          f"{'|'.join(RECONFIG_KEYS)})")
+        frontend = req.get("frontend") or self.frontend
+        if frontend not in FRONTENDS:
+            return refuse(f"unknown frontend {frontend!r} (want "
+                          f"{'|'.join(FRONTENDS)})")
+        drain = req.get("drain")
+        if drain is not None and drain not in fd_engine.DRAIN_MODES:
+            return refuse(f"unknown drain mode {drain!r} (want auto|off)")
+        ladder = req.get("ladder")
+        rungs = None
+        if ladder is not None:
+            if not self.sched:
+                return refuse("ladder swap with sched=False")
+            try:
+                rungs = tile_rungs(ladder, self.batch)
+            except (TypeError, ValueError) as e:
+                return refuse(f"unparseable ladder {ladder!r}: {e}")
+            if not rungs:
+                return refuse(
+                    f"ladder {ladder!r} leaves < 2 usable rungs under "
+                    f"staging batch {self.batch}")
+        with self._reconfig_lock:
+            if self._reconfig_pending is not None:
+                return refuse("a reconfig is already pending (one barrier, "
+                              "one swap)")
+            self._reconfig_seq += 1
+            pend = {"seq": self._reconfig_seq, "verify_mode": mode,
+                    "frontend": frontend, "drain": drain, "ladder": rungs}
+            self._reconfig_pending = pend
+        return True, f"pending (seq {pend['seq']})"
+
+    def _apply_reconfig(self) -> None:
+        """Swap the engines in the dispatch gap (the dispatcher, only with
+        nothing in flight; the JAX :2416-2510): the primary engine of the
+        new spec (taken WARM from the registry, else acquired and warmed
+        here, the barrier holding dispatch), the rung ladder on it (the
+        request's, else the one in force), the drain re-armed or
+        disarmed by a drain flip. READY and staging slots are untouched
+        and ship on the new engines. Rung engines the new configuration
+        no longer reaches are retired from the registry."""
+        with self._reconfig_lock:
+            req = self._reconfig_pending
+        if req is None:
+            return
+        reg = fd_engine.registry()
+        old = {self._engine_spec}
+        if self.rung_sched is not None:
+            old |= {self._engine_spec.with_batch(r)
+                    for r in self.rung_sched.rungs}
+        spec = fd_engine.EngineSpec.for_tile(
+            self.backend, req["verify_mode"], self.batch, req["frontend"])
+        e = reg.warm_entry(spec, self.device)
+        if e is None:
+            e, _ = reg.acquire(spec, warm=True, device=self.device,
+                               max_msg_len=self.max_msg_len)
+        self._engine_entry, self._verify_batch_fn = e, e.fn
+        self._engine_spec = spec
+        self.verify_mode, self.frontend = req["verify_mode"], req["frontend"]
+        rungs = req["ladder"]
+        if rungs is None and self.rung_sched is not None:
+            rungs = list(self.rung_sched.rungs)
+        new = {spec}
+        if rungs:
+            new |= self._rung_setup(rungs)
+        reg.retire(old - new, self.device)
+        if req["drain"] is not None:
+            self.drain_mode = req["drain"]
+            self._drain_setup()
+        with self._reconfig_lock:
+            self._reconfig_pending = None
+        self.stat_reconfigs += 1
+
     # -- per-frag path ---------------------------------------------------
 
     def _ack_inline(self, frag: Frag) -> None:
@@ -1410,7 +1657,8 @@ class VerifyTile(Tile):
             out = self._launch(self._engine_args(
                 *_txn_batch_arrays(flat + pad, self.max_msg_len)))
             self._inflight.append(_InflightBatch(
-                out=out, todo=todo, t_dispatch=tempo.tickcount()))
+                out=out, todo=todo, t_dispatch=tempo.tickcount(),
+                entry=self._engine_entry))
             # A batch cut because the next txn does not fit is full.
             self.batch_log.append((len(flat), FLUSH_FULL
                                    if self._pending_lanes >= self.batch
@@ -1528,9 +1776,10 @@ class VerifyTile(Tile):
             statuses = np.asarray(ib.out)
             if getattr(ib.out, "used_fallback", False):
                 self.stat_rlc_fallback += 1
-            if self._engine_entry is not None:
-                self._engine_entry.note_service(
-                    tempo.tickcount() - ib.t_dispatch)
+            if ib.entry is not None:
+                # The engine's service EMA (dispatch -> clean completion),
+                # the rung scheduler's cost model.
+                ib.entry.note_service(tempo.tickcount() - ib.t_dispatch)
             if ib.slot is not None:
                 batch_ack = self._publish_feed_batch(ib.slot, statuses,
                                                      ib.drain)
