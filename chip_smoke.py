@@ -249,7 +249,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
    shipped, back to direct with the drain off once that applied, a
    third request refused while the second pends; two reconfigs, one
    refusal, the sink exact, the retired engines gone from the registry.
-10. Output: the card line, one JSON line of per-kernel numbers, and the
+10. App: the operator entry point, driven in process as a user runs it
+   (fdctl.main / fddev.main) from a TOML written to a scratch directory
+   under build/: rings 4,096 deep in a 2^26-byte workspace, the gpu
+   backend at B = 8192, a dedup window of 2^17 that spans the load, and
+   [development.synth]'s load of 32,768 txns with 10 % repeats and 10 %
+   corrupt signatures (39,320 payloads), signed on the card. (a) fddev
+   dev on one lane (configure init all, run, fini: the feed with the
+   fd_drain armed); (b) fdctl configure init all, run and monitor --once
+   on two verify lanes (the replay round-robin over replay_verify and
+   replay_verify.v1, the dedup tile muxing both lanes back in: the
+   in-process step loop, the feed's lane reason recorded); (c) fdctl
+   run --source pcap on one lane, a pcap written by the port's
+   PcapWriter from the first 8,192 synth payloads. Each run: the
+   distinct valid txns reach the sink, sent - recv_cnt = the HA and SV
+   filters of every lane + the dedup links' + the pack link's, every
+   lane's replay_verify carried traffic, each lane ran batches and K1-K4
+   launched once a batch in the run (dedup_filter once a batch in the
+   feed runs), no warm pass and no plain version in the run; the synth's
+   signing launched keygen_batch once and sign_batch once a 4,096 jobs.
+   Prints txn/s (host clock), the feed's stage latencies, seconds and
+   launches by kernel.
+11. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -387,6 +408,17 @@ RECONFIG_N = 60_000
 RECONFIG_1 = {"verify_mode": "rlc", "frontend": "fused", "ladder": [16384]}
 RECONFIG_2 = {"verify_mode": "direct", "drain": "off"}
 RECONFIG_3 = {"ladder": [8192]}
+
+# The app phase (10): [development.synth]'s load, rings and window.
+APP_TXN = 32768
+APP_FRAC = 0.1
+APP_DEPTH = 4096
+APP_WKSP = 1 << 26
+APP_TCACHE = 1 << 17
+APP_PCAP_N = 8192
+APP_SIGN_B = 4096          # disco.corpus.sign_jobs' batch
+# Launches of one keygen_batch call (the synth's public keys).
+KEYGEN_LAUNCHES = {"sha512_batch": 1, "double_scalarmult": 1, "compress": 1}
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -3538,6 +3570,224 @@ def reconfig_run(torch, card, bench) -> None:
         fail("feed (k): " + "; ".join(problems))
 
 
+def app_toml(path: str, scratch: str, lanes: int) -> str:
+    """The app phase's operator TOML (app/config.py's keys)."""
+    with open(path, "w") as f:
+        f.write(f'name = "smoke"\nscratch_directory = "{scratch}"\n'
+                f"[layout]\nverify_tile_count = {lanes}\n"
+                f"depth = {APP_DEPTH}\nwksp_sz = {APP_WKSP}\n"
+                f'[tiles.verify]\nbackend = "gpu"\nbatch = {B}\n'
+                f"tcache_depth = {APP_TCACHE}\n"
+                "[development]\ntimeout_s = 300.0\n"
+                f"[development.synth]\ntxn_cnt = {APP_TXN}\n"
+                f"dup_frac = {APP_FRAC}\nbad_frac = {APP_FRAC}\n")
+    return path
+
+
+def synth_want_launches(jobs: int) -> dict:
+    """The synth's launches: one keygen_batch over its seeds, then
+    sign_batch once a APP_SIGN_B jobs."""
+    calls = -(-jobs // APP_SIGN_B)
+    want = dict(KEYGEN_LAUNCHES)
+    for k, v in SIGN_LAUNCHES.items():
+        want[k] = want.get(k, 0) + v * calls
+    return want
+
+
+def app_run(torch, card, label, entry, argv, lanes, *, synth, feed):
+    """One CLI call in process (entry is fdctl.main or fddev.main, on the
+    card), its stdout echoed. run_pipeline is wrapped for the call: the
+    counts are set to 0 just before the CLI (what comes before the
+    pipeline is the synth's signing) and again as the pipeline starts,
+    and read as it returns. Gates the run (the module docstring, phase
+    10) and returns (result, payloads, launches)."""
+    import contextlib
+    import io
+
+    from firedancer_tpu_torch.disco import pipeline
+    from firedancer_tpu_torch.disco.engine import registry
+    from firedancer_tpu_torch.disco.pipeline import lane_link
+    from firedancer_tpu_torch.ops import backend
+
+    reg = registry()
+    rec = {}
+    orig = pipeline.run_pipeline
+
+    def recorded(topo, payloads, **kw):
+        torch.cuda.synchronize()
+        rec["sign"] = (dict(backend.launches), dict(backend.plain_calls))
+        rec["payloads"] = payloads
+        rec["warms"] = {e: e.warms for e in reg.entries()}
+        backend.reset_counts()
+        res = orig(topo, payloads, **kw)
+        idle_by = time.perf_counter() + 60.0
+        while not reg.prewarm_idle() and time.perf_counter() < idle_by:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        rec["run"] = (dict(backend.launches), dict(backend.plain_calls))
+        rec["res"] = res
+        return res
+
+    out = io.StringIO()
+    pipeline.run_pipeline = recorded
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = entry(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        pipeline.run_pipeline = orig
+        for line in out.getvalue().splitlines():
+            say(f"  {label}| {line}")
+    if rc != 0 or "res" not in rec:
+        fail(f"{label}: exit code {rc}, pipeline ran: {'res' in rec}")
+    res, payloads = rec["res"], rec["payloads"]
+    printed = json.loads([ln for ln in out.getvalue().splitlines()
+                          if ln.startswith("{")][-1])
+    launches, plain = rec["run"]
+    sign_l, sign_plain = rec["sign"]
+    d, vstats = res.diag, res.verify_stats
+    problems = []
+    want_ok = len(set(payloads[:APP_TXN])) if synth else len(set(payloads))
+    if printed["recv_cnt"] != res.recv_cnt or res.recv_cnt != want_ok:
+        problems.append(f"recv_cnt {res.recv_cnt} (printed "
+                        f"{printed['recv_cnt']}) != the distinct valid txns "
+                        f"{want_ok}")
+    filt = sum(d["tile." + lane_link("verify", i)][k] for i in range(lanes)
+               for k in ("ha_filt_cnt", "sv_filt_cnt"))
+    filt += sum(d["link." + lane_link("verify_dedup", i)]["filt_cnt"]
+                for i in range(lanes))
+    filt += d["link.dedup_pack"]["filt_cnt"]
+    if printed["sent"] != len(payloads) or len(payloads) - res.recv_cnt != filt:
+        problems.append(f"sent {printed['sent']} - recv_cnt {res.recv_cnt} "
+                        f"!= the filters {filt}")
+    pubs = [d["link." + lane_link("replay_verify", i)]["tx_seq"]
+            for i in range(lanes)]
+    if len(vstats) != lanes or not all(pubs) or not all(
+            v["batches"] for v in vstats):
+        problems.append(f"lanes: replay_verify publishes {pubs}, batches "
+                        f"{[v['batches'] for v in vstats]}")
+    batches = sum(v["batches"] for v in vstats)
+    want_l = {k: batches for k in DIRECT_KERNELS}
+    if feed:
+        want_l["dedup_filter"] = vstats[0]["drain_batches"]
+        if vstats[0]["drain_batches"] != batches:
+            problems.append(f"drain batches {vstats[0]['drain_batches']} "
+                            f"!= batches {batches}")
+        if res.dedup_stats["false_novel"]:
+            problems.append(f"false novel {res.dedup_stats['false_novel']}")
+    if launches != want_l or plain:
+        problems.append(f"launches {launches} != {want_l}, plain {plain}")
+    warmed = [e.key for e in reg.entries()
+              if e.warms != rec["warms"].get(e, 0)]
+    if warmed:
+        problems.append(f"engines warmed in the run: {warmed}")
+    if synth:
+        want_s = synth_want_launches(APP_TXN)
+        if sign_l != want_s or sign_plain:
+            problems.append(f"synth launches {sign_l} != {want_s}, plain "
+                            f"{sign_plain}")
+    elif sign_l or sign_plain:
+        problems.append(f"launches before the pipeline: {sign_l}")
+    reason = (None if feed
+              else f"verify_lane_cnt={lanes} (feed serves exactly 1 lane)")
+    if res.feed != feed or res.feed_fallback_reason != reason:
+        problems.append(f"feed {res.feed}, reason "
+                        f"{res.feed_fallback_reason!r}; want {reason!r}")
+    span = res.span_s
+    stages = "; ".join(
+        f"{k} p50 {v['p50_ns'] / 1e6:.3f} p99 {v['p99_ns'] / 1e6:.3f} ms"
+        for k, v in res.stage_latency.items() if v.get("n"))
+    say(f"{label}: {len(payloads)} payloads, {res.recv_cnt} to the sink in "
+        f"{span:.3f} s from the first publish to the last sink frag = "
+        f"{len(payloads) / span:.0f} txn/s (host clock); run "
+        f"{res.elapsed_s:.3f} s, the CLI call {secs:.2f} s; latency "
+        f"{stages or 'not recorded (the CLI records no sink digests)'} "
+        f"[{card}]")
+    tiles = [d["tile." + lane_link("verify", i)] for i in range(lanes)]
+    dedup = [d["link." + lane_link("verify_dedup", i)]["filt_cnt"]
+             for i in range(lanes)]
+    say(f"{label}: lanes {lanes}, replay_verify publishes {pubs}, batches "
+        f"{[v['batches'] for v in vstats]}; filters HA "
+        f"{[t['ha_filt_cnt'] for t in tiles]}, SV "
+        f"{[t['sv_filt_cnt'] for t in tiles]}, dedup {dedup}, pack "
+        f"{d['link.dedup_pack']['filt_cnt']}; feed {res.feed}, reason "
+        f"{res.feed_fallback_reason!r}")
+    say(f"{label}: launches in the run {launches}"
+        + (f"; the synth's signing {sign_l}" if synth else ""))
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+    return res, payloads, launches
+
+
+def app_phase(torch, card) -> None:
+    """Phase 10: the operator entry point on the card (the module
+    docstring). Warms the direct engine at B and its drain filter first,
+    so each run's launches are its batches' alone; callable alone after
+    build.build_all() and rings.ensure_native_built()."""
+    import contextlib
+    import io
+    import tempfile
+
+    from firedancer_tpu_torch.app import fdctl, fddev
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.ops.dedup_filter import DEFAULT_FILTER_BITS
+    from firedancer_tpu_torch.utils.pcap import PcapWriter
+
+    t_phase = time.perf_counter()
+    entry, _ = registry().acquire(EngineSpec("direct", B))
+    entry.warm_drain(DEFAULT_FILTER_BITS)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="app_smoke_", dir=os.path.join(REPO, "build"))
+    try:
+        scratch = os.path.join(tmp, "scratch")
+        one = app_toml(os.path.join(tmp, "one.toml"), scratch, 1)
+        two = app_toml(os.path.join(tmp, "two.toml"), scratch, 2)
+        _, payloads, _ = app_run(
+            torch, card, "app (a) fddev dev, 1 lane",
+            fddev.main, ["--config", one, "dev"], 1, synth=True, feed=True)
+        cli = ["--config", two]
+        if fdctl.main([*cli, "configure", "init", "all"]) != 0:
+            fail("app (b): configure init all failed")
+        try:
+            app_run(torch, card, "app (b) fdctl run, 2 lanes", fdctl.main,
+                    [*cli, "run"], 2, synth=True, feed=False)
+            t0 = time.perf_counter()
+            mon = io.StringIO()
+            with contextlib.redirect_stdout(mon):
+                rc = fdctl.main([*cli, "monitor", "--once", "--no-ansi"])
+            for line in mon.getvalue().splitlines():
+                say(f"  app (b) monitor| {line}")
+            names = [ln.split()[0] for ln in mon.getvalue().splitlines()
+                     if ln.strip()]
+            if rc != 0 or not {"verify", "verify.v1", "replay_verify",
+                               "replay_verify.v1", "verify_dedup.v1"
+                               } <= set(names):
+                fail(f"app (b): monitor --once exit {rc}, rows {names}")
+            say(f"app (b) monitor --once: {time.perf_counter() - t0:.2f} s")
+        finally:
+            fdctl.main([*cli, "configure", "fini", "all"])
+        pcap = os.path.join(tmp, "synth.pcap")
+        with PcapWriter(pcap) as w:
+            for p in payloads[:APP_PCAP_N]:
+                w.write(p)
+        cli = ["--config", one]
+        if fdctl.main([*cli, "configure", "init", "all"]) != 0:
+            fail("app (c): configure init all failed")
+        try:
+            app_run(torch, card, f"app (c) fdctl run --source pcap, "
+                    f"{APP_PCAP_N} payloads, 1 lane", fdctl.main,
+                    [*cli, "run", "--source", "pcap", "--pcap", pcap], 1,
+                    synth=False, feed=True)
+        finally:
+            fdctl.main([*cli, "configure", "fini", "all"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"app phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -3956,8 +4206,9 @@ def main() -> int:
     traffic = tile_phase(torch, card)
     pack_phase(torch, card, record, *traffic)
     feed_phase(torch, card, rows, record, *traffic)
+    app_phase(torch, card)
 
-    # 10. Output.
+    # 11. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

@@ -177,6 +177,9 @@ class EngineEntry:
         self._warmed: set = set()  # max_msg_len values warmed
         self._drain_warmed: set = set()  # h_bits values warmed
         self._lock = threading.Lock()
+        # Held by fn: the verify tiles of several lanes dispatch on one
+        # entry from their own threads.
+        self._dispatch_lock = threading.Lock()
         self._verify = verify_batch
         if spec.mode == "rlc":
             self._verify = make_async_verifier(
@@ -186,12 +189,20 @@ class EngineEntry:
     def fn(self, msgs, lens, sigs, pubs):
         """Verify one batch. Inputs are tensors or arrays; they are moved
         to the engine's device. Returns without waiting for the device:
-        statuses (direct) or an RlcAsyncResult (rlc)."""
+        statuses (direct) or an RlcAsyncResult (rlc). Calls from several
+        threads (one verify tile a lane) take turns: each enqueues its
+        copies and launches whole, on its own thread's current stream,
+        and the dispatch counters stay exact. Taking turns also spares
+        the host the interpreter lock's hand-offs between threads that
+        each run a batch's many small torch calls (on the CPU, three
+        lanes interleaved ran 6x slower than the same batches in
+        turn)."""
         dev = self.device
-        args = [torch.as_tensor(a).to(dev, non_blocking=True)
-                for a in (msgs, lens, sigs, pubs)]
-        self.note_dispatch(args[0].shape[0])
-        return self._verify(*args)
+        with self._dispatch_lock:
+            args = [torch.as_tensor(a).to(dev, non_blocking=True)
+                    for a in (msgs, lens, sigs, pubs)]
+            self.note_dispatch(args[0].shape[0])
+            return self._verify(*args)
 
     def note_dispatch(self, lanes: int) -> None:
         self.dispatches += 1

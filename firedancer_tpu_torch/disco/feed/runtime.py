@@ -52,7 +52,7 @@ import tempfile
 import threading
 import time
 from types import SimpleNamespace
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -182,6 +182,14 @@ def _tail(path: str) -> str:
         return f.read()[-2000:].decode("utf-8", "replace")
 
 
+def usable_cores() -> int:
+    """Cores this process may run on: a process pinned to fewer than the
+    host has gains nothing from workers that share its cores."""
+    if hasattr(os, "sched_getaffinity"):
+        return len(os.sched_getaffinity(0))
+    return os.cpu_count() or 1
+
+
 def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       verify_batch: int = 128,
                       verify_max_msg_len: Optional[int] = None,
@@ -190,22 +198,27 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       verify_opts: Optional[dict] = None,
                       record_digests: bool = False,
                       pack_scheduler: str = "greedy", device="cuda",
-                      feed_proc: Optional[bool] = None, tile_hook=None):
+                      feed_proc: Optional[bool] = None, tile_hook=None,
+                      tile_cpus: Optional[List[int]] = None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
     feed_proc: True runs the source and dedup/pack/sink in worker
-    processes, False on threads here, None (auto) processes on 4 or more
-    cores; pack_scheduler "gc" always runs in process. tile_hook, if
-    given, is called with the verify tile right after the tile threads
-    start (a live reconfig's control channel, the JAX :367-371). Raises
-    on a tile error, a worker's early exit and a timeout."""
+    processes, False on threads here, None (auto) processes when this
+    process may run on 4 or more cores (usable_cores: its affinity mask,
+    where the JAX rule counts the host's); pack_scheduler "gc" always
+    runs in process. tile_hook, if given, is called with the verify tile
+    right after the tile threads start (a live reconfig's control
+    channel, the JAX :367-371). tile_cpus pins replay, verify, dedup,
+    pack and sink to its cores in that order, wrapping when short, a
+    worker's tiles through its cpu_map option. Raises on a tile error, a
+    worker's early exit and a timeout."""
     from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
     from .. import pipeline as pl
     from ..monitor import snapshot
     from ..tiles import LatReservoir, VerifyTile, latencies_ns
 
-    use_proc = ((os.cpu_count() or 1) >= 4 if feed_proc is None
+    use_proc = (usable_cores() >= 4 if feed_proc is None
                 else bool(feed_proc))
     if pack_scheduler == "gc":
         # The gc pack holds a block of txns no ring cursor shows: the
@@ -233,6 +246,12 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
         tiles = [replay, verify, dedup, pack, sink]
         for t in (replay, dedup, pack):
             t.out_link.lat = LatReservoir()
+    if tile_cpus:
+        cpu_map = {name: tile_cpus[i % len(tile_cpus)] for i, name in
+                   enumerate(("replay", "verify", "dedup", "pack", "sink"))}
+        for t in tiles:
+            t.cpu_idx = cpu_map[t.name]
+        opts["cpu_map"] = cpu_map
 
     tile_max_ns = int((timeout_s + 30.0) * 1e9)
     errors: list = []

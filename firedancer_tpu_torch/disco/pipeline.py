@@ -1,22 +1,28 @@
 """Topology of the tile graph and its in-process runner, the counterpart
-of ``firedancer_tpu/disco/pipeline.py`` (``build_topology``:64, ``LINKS``,
-``TILES``, ``Topology``, ``PipelineResult``:191, ``_run_tiles``:245,
-``run_pipeline``:483).
+of ``firedancer_tpu/disco/pipeline.py`` (``lane_link``:58,
+``build_topology``:64, ``LINKS``, ``TILES``, ``Topology``,
+``PipelineResult``:191, ``_run_tiles``:245, ``run_pipeline``:483).
 
 ``build_topology`` creates the workspace file, the four links
 (mcache, dcache and fseq each) and a cnc per tile, under the JAX
-package's names, so either package's tiles can join it. Tiles join a
-link by its name (``link_names``); the producer of a link takes credits
-from the link's own fseq, which its consumer publishes.
+package's names, so either package's tiles can join it, and records
+them in ``Topology.pod`` (``utils.pod.Pod``), which ``app.configure``
+writes to the pod file. ``verify_lanes`` > 1 adds each further verify
+lane's ``replay_verify.v<i>`` and ``verify_dedup.v<i>`` links and its
+``verify.v<i>`` cnc (the reference's ``verify_tile_count``): the replay
+fans out round-robin and the dedup tile muxes the lanes back in. Tiles
+join a link by its name (``link_names``); the producer of a link takes
+credits from the link's own fseq, which its consumer publishes.
 
 ``run_pipeline`` drives replay -> verify -> dedup -> pack -> sink and
 returns a ``PipelineResult``. As in the JAX package it routes through the
 fd_feed runtime (``feed.runtime.run_feed_pipeline``: the staging-slot
 feeder, the source and the downstream tiles in worker processes) unless
 the caller passes ``feed=False`` or the feed cannot serve the topology
-(``_feed_fallback_reason``:429 there, warned and recorded); else it runs
-the in-process step loop (the JAX ``FD_FEED=0`` runner) until the chain
-has drained (``pipeline_quiesced``). ``run_tiles`` and ``chain_quiesced``
+(``_feed_fallback_reason``:429 there, warned and recorded; the feed
+serves one verify lane); else it runs the in-process step loop (the JAX
+``FD_FEED=0`` runner), a verify tile a lane, until the chain has
+drained (``pipeline_quiesced``). ``run_tiles`` and ``chain_quiesced``
 also drive the shorter replay -> verify -> sink chain.
 """
 
@@ -31,6 +37,7 @@ from typing import Dict, List, Optional
 from ..ballet.txn import MAX_SIG_CNT
 from ..tango import rings
 from ..tango.rings import CNC_HALT, Cnc, DCache, FSeq, MCache, Workspace
+from ..utils.pod import Pod
 from .feed.runtime import (
     LOGGER,
     latency_percentiles,
@@ -54,11 +61,39 @@ LINKS = ("replay_verify", "verify_dedup", "dedup_pack", "pack_sink")
 TILES = ("replay", "verify", "dedup", "pack", "sink", "quic")
 
 
+# The links each further verify lane adds.
+LANE_LINKS = ("replay_verify", "verify_dedup")
+
+
 @dataclass
 class Topology:
     wksp_path: str
     depth: int = 128
     mtu: int = FD_TPU_MTU
+    # The wiring build_topology recorded; an empty pod reads as one lane.
+    pod: Pod = field(default_factory=Pod)
+
+    @property
+    def verify_lanes(self) -> int:
+        return self.pod.query_ulong("firedancer.layout.verify_lane_cnt", 1)
+
+
+def lane_link(link: str, lane: int) -> str:
+    """Name of a per-lane link or tile: lane 0 keeps the plain name, lane
+    i > 0 is ``<link>.v<i>`` (the reference's verify.v%i naming)."""
+    return link if lane == 0 else f"{link}.v{lane}"
+
+
+def topology_links(lanes: int = 1) -> List[str]:
+    """The links of a topology of lanes verify lanes: LINKS, then each
+    further lane's."""
+    return list(LINKS) + [lane_link(k, i) for k in LANE_LINKS
+                          for i in range(1, lanes)]
+
+
+def topology_tiles(lanes: int = 1) -> List[str]:
+    """The tiles (cncs) of a topology of lanes verify lanes."""
+    return list(TILES) + [lane_link("verify", i) for i in range(1, lanes)]
 
 
 def link_names(link: str) -> LinkNames:
@@ -71,26 +106,44 @@ def dcache_size(depth: int, mtu: int = FD_TPU_MTU) -> int:
 
 
 def build_topology(wksp_path: str, depth: int = 128, mtu: int = FD_TPU_MTU,
-                   wksp_sz: int = 1 << 24) -> Topology:
-    """Create the workspace and every link and cnc; the file stays for
-    tiles to join (Workspace.join)."""
-    need = len(LINKS) * dcache_size(depth, mtu)
+                   wksp_sz: int = 1 << 24, verify_lanes: int = 1) -> Topology:
+    """Create the workspace and every link and cnc of verify_lanes verify
+    lanes; the file stays for tiles to join (Workspace.join). The pod
+    records each link's mcache, dcache, fseq and depth, each tile's cnc,
+    ``firedancer.mtu`` and ``firedancer.layout.verify_lane_cnt``, under
+    the JAX package's keys. The port builds no fd_flight or fd_xray
+    regions, so its pod has none of the JAX pod's ``firedancer.flight.*``
+    keys."""
+    if verify_lanes < 1:
+        raise ValueError(f"verify_lanes must be at least 1, got "
+                         f"{verify_lanes}")
+    links = topology_links(verify_lanes)
+    need = len(links) * dcache_size(depth, mtu)
     if wksp_sz < need:
         raise ValueError(f"wksp_sz {wksp_sz} holds less than the links' "
-                         f"dcaches ({need} bytes at depth {depth})")
+                         f"dcaches ({need} bytes at depth {depth}, "
+                         f"{len(links)} links)")
+    pod = Pod()
     wksp = Workspace.create(wksp_path, wksp_sz)
     try:
-        for link in LINKS:
+        for link in links:
             names = link_names(link)
             MCache(wksp, names.mcache, depth=depth, create=True)
             DCache(wksp, names.dcache, data_sz=dcache_size(depth, mtu),
                    create=True)
             FSeq(wksp, names.fseq, create=True)
-        for tile in TILES:
+            pod.insert_cstr(f"firedancer.{link}.mcache", names.mcache)
+            pod.insert_cstr(f"firedancer.{link}.dcache", names.dcache)
+            pod.insert_cstr(f"firedancer.{link}.fseq", names.fseq)
+            pod.insert_ulong(f"firedancer.{link}.depth", depth)
+        for tile in topology_tiles(verify_lanes):
             Cnc(wksp, f"{tile}.cnc", create=True)
+            pod.insert_cstr(f"firedancer.{tile}.cnc", f"{tile}.cnc")
     finally:
         wksp.leave()
-    return Topology(wksp_path=wksp_path, depth=depth, mtu=mtu)
+    pod.insert_ulong("firedancer.mtu", mtu)
+    pod.insert_ulong("firedancer.layout.verify_lane_cnt", verify_lanes)
+    return Topology(wksp_path=wksp_path, depth=depth, mtu=mtu, pod=pod)
 
 
 def in_link(wksp: Workspace, link: str) -> InLink:
@@ -108,17 +161,20 @@ def out_link(wksp: Workspace, link: str, mtu: int = FD_TPU_MTU) -> OutLink:
 def build_tile(wksp: Workspace, name: str, mtu: int = FD_TPU_MTU,
                payloads=(), tcache_depth: int = 4096, bank_cnt: int = 4,
                pack_scheduler: str = "greedy", record_digests: bool = False,
-               device="cuda"):
+               device="cuda", lanes: int = 1):
     """Tile name (replay, dedup, pack or sink) on its links of the
     topology: the one constructor of the runners' tiles, in process and in
-    the worker processes (worker.py)."""
+    the worker processes (worker.py). Over lanes verify lanes the replay
+    fans out to each lane's replay_verify and the dedup tile muxes each
+    lane's verify_dedup."""
     if name == "replay":
-        return ReplayTile(wksp, "replay.cnc",
-                          out_link(wksp, "replay_verify", mtu),
-                          payloads=payloads)
+        return ReplayTile(wksp, "replay.cnc", out_links=[
+            out_link(wksp, lane_link("replay_verify", i), mtu)
+            for i in range(lanes)], payloads=payloads)
     if name == "dedup":
         return DedupTile(wksp, "dedup.cnc",
-                         in_links=[in_link(wksp, "verify_dedup")],
+                         in_links=[in_link(wksp, lane_link("verify_dedup", i))
+                                   for i in range(lanes)],
                          out_link=out_link(wksp, "dedup_pack", mtu),
                          tcache_depth=tcache_depth)
     if name == "pack":
@@ -132,17 +188,24 @@ def build_tile(wksp: Workspace, name: str, mtu: int = FD_TPU_MTU,
                      "or sink)")
 
 
-def chain_quiesced(replay, verify, sink) -> bool:
+def chain_quiesced(replay, verifies, sink) -> bool:
     """replay -> verify -> sink has drained: the source is exhausted,
-    verify consumed all of it with nothing staged (in its slots, in feed
-    mode) or in flight, and the sink (or any next tile) consumed all
-    verify published."""
-    return (replay.done()
-            and verify.in_link.seq >= replay.out_link.seq
-            and not verify._pending
-            and (not verify._feed or verify.feed_pool.idle())
-            and not verify._inflight
-            and sink.in_link.seq >= verify.out_link.seq)
+    each verify tile (one, or a list: one a lane, in the order of the
+    replay's out-links and the sink's in-links) consumed all of its lane
+    with nothing staged (in its slots, in feed mode) or in flight, and
+    the sink (or any next tile) consumed all each verify published."""
+    if not isinstance(verifies, (list, tuple)):
+        verifies = [verifies]
+    if not replay.done():
+        return False
+    for src, verify, dst in zip(replay.out_links, verifies, sink.in_links):
+        if not (verify.in_link.seq >= src.seq
+                and not verify._pending
+                and (not verify._feed or verify.feed_pool.idle())
+                and not verify._inflight
+                and dst.seq >= verify.out_link.seq):
+            return False
+    return True
 
 
 def run_tiles(tiles, quiesced, timeout_s: float = 60.0) -> float:
@@ -181,14 +244,15 @@ def run_tiles(tiles, quiesced, timeout_s: float = 60.0) -> float:
     return elapsed
 
 
-def pipeline_quiesced(replay, verify, dedup, pack, sink) -> bool:
+def pipeline_quiesced(replay, verifies, dedup, pack, sink) -> bool:
     """replay -> verify -> dedup -> pack -> sink has drained: the source
     is exhausted and each stage consumed all its producer published, with
     nothing staged, in flight or pending (the JAX runner's check,
     pipeline.py:345-360, and pack.drained(): every frag the pack consumed
-    was published or filtered). Each stage is read after its producer,
-    so a stage found drained gets no more input."""
-    if not chain_quiesced(replay, verify, dedup):
+    was published or filtered); verifies is one verify tile or a list,
+    one a lane. Each stage is read after its producer, so a stage found
+    drained gets no more input."""
+    if not chain_quiesced(replay, verifies, dedup):
         return False
     if pack.in_link.seq < dedup.out_link.seq or not pack.drained():
         return False
@@ -251,39 +315,56 @@ def _dedup_stats(dedup: DedupTile) -> Dict[str, int]:
             "false_novel": dedup.stat_drain_false_novel}
 
 
+def pin_tiles(tiles, tile_cpus: Optional[List[int]]) -> None:
+    """Core pinning (the reference's layout.affinity): the configured CPU
+    list assigned to tiles in topology order, wrapping when short."""
+    for i, t in enumerate(tiles if tile_cpus else ()):
+        t.cpu_idx = tile_cpus[i % len(tile_cpus)]
+
+
 def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
                verify_batch: int, verify_max_msg_len: int, bank_cnt: int,
                timeout_s: float, tcache_depth: int, verify_opts: dict,
                record_digests: bool, pack_scheduler: str,
-               device) -> PipelineResult:
-    """Wire the replay tile's link through verify -> dedup -> pack ->
-    sink, run the tiles until pipeline_quiesced (raising on a tile error
-    or a timeout), snapshot the diag counters."""
-    verify = VerifyTile(wksp, "verify.cnc", in_link(wksp, "replay_verify"),
-                        out_link(wksp, "verify_dedup"),
-                        backend=verify_backend, batch=verify_batch,
-                        max_msg_len=verify_max_msg_len,
-                        tcache_depth=tcache_depth, device=device,
-                        **verify_opts)
+               device, lanes: int = 1,
+               tile_cpus: Optional[List[int]] = None) -> PipelineResult:
+    """Wire the replay tile's lanes through a verify tile each (lane i on
+    ``verify.v<i>.cnc`` and its lane's links) -> dedup -> pack -> sink,
+    run the tiles until pipeline_quiesced (raising on a tile error or a
+    timeout), snapshot the diag counters of every tile and link."""
+    verifies = []
+    for i in range(lanes):
+        v = VerifyTile(wksp, f"{lane_link('verify', i)}.cnc",
+                       in_link(wksp, lane_link("replay_verify", i)),
+                       out_link(wksp, lane_link("verify_dedup", i)),
+                       backend=verify_backend, batch=verify_batch,
+                       max_msg_len=verify_max_msg_len,
+                       tcache_depth=tcache_depth, device=device,
+                       **verify_opts)
+        v.name = lane_link("verify", i)
+        verifies.append(v)
     dedup, pack, sink = (
         build_tile(wksp, name, tcache_depth=tcache_depth, bank_cnt=bank_cnt,
                    pack_scheduler=pack_scheduler,
-                   record_digests=record_digests, device=device)
+                   record_digests=record_digests, device=device,
+                   lanes=lanes)
         for name in ("dedup", "pack", "sink"))
-    tiles = [replay, verify, dedup, pack, sink]
+    tiles = [replay, *verifies, dedup, pack, sink]
+    pin_tiles(tiles, tile_cpus)
     elapsed = run_tiles(
-        tiles, lambda: pipeline_quiesced(replay, verify, dedup, pack, sink),
+        tiles,
+        lambda: pipeline_quiesced(replay, verifies, dedup, pack, sink),
         timeout_s=timeout_s)
     lat = latencies_ns(replay, sink) if record_digests else []
     res = PipelineResult(
         recv_cnt=sink.recv_cnt,
         recv_sz=sink.recv_sz,
         bank_hist=dict(sink.bank_hist),
-        diag=snapshot(wksp, TILES, LINKS),
+        diag=snapshot(wksp, topology_tiles(lanes), topology_links(lanes)),
         elapsed_s=elapsed,
         span_s=((sink.t_last - replay.pub_ticks[0]) / 1e9
                 if sink.recv_cnt else 0.0),
-        verify_stats=[verify_tile_stats(verify)],
+        verify_stats=[verify_tile_stats(v) for v in verifies],
         sink_digests=list(sink.digests) if record_digests else None,
         tile_cpu_s={t.name: t.cpu_ns / 1e9 for t in tiles},
         pack_stats=_pack_stats(pack),
@@ -295,13 +376,16 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
 
 
 def _feed_fallback_reason(verify_backend: str, verify_batch: int,
-                          verify_opts: Optional[dict]) -> Optional[str]:
+                          verify_opts: Optional[dict],
+                          lanes: int = 1) -> Optional[str]:
     """None when the fd_feed runtime can serve the topology, else why
-    not: the feed needs the gpu backend, a batch any parsed txn fits,
-    the current drain ABI and the native drain. The port's topology has
-    one verify lane, as the feed needs."""
+    not: the feed needs the gpu backend, exactly one verify lane (the
+    JAX reason word for word), a batch any parsed txn fits, the current
+    drain ABI and the native drain."""
     if verify_backend != "gpu":
         return f"verify backend {verify_backend!r} (the feed needs gpu)"
+    if lanes != 1:
+        return f"verify_lane_cnt={lanes} (feed serves exactly 1 lane)"
     if verify_batch < MAX_SIG_CNT:
         return (f"verify_batch={verify_batch} < MAX_SIG_CNT={MAX_SIG_CNT} "
                 "(a parsed txn must fit a fresh slot)")
@@ -323,21 +407,26 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                  record_digests: bool = False,
                  pack_scheduler: str = "greedy",
                  device="cuda", feed: Optional[bool] = None,
-                 feed_proc: Optional[bool] = None) -> PipelineResult:
+                 feed_proc: Optional[bool] = None,
+                 tile_cpus: Optional[List[int]] = None) -> PipelineResult:
     """Replay-sourced pipeline: payloads -> verify -> dedup -> pack ->
-    sink. feed None or True runs the fd_feed runtime when it can serve
-    the topology (feed_proc: its process layout, run_feed_pipeline), and
-    otherwise warns on the firedancer_tpu_torch.disco.feed logger, keeps
-    the reason in feed_fallback_reason and runs the in-process step
-    loop, which feed=False asks for. The verify engine and the gc pack
-    run on device: the card unless the caller passes device="cpu".
-    Shutdown is by quiescence (source exhausted and every link drained);
-    filtered frags never reach the sink, so the caller reads recv_cnt
-    and the diag counters."""
+    sink, over the topology's verify lanes (topo.pod). feed None or True
+    runs the fd_feed runtime when it can serve the topology (feed_proc:
+    its process layout, run_feed_pipeline), and otherwise warns on the
+    firedancer_tpu_torch.disco.feed logger, keeps the reason in
+    feed_fallback_reason and runs the in-process step loop, which
+    feed=False asks for; the feed serves one lane, so more than one
+    always runs the step loop. The verify engine and the gc pack run on
+    device: the card unless the caller passes device="cpu". tile_cpus
+    pins the tiles to cores in topology order (pin_tiles). Shutdown is
+    by quiescence (source exhausted and every link drained); filtered
+    frags never reach the sink, so the caller reads recv_cnt and the
+    diag counters."""
     reason = None
+    lanes = topo.verify_lanes
     if feed is None or feed:
         reason = _feed_fallback_reason(verify_backend, verify_batch,
-                                       verify_opts)
+                                       verify_opts, lanes)
         if reason is None:
             from .feed.runtime import run_feed_pipeline
 
@@ -348,16 +437,16 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                 timeout_s=timeout_s, tcache_depth=tcache_depth,
                 verify_opts=verify_opts, record_digests=record_digests,
                 pack_scheduler=pack_scheduler, device=device,
-                feed_proc=feed_proc)
+                feed_proc=feed_proc, tile_cpus=tile_cpus)
         logging.getLogger(LOGGER).warning(
             "fd_feed cannot serve this topology, falling back to the "
             "in-process step loop: %s", reason)
     wksp = Workspace.join(topo.wksp_path)
-    replay = build_tile(wksp, "replay", payloads=payloads)
+    replay = build_tile(wksp, "replay", payloads=payloads, lanes=lanes)
     res = _run_tiles(wksp, replay, verify_backend, verify_batch,
                      verify_max_msg_len or topo.mtu, bank_cnt, timeout_s,
                      tcache_depth, dict(verify_opts or {}), record_digests,
-                     pack_scheduler, device)
+                     pack_scheduler, device, lanes, tile_cpus)
     # Only after every tile thread has ended: on an error the mapping is
     # kept, since a tile still writing into it would fault.
     wksp.leave()

@@ -1,8 +1,9 @@
 """disco tiles over the tango rings, the counterpart of
 ``firedancer_tpu/disco/tiles.py`` (``meta_sig``:118, ``LinkNames``:126,
-``InLink``:134, ``OutLink``:195, ``Tile``:324, ``ReplayTile``:709,
-``_txn_batch_arrays``:773, ``_InflightBatch``:790, ``VerifyTile``:858,
-``DedupTile``:3075, ``PackTile``:3323, ``SinkTile``:3571).
+``InLink``:134, ``OutLink``:195, ``Tile``:324, ``MuxTile``:693,
+``ReplayTile``:709, ``_txn_batch_arrays``:773, ``_InflightBatch``:790,
+``VerifyTile``:858, ``DedupTile``:3075, ``PackTile``:3323,
+``SinkTile``:3571).
 ``_DeviceBatch`` gives a direct engine's statuses the async surface of
 ``_ReadyBatch``:817, and ``latencies_ns`` reads the chain's end-to-end
 latencies from the replay's and the sink's records. ``LatReservoir``
@@ -72,6 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -374,6 +376,9 @@ class Tile:
         self.halted = False
         self.error: Optional[BaseException] = None
         self.cpu_ns = 0  # CPU time of the tile's thread in run()
+        # The core run() pins the tile's thread to (layout.tile_cpus),
+        # None for no pinning.
+        self.cpu_idx: Optional[int] = None
         self._bulk: dict = {}
         if self.in_links:
             rings.require_drain()
@@ -423,6 +428,14 @@ class Tile:
                   "ctls": np.zeros(n, np.uint16),
                   "tspubs": np.zeros(n, np.uint32),
                   "ctr": np.zeros(2, np.uint64)}
+            # fd_frag_drain's arguments after the cursor, the pointers
+            # read once: an idle tile polls every millisecond, and each
+            # ndarray.ctypes lookup costs microseconds under the GIL.
+            st["args"] = (
+                self.BULK_FRAGS, 0xFFFF, st["pay"].ctypes.data,
+                st["pay"].nbytes, *(st[k].ctypes.data for k in (
+                    "offs", "lens", "sigs", "ts", "seqs", "ctls", "tspubs",
+                    "ctr")))
             self._bulk[id(il)] = st
         return st
 
@@ -438,12 +451,7 @@ class Tile:
             ovr0 = int(st["ctr"][1])
             n = lib.fd_frag_drain(
                 il.mcache._mem, ctypes.addressof(il.dcache._buf),
-                ctypes.byref(seq), self.BULK_FRAGS, 0xFFFF,
-                st["pay"].ctypes.data, st["pay"].nbytes,
-                st["offs"].ctypes.data, st["lens"].ctypes.data,
-                st["sigs"].ctypes.data, st["ts"].ctypes.data,
-                st["seqs"].ctypes.data, st["ctls"].ctypes.data,
-                st["tspubs"].ctypes.data, st["ctr"].ctypes.data)
+                ctypes.byref(seq), *st["args"])
             d_ovr = int(st["ctr"][1]) - ovr0
             if d_ovr:
                 il.fseq.diag_add(DIAG_OVRNR_CNT, d_ovr)
@@ -490,7 +498,14 @@ class Tile:
         exception is kept in self.error and raised again; on_halt and
         the last housekeeping run either way. A tile with a CUDA device
         runs with it current in its thread: its CUDA work is launched
-        from its own thread only."""
+        from its own thread only. With cpu_idx set the thread is pinned
+        to that core first, where the host allows it (best effort, as
+        in the JAX Tile.run)."""
+        if self.cpu_idx is not None and hasattr(os, "sched_setaffinity"):
+            try:
+                os.sched_setaffinity(0, {self.cpu_idx})  # this thread
+            except OSError:
+                pass  # a cpuset may forbid the core
         if self.device is not None and self.device.type == "cuda":
             with torch.cuda.device(self.device):
                 return self._run(max_ns)
@@ -564,17 +579,42 @@ class Tile:
         return True
 
 
+class MuxTile(Tile):
+    """N in-links -> 1 out-link (disco/mux/fd_mux.c analog), the JAX
+    ``MuxTile``:693: forwards every frag downstream in the order the
+    in-links are drained, keeping its sig and tsorig. The generic
+    multi-input run loop of Tile is the mux; this is its identity
+    instance."""
+
+    name = "mux"
+
+    def __init__(self, wksp, cnc_name, in_links: Sequence[InLink],
+                 out_link: OutLink, **kw):
+        super().__init__(wksp, cnc_name, in_links=in_links,
+                         out_link=out_link, **kw)
+
+    def on_frag(self, frag: Frag, payload: bytes) -> None:
+        self.publish_backp(payload, frag.sig, tsorig=frag.tsorig)
+
+
 class ReplayTile(Tile):
     """Source: publishes a list of payloads with flow control
     (disco/replay/fd_replay.c analog). pub_ticks holds the full tick
     count of each publish, by payload index; a frag's tsorig carries its
-    low 32 bits."""
+    low 32 bits. Given out_links (one a verify lane) instead of
+    out_link, it publishes payload i on lane i mod len(out_links), the
+    round-robin fan-out of the JAX ``ReplayTile``:709-724 (the
+    reference's verify_tile_count data parallelism)."""
 
     name = "replay"
 
-    def __init__(self, wksp, cnc_name, out_link: OutLink,
-                 payloads: Sequence[bytes] = (), **kw):
-        super().__init__(wksp, cnc_name, out_link=out_link, **kw)
+    def __init__(self, wksp, cnc_name, out_link: Optional[OutLink] = None,
+                 payloads: Sequence[bytes] = (),
+                 out_links: Optional[Sequence[OutLink]] = None, **kw):
+        if (out_link is None) == (out_links is None):
+            raise ValueError("pass exactly one of out_link and out_links")
+        self.out_links = list(out_links) if out_links else [out_link]
+        super().__init__(wksp, cnc_name, out_link=self.out_links[0], **kw)
         self.payloads = payloads
         self.pos = 0
         self.pub_cnt = 0
@@ -583,16 +623,21 @@ class ReplayTile(Tile):
     def done(self) -> bool:
         return self.pos >= len(self.payloads)
 
+    def housekeep(self, now: int) -> None:
+        super().housekeep(now)
+        for ol in self.out_links[1:]:
+            ol.housekeep()
+
     def step(self) -> None:
-        if not self.out_link.can_publish():
+        lane = self.out_links[self.pos % len(self.out_links)]
+        if not lane.can_publish():
             self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
             time.sleep(20e-6)
             return
         payload = self.payloads[self.pos]
         now = tempo.tickcount()
         self.pub_ticks.append(now)
-        self.out_link.publish(payload, meta_sig(payload),
-                              tsorig=now & 0xFFFFFFFF)
+        lane.publish(payload, meta_sig(payload), tsorig=now & 0xFFFFFFFF)
         self.pos += 1
         self.pub_cnt += 1
 
@@ -887,6 +932,12 @@ class VerifyTile(Tile):
         self._nd_tspub = np.zeros(b, np.uint32)
         self._nd_hash = np.zeros(b, np.uint64)
         self._nd_pay_fill = 0
+        # The buffers' addresses, read once: an idle tile polls every
+        # millisecond, and each ndarray.ctypes lookup costs microseconds
+        # under the GIL.
+        self._nd_ptr = {k: getattr(self, f"_nd_{k}").ctypes.data for k in (
+            "msgs", "lens", "sigs", "pubs", "pay", "offs", "plens", "psigs",
+            "tlanes", "tsorig", "tspub", "hash", "counters")}
 
     def _nd_account(self, il: InLink) -> bool:
         """Fold a drain round's counter deltas into the diag slots
@@ -920,21 +971,17 @@ class VerifyTile(Tile):
         lane0 = self._pending_lanes
         mtu = self.max_msg_len
         seq = ctypes.c_uint64(il.seq)
+        ptr = self._nd_ptr
         n = self._nd_lib.fd_verify_drain(
             il.mcache._mem, ctypes.addressof(il.dcache._buf),
             ctypes.byref(seq),
             self.batch - len(self._pending), room_lanes, self.batch, mtu,
-            self._nd_msgs.ctypes.data + lane0 * mtu,
-            self._nd_lens.ctypes.data + lane0 * 4,
-            self._nd_sigs.ctypes.data + lane0 * 64,
-            self._nd_pubs.ctypes.data + lane0 * 32,
-            self._nd_pay.ctypes.data + self._nd_pay_fill,
+            ptr["msgs"] + lane0 * mtu, ptr["lens"] + lane0 * 4,
+            ptr["sigs"] + lane0 * 64, ptr["pubs"] + lane0 * 32,
+            ptr["pay"] + self._nd_pay_fill,
             self._nd_pay.nbytes - self._nd_pay_fill,
-            self._nd_offs.ctypes.data, self._nd_plens.ctypes.data,
-            self._nd_psigs.ctypes.data,
-            self._nd_tlanes.ctypes.data, self._nd_tsorig.ctypes.data,
-            self._nd_tspub.ctypes.data, self._nd_hash.ctypes.data,
-            self._nd_counters.ctypes.data)
+            ptr["offs"], ptr["plens"], ptr["psigs"], ptr["tlanes"],
+            ptr["tsorig"], ptr["tspub"], ptr["hash"], ptr["counters"])
         overrun = self._nd_account(il)
         if n <= 0:
             il.seq = seq.value

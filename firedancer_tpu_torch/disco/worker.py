@@ -24,8 +24,8 @@ tick, and the pack's and the dedup tile's counters. The main process
 reads the end-to-end latency and stage_latency from them.
 
 Options (``--opts``): mtu, tcache_depth, bank_cnt, pack_scheduler,
-record_digests, and for the replay payloads_path (a pickled list of
-payloads).
+record_digests, cpu_map (a core by tile name to pin it to), and for the
+replay payloads_path (a pickled list of payloads).
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ def build_tile(wksp, name: str, opts: dict):
 
     opts = dict(opts)
     payloads = ()
+    cpu = opts.pop("cpu_map", {}).get(name)
     path = opts.pop("payloads_path", None)
     if name == "replay":
         with open(path, "rb") as f:
@@ -58,6 +59,7 @@ def build_tile(wksp, name: str, opts: dict):
                                **opts)
     if tile.out_link is not None:
         tile.out_link.lat = LatReservoir()
+    tile.cpu_idx = cpu
     return tile
 
 

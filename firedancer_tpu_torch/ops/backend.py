@@ -14,11 +14,17 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
-# kernel name -> launches / plain-version calls since reset_counts().
+# kernel name -> launches / plain-version calls since reset_counts(),
+# updated under _count_lock: the verify tiles of several lanes launch
+# from their own threads, and a read-modify-write of a dict entry can
+# lose a count between two threads.
 launches: dict[str, int] = {}
 plain_calls: dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 def hopper_available() -> bool:
@@ -82,13 +88,16 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with _count_lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def count_plain(name: str) -> None:
-    plain_calls[name] = plain_calls.get(name, 0) + 1
+    with _count_lock:
+        plain_calls[name] = plain_calls.get(name, 0) + 1
 
 
 def reset_counts() -> None:
-    launches.clear()
-    plain_calls.clear()
+    with _count_lock:
+        launches.clear()
+        plain_calls.clear()

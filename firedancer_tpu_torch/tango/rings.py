@@ -94,6 +94,12 @@ def load_lib() -> ctypes.CDLL:
         "fd_wksp_query": (_u64, [_vp, ctypes.c_char_p,
                                  ctypes.POINTER(_u64)]),
         "fd_wksp_laddr": (_vp, [_vp, _u64]),
+        "fd_wksp_alloc_cnt": (_u32, [_vp]),
+        "fd_wksp_stat": (ctypes.c_int, [_vp, _u32, ctypes.c_char_p,
+                                        ctypes.POINTER(_u64),
+                                        ctypes.POINTER(_u64)]),
+        "fd_wksp_usage": (None, [_vp, _vp]),
+        "fd_wksp_page_probe": (_u64, []),
         "fd_mcache_footprint": (_u64, [_u64]),
         "fd_mcache_init": (None, [_vp, _u64]),
         "fd_mcache_depth": (_u64, [_vp]),
@@ -260,6 +266,22 @@ class Workspace:
 
     def laddr(self, off: int) -> int:
         return lib().fd_wksp_laddr(self._h, off)
+
+    def alloc_list(self) -> list[tuple[str, int, int]]:
+        """[(name, off, sz)] of every named allocation (fd_wksp_ctl list)."""
+        name, off, sz = ctypes.create_string_buffer(64), _u64(), _u64()
+        out = []
+        for i in range(lib().fd_wksp_alloc_cnt(self._h)):
+            if lib().fd_wksp_stat(self._h, i, name, ctypes.byref(off),
+                                  ctypes.byref(sz)) == 0:
+                out.append((name.value.decode(), off.value, sz.value))
+        return out
+
+    def usage(self) -> dict:
+        """{total_sz, used, alloc_cnt} of the workspace."""
+        buf = (_u64 * 3)()
+        lib().fd_wksp_usage(self._h, buf)
+        return {"total_sz": buf[0], "used": buf[1], "alloc_cnt": buf[2]}
 
 
 class MCache:

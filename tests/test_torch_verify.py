@@ -257,6 +257,16 @@ def test_port_scan_reaches_the_feed_modules():
             "firedancer_tpu_torch/disco/feed/slots.py"} <= names
 
 
+def test_port_scan_reaches_the_app_and_utils_modules():
+    """The scan covers the operator entry point and the utilities it
+    copied from the JAX package."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"firedancer_tpu_torch/app/{m}.py" for m in (
+        "config", "configure", "fdctl", "fddev", "ctl", "security")} <= names
+    assert {f"firedancer_tpu_torch/utils/{m}.py" for m in (
+        "pod", "pcap", "pcapng")} <= names
+
+
 def test_acquire_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="capability 9"):
