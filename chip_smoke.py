@@ -36,9 +36,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and 2^23 bits, then over 16 chained rounds of 8192 lanes and of
    their first 1200 with a rotation halfway; a window of 3 words must
    be refused before any launch; timed by CUDA events and the trace
-   (after a discarded warm-up step, 90 % of the launches held, one
-   device operation a call on the one block and four on the grid, or
-   the run fails) at the main path's 1200 staged
+   (after a discarded warm-up step, each recorded step padded by 20 ms
+   of idle host time on either side; a trace holding 90 % of the
+   launches must show one device operation a call on the one block and
+   four on the grid, or the run fails; a trace that loses launches in
+   every try is reported as not measured) at the main path's 1200 staged
    lanes, n = 1, 8192 lanes, 65536 and 2^20 bits, both launches at 2048
    and 4096 lanes, and the parent's launch on the main path, with each
    shape's geometry and ptxas's registers (0 stack and 0 spills). The
@@ -198,9 +200,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    thread CPU by tile, the device's busy share and, on gc, blocks,
    accepted schedules and fallbacks.
 9. Feed: run_pipeline through the fd_feed runtime (its default), with
-   phase 8 (b)'s checks and res.feed true, no fallback reason, no CPU
-   failover, stager restart or leaked slot, and the process layout
-   asked for. Every run arms the fd_drain, the feed's default, unless
+   phase 8 (b)'s checks and res.feed true, no fallback reason, no
+   leaked slot, and the process layout asked for. Every run arms the
+   fd_drain, the feed's default, unless
    it says drain="off": each batch filtered once (dedup_filter launches
    = drain batches = batches), the novel and maybe publishes equal to
    verify's publishes and to the dedup tile's skipped and made probes,
@@ -270,7 +272,38 @@ Phases, each fatal on failure (exit code != 0, no result line):
    signing launched keygen_batch once and sign_batch once a 4,096 jobs.
    Prints txn/s (host clock), the feed's stage latencies, seconds and
    launches by kernel.
-11. Output: the card line, one JSON line of per-kernel numbers, and the
+   Every pipeline run of phases 7 to 10 also fails unless each verify
+   tile's cpu_failover, quarantined, breaker_trips and stager_restarts
+   are 0: outside phase 11 no fault is injected, so a kernel fault that
+   the breaker or the quarantine would absorb fails the run instead.
+11. Chaos: the verify tile's healing lane on the card. First the CPU
+   lane (ballet.ed25519.native.verify_arrays, the native C++ verifier)
+   against K1-K4's statuses on phase 4's batch (b), lane for lane (every
+   bad status and the 396 Zcash vectors), with its lanes/s. Then
+   scripts/chaos_smoke.py's corpus mix at the tile's size
+   (mainnet_corpus(n=32768, seed=4242, dup 5 %, corrupt 3 %, parse
+   errors 2 %, data up to 140 bytes), signed on the card) through
+   run_feed_pipeline on rings 4,096 deep, B = 8192, a TCache of 2^17,
+   inflight 4, the drain armed, in process, with the injector armed at
+   seed 42 and that script's seven-class schedule (ring_ctl_err@7,
+   ring_ctl_err@60, ring_overrun@9, credit_starve@100:160, stager_kill@5,
+   slot_corrupt@4, backend_raise@3, device_lost@1:3) and a breaker of
+   threshold 2 and 20 ms: verify mode direct, then rlc (fused). Each run
+   must deliver expected_sink_digests less exactly one corrupted txn,
+   give every class injected = detected = healed >= 1, leak no slot,
+   restart the stager once, trip and re-probe the breaker and end it
+   closed, fail over and quarantine at least once, drop at least two
+   CTL_ERR frags, overrun replay_verify at least once, filter at least
+   the quarantine's CTL_ERR frags on verify_dedup, fall back at least
+   once in rlc, and launch exactly: the verify rows once a batch that
+   reached the card (batches less those the CPU lane served), the direct
+   rows once more an rlc fallback, dedup_filter once a batch (failover
+   batches included), no warm pass and no plain version. Prints each
+   run's txn/s and the CPU lane's lanes/s over the batches it served.
+   Last, the trace's padding A/B at the end of the run (five traces of
+   the filter's 2,048-lane block unpadded and five padded, in turns; as
+   at phase 9's start).
+12. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -295,6 +328,12 @@ B = 8192                 # FD_BENCH_BATCH
 MSG_LEN = 192            # FD_BENCH_MSG_LEN
 MTU_MSG = 1232
 REPS = 20
+# Host wall time a trace's recorded step keeps idle before its first
+# launch and after its last (traced_call_ms): the profiler keeps a
+# device activity only if its timestamps, mapped to the host clock, fall
+# inside the step's window, and a step of 20 launches of a few
+# microseconds is far shorter than the mapping's error.
+TRACE_PAD_S = 0.02
 TIMED_BATCHES = 10
 DIRECT_KERNELS = ("sha512_mod_l", "decompress_so", "double_scalarmult",
                   "point_eq")
@@ -419,6 +458,24 @@ APP_PCAP_N = 8192
 APP_SIGN_B = 4096          # disco.corpus.sign_jobs' batch
 # Launches of one keygen_batch call (the synth's public keys).
 KEYGEN_LAUNCHES = {"sha512_batch": 1, "double_scalarmult": 1, "compress": 1}
+
+# The chaos phase (11): scripts/chaos_smoke.py's corpus mix (:48-49,
+# :81-84) at the tile's size, its injector seed, schedule (:55-58, seven
+# fault classes) and breaker (threshold 2, 20 ms), on rings 4,096 deep,
+# a TCache of 2^17, inflight 4, the drain armed, the feed in process.
+CHAOS_N = 32768
+CHAOS_CORPUS_SEED = 4242
+CHAOS_SEED = 42
+CHAOS_SCHEDULE = ("ring_ctl_err@7,ring_ctl_err@60,ring_overrun@9,"
+                  "credit_starve@100:160,stager_kill@5,slot_corrupt@4,"
+                  "backend_raise@3,device_lost@1:3")
+CHAOS_CLASSES = ("ring_ctl_err", "ring_overrun", "credit_starve",
+                 "stager_kill", "slot_corrupt", "backend_raise",
+                 "device_lost")
+CHAOS_DEPTH = 4096
+CHAOS_TCACHE = 1 << 17
+CHAOS_OPTS = {"inflight": 4, "breaker_threshold": 2,
+              "breaker_cooldown_ms": 20}
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -2049,6 +2106,19 @@ def tile_want_launches(mode: str, batches: int, fallbacks: int) -> dict:
     return want
 
 
+# The healing lane's counters that every run but phase 11's must leave at
+# 0: a kernel fault that the breaker or the quarantine would absorb fails
+# the run instead.
+HEALING_ZERO = ("cpu_failover", "quarantined", "breaker_trips",
+                "stager_restarts")
+
+
+def healing_problems(stats) -> list:
+    """The nonzero healing counters of each verify tile's record."""
+    return [f"verify lane {i}: {k} {vs[k]}" for i, vs in enumerate(stats)
+            for k in HEALING_ZERO if vs[k]]
+
+
 def tile_run(torch, card, label, mode, native_drain, corpus, fixtures,
              fx_ok, batch):
     """One replay -> verify -> sink run on the card: its exact
@@ -2058,6 +2128,7 @@ def tile_run(torch, card, label, mode, native_drain, corpus, fixtures,
     from firedancer_tpu_torch.ballet.txn import MAX_SIG_CNT
     from firedancer_tpu_torch.disco import corpus as dcorpus
     from firedancer_tpu_torch.disco import pipeline, tiles
+    from firedancer_tpu_torch.disco.feed.runtime import verify_tile_stats
     from firedancer_tpu_torch.ops import backend
     from firedancer_tpu_torch.tango.rings import Workspace
     from torch.profiler import ProfilerActivity, profile
@@ -2141,6 +2212,7 @@ def tile_run(torch, card, label, mode, native_drain, corpus, fixtures,
     if label.startswith("4") and v.stat_rlc_fallback:
         problems.append(f"{v.stat_rlc_fallback} RLC fallbacks on the clean "
                         "corpus")
+    problems += healing_problems([verify_tile_stats(v)])
 
     span = (sink.t_last - replay.pub_ticks[0]) / 1e9
     lat = tiles.latencies_ns(replay, sink).astype(np.float64) / 1e6
@@ -2693,10 +2765,15 @@ def drain_kernel_phase(torch, record, tags_all: np.ndarray,
         ms = time_ms(torch, fn, REPS)
         dev_ms, ops, held, ok = traced_call_ms(torch, fn, "dedup_", kernels,
                                                want_ops)
+        if not ok and max(held) >= 0.9 * kernels * REPS:
+            fail(f"dedup_filter {label}: a trace held the launches, but "
+                 f"not {want_ops} device operations a call (launches "
+                 f"held {held})")
         if not ok:
-            fail(f"dedup_filter {label}: no trace held 90 % of the "
-                 f"{kernels * REPS} launches with {want_ops} device "
-                 f"operations a call (launches held {held})")
+            # Every trace lost launches: the measurement failed, not the
+            # kernel (its parity is checked above).
+            say(f"  dedup_filter {label}: every trace lost launches (held "
+                f"{held} of {kernels * REPS}): device time not measured")
         plain_ms = time_ms(torch, plain, 2) if plain is not None else None
         bound = bound_dedup_filter(n, h_bits)
         plain_txt = f", plain {plain_ms:.3f} ms" if plain is not None else ""
@@ -2793,6 +2870,9 @@ def drain_kernel_phase(torch, record, tags_all: np.ndarray,
         timed_call(f"{route} forced, n = {n}, {slots} slots "
                    f"({slots // least(n)} x the least)",
                    forced(case_args(n, h17), route, slots), route, n, h17)
+    trace_pad_probe(torch, forced(case_args(dfc.ONE_CTA_LANES, h17),
+                                  "block", block_slots(dfc.ONE_CTA_LANES)),
+                    "dedup_", 1)
     # The parent's launch on the main path: the grid at the least table
     # over all B lanes, DRAIN_MAIN of them valid.
     args = case_args(DRAIN_MAIN, h17, batch)
@@ -2807,17 +2887,22 @@ def drain_kernel_phase(torch, record, tags_all: np.ndarray,
 
 
 def traced_call_ms(torch, fn, prefix: str, kernels: int, want_ops: int,
-                   reps: int = REPS, tries: int = 3):
+                   reps: int = REPS, tries: int = 4, pad_s=TRACE_PAD_S):
     """(device ms a call, device operations a call, launches held by each
     trace taken, accepted) of reps warm calls of fn by the trace, each
     call launching `kernels` kernels whose names start with prefix and
-    want_ops device operations in all. The profiler's collection can
-    start late (in a full run of this script a plain trace held 4 of 20
-    launches, and the next one all 20), so each trace first runs a
-    warm-up step of reps calls that it discards. A trace is accepted when
-    it holds at least 90 % of the reps' launches and want_ops operations
-    for each call it holds; its times are over the calls it holds.
-    Otherwise it is taken again, up to tries times."""
+    want_ops device operations in all. The trace records the second of
+    two steps (the first, a warm-up, is discarded). Kineto keeps a device
+    activity only when its timestamps, converted to the host's clock,
+    fall inside the recorded step's window on that clock; a step of reps
+    calls of a kernel of a few microseconds lasts well under a
+    millisecond, so an error of that size in the conversion dropped whole
+    traces late in a full run of this script (0, 0 and 15 of 20 launches
+    of one shape). Each step therefore waits pad_s of host time after the
+    device is idle before its first launch and after its last. A trace
+    is accepted when it holds at least 90 % of the reps' launches and
+    want_ops operations for each call it holds; its times are over the
+    calls it holds. Otherwise it is taken again, up to tries times."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     held = []
@@ -2828,9 +2913,11 @@ def traced_call_ms(torch, fn, prefix: str, kernels: int, want_ops: int,
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(2):
+                time.sleep(pad_s)
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(pad_s)
                 prof.step()
         busy, ops = trace_busy(prof)
         held.append(trace_kernels_ms(prof, prefix)[1])
@@ -2838,6 +2925,19 @@ def traced_call_ms(torch, fn, prefix: str, kernels: int, want_ops: int,
         if held[-1] >= 0.9 * kernels * reps and ops == want_ops * calls:
             return busy * 1e3 / calls, ops / calls, held, True
     return 0.0, 0.0, held, False
+
+
+def trace_pad_probe(torch, fn, prefix: str, kernels: int,
+                    traces: int = 5) -> None:
+    """The padding's A/B: launches of fn held by traces taken with no pad
+    and with TRACE_PAD_S, in turns."""
+    held = {0.0: [], TRACE_PAD_S: []}
+    for _ in range(traces):
+        for pad in held:
+            held[pad].append(traced_call_ms(torch, fn, prefix, kernels, 0,
+                                            tries=1, pad_s=pad)[2][0])
+    say(f"  trace pad A/B, launches held of {kernels * REPS} a trace: "
+        + "; ".join(f"pad {pad * 1e3:.0f} ms {held[pad]}" for pad in held))
 
 
 def pipe_traffic(fixtures, fx_ok, corpus) -> dict:
@@ -3122,13 +3222,13 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     if res.feed != feed or res.feed_fallback_reason is not None:
         problems.append(f"feed {res.feed}, fallback reason "
                         f"{res.feed_fallback_reason!r}; want feed={feed}")
+    problems += healing_problems(res.verify_stats)
     if feed:
         in_proc = sched == "gc" or not feed_proc
         if ("workers" in res.proc_cpu_s) == in_proc:
             problems.append(f"process layout: {res.proc_cpu_s}")
-        for key in ("cpu_failover", "stager_restarts", "slots_leaked"):
-            if vs[key]:
-                problems.append(f"{key} {vs[key]}")
+        if vs["slots_leaked"]:
+            problems.append(f"slots_leaked {vs['slots_leaked']}")
 
     busy, _ = trace_busy(prof)
     span = res.span_s
@@ -3175,8 +3275,9 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
             f"slot stalls {vs['slot_stall']} ({vs['slot_stall_ms']} ms), "
             f"device idle estimate {vs['device_idle_est_ms']} ms, stager "
             f"restarts {vs['stager_restarts']}, cpu failover "
-            f"{vs['cpu_failover']}, slots leaked {vs['slots_leaked']} "
-            f"[{card}]")
+            f"{vs['cpu_failover']}, quarantined {vs['quarantined']}, "
+            f"breaker {vs['breaker_state']} ({vs['breaker_trips']} trips), "
+            f"slots leaked {vs['slots_leaked']} [{card}]")
     if sched == "gc":
         say(f"{label}: {ps['blocks']} blocks ({ps['dev_blocks']} colored "
             f"by the drain), {ps['block_device']} device "
@@ -3696,6 +3797,7 @@ def app_run(torch, card, label, entry, argv, lanes, *, synth, feed):
     if res.feed != feed or res.feed_fallback_reason != reason:
         problems.append(f"feed {res.feed}, reason "
                         f"{res.feed_fallback_reason!r}; want {reason!r}")
+    problems += healing_problems(vstats)
     span = res.span_s
     stages = "; ".join(
         f"{k} p50 {v['p50_ns'] / 1e6:.3f} p99 {v['p99_ns'] / 1e6:.3f} ms"
@@ -3720,6 +3822,177 @@ def app_run(torch, card, label, entry, argv, lanes, *, synth, feed):
     if problems:
         fail(f"{label}: " + "; ".join(problems))
     return res, payloads, launches
+
+
+def chaos_run(torch, card, label, corpus, mode, batch: int = B):
+    """One run_feed_pipeline of the chaos phase on the card, the injector
+    armed with CHAOS_SEED and CHAOS_SCHEDULE, the verify tile kept
+    through tile_hook (its CPU lane's lanes and wall time). Gates
+    scripts/chaos_smoke.py's checks (the sink, each class's tri-counter,
+    the pool, the breaker, the failover and the quarantine, the overrun
+    and the CTL_ERR drops) and exact launches: the verify rows once a
+    batch that reached the card (batches less those the CPU lane
+    served), the direct rows once more a fallback of an rlc batch
+    (rlc_fallback), dedup_filter once a batch (failover batches
+    included), no warm pass and no plain call. Returns (result, lanes/s
+    of the CPU lane)."""
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco import pipeline
+    from firedancer_tpu_torch.disco.engine import registry
+    from firedancer_tpu_torch.disco.feed.runtime import run_feed_pipeline
+    from firedancer_tpu_torch.ops import backend
+
+    path = os.path.join(REPO, "build", "chaos_smoke.wksp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    topo = pipeline.build_topology(path, depth=CHAOS_DEPTH,
+                                   wksp_sz=FEED_WKSP)
+    opts = dict(CHAOS_OPTS, verify_mode=mode)
+    if mode == "rlc":
+        opts["frontend"] = "fused"
+    reg = registry()
+    warms0 = {e: e.warms for e in reg.entries()}
+    seen = {}
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        res = run_feed_pipeline(
+            topo, corpus.payloads, verify_backend="gpu", verify_batch=batch,
+            tcache_depth=CHAOS_TCACHE, record_digests=True, timeout_s=600.0,
+            verify_opts=opts, feed_proc=False,
+            tile_hook=lambda v: seen.setdefault("tile", v),
+            chaos=(CHAOS_SEED, CHAOS_SCHEDULE))
+        torch.cuda.synchronize()
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+    finally:
+        os.remove(path)
+    warmed = [e.key for e in reg.entries() if e.warms != warms0.get(e, 0)]
+    v, vs, d = seen["tile"], res.verify_stats[0], res.diag
+    snap = vs.get("chaos") or {}
+    counters = snap.get("counters") or {}
+    problems = []
+    corrupted = collections.Counter(
+        bytes.fromhex(h) for h in snap.get("corrupted_sha256", ()))
+    want = dcorpus.expected_sink_digests(corpus) - corrupted
+    got = collections.Counter(res.sink_digests)
+    if got != want or sum(corrupted.values()) != 1:
+        problems.append(f"sink: {sum((want - got).values())} missing, "
+                        f"{sum((got - want).values())} unexpected, "
+                        f"{sum(corrupted.values())} corrupted (want 1)")
+    if set(counters) != set(CHAOS_CLASSES):
+        problems.append(f"classes audited {sorted(counters)}")
+    for cls, c in counters.items():
+        if not c["injected"] == c["detected"] == c["healed"] >= 1:
+            problems.append(f"{cls}: {c}")
+    for key, ok in (("slots_leaked", vs["slots_leaked"] == 0),
+                    ("stager_restarts", vs["stager_restarts"] == 1),
+                    ("breaker_trips", vs["breaker_trips"] >= 1),
+                    ("breaker_reprobes", vs["breaker_reprobes"] >= 1),
+                    ("breaker_state", vs["breaker_state"] == "closed"),
+                    ("cpu_failover", vs["cpu_failover"] >= 1),
+                    ("quarantined", vs["quarantined"] >= 1),
+                    ("ctl_err_drop", vs["ctl_err_drop"] >= 2)):
+        if not ok:
+            problems.append(f"{key} {vs[key]}")
+    ovr = d["link.replay_verify"]["ovrnr_cnt"]
+    filt = d["link.verify_dedup"]["filt_cnt"]
+    if ovr < 1:
+        problems.append(f"replay_verify overruns {ovr}")
+    if filt < vs["quarantine_err_txn"]:
+        problems.append(f"verify_dedup filtered {filt} < the quarantine's "
+                        f"CTL_ERR frags {vs['quarantine_err_txn']}")
+    on_card = vs["batches"] - vs["cpu_failover"]
+    want_l = tile_want_launches(mode, on_card, vs["rlc_fallback"])
+    want_l["dedup_filter"] = vs["batches"]
+    if mode == "rlc" and vs["rlc_fallback"] < 1:
+        problems.append("no rlc batch fell back (the corrupted lane's "
+                        "batch must)")
+    if launches != want_l:
+        problems.append(f"launches {launches} != {want_l}")
+    if plain or warmed:
+        problems.append(f"plain versions ran: {plain}; warmed: {warmed}")
+    n = len(corpus.payloads)
+    cpu_lps = v.stat_cpu_lanes / (v.stat_cpu_ns / 1e9) if v.stat_cpu_ns \
+        else 0.0
+    say(f"{label}: {n} txns in {res.span_s:.3f} s from the first publish "
+        f"to the last sink frag = {n / res.span_s:.0f} txn/s (host clock; "
+        f"run {res.elapsed_s:.3f} s); latency p50 "
+        f"{res.latency_p50_ns / 1e6:.3f} ms, p99 "
+        f"{res.latency_p99_ns / 1e6:.3f} ms [{card}]")
+    say(f"{label}: CPU lane {v.stat_cpu_lanes} lanes in "
+        f"{v.stat_cpu_ns / 1e6:.1f} ms = {cpu_lps:.0f} lanes/s (host clock, "
+        f"the native verifier; {vs['cpu_failover']} failover batches, "
+        f"{vs['quarantined']} quarantined) [{card}]")
+    say(f"{label}: batches {vs['batches']} ({on_card} on the card), rlc "
+        f"fallbacks {vs['rlc_fallback']}, breaker {vs['breaker_state']} "
+        f"(trips {vs['breaker_trips']}, reprobes {vs['breaker_reprobes']}), "
+        f"stager restarts {vs['stager_restarts']}, quarantine CTL_ERR "
+        f"{vs['quarantine_err_txn']}, ctl_err drops {vs['ctl_err_drop']}, "
+        f"replay_verify overruns {ovr}, verify_dedup filtered {filt}, "
+        f"slots leaked {vs['slots_leaked']}; classes {counters}")
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+    say(f"{label}: the sink exact less the corrupted txn, every class "
+        f"injected = detected = healed, launches = {want_l}, no plain call")
+    return res, cpu_lps
+
+
+def chaos_phase(torch, card, batch_b, direct_b, batch: int = B) -> None:
+    """Phase 11: the healing lane on the card. The native verifier (the
+    CPU lane) against K1-K4's statuses on phase 4's batch (b); then
+    scripts/chaos_smoke.py's corpus, injector and breaker at the tile's
+    size through the feed in verify mode direct, then rlc with the
+    fused front half (chaos_run)."""
+    from firedancer_tpu_torch.ballet.ed25519 import native
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.ops.dedup_filter import DEFAULT_FILTER_BITS
+
+    # Both engines and their filter warm before the runs (phase 9's live
+    # reconfig retires engines), so the runs' counts hold their own.
+    for mode in ("direct", "rlc"):
+        registry().acquire(EngineSpec(mode, batch))[0].warm_drain(
+            DEFAULT_FILTER_BITS)
+    t0 = time.perf_counter()
+    got = native.verify_arrays(*batch_b, len(direct_b))
+    cpu_s = time.perf_counter() - t0
+    bad = np.nonzero(got != direct_b)[0]
+    if len(bad):
+        fail(f"the CPU lane disagrees with K1-K4 on batch (b) at "
+             f"{len(bad)} lanes, first {bad[:8].tolist()}: "
+             f"{got[bad[:8]].tolist()} vs {direct_b[bad[:8]].tolist()}")
+    say(f"CPU lane: native.verify_arrays equals K1-K4 on batch (b)'s "
+        f"{len(direct_b)} lanes (status counts "
+        f"{dict(zip(*np.unique(got, return_counts=True)))}), "
+        f"{len(direct_b) / cpu_s:.0f} lanes/s (host clock) [{card}]")
+    t0 = time.perf_counter()
+    corpus = dcorpus.mainnet_corpus(n=CHAOS_N, seed=CHAOS_CORPUS_SEED,
+                                    dup_rate=0.05, corrupt_rate=0.03,
+                                    parse_err_rate=0.02, max_data_sz=140)
+    torch.cuda.synchronize()
+    say(f"chaos corpus: mainnet_corpus(n={CHAOS_N}, "
+        f"seed={CHAOS_CORPUS_SEED}): {len(corpus.payloads)} payloads, "
+        f"signed on the card in {time.perf_counter() - t0:.1f} s; injector "
+        f"seed {CHAOS_SEED}, schedule {CHAOS_SCHEDULE}")
+    for mode in ("direct", "rlc"):
+        chaos_run(torch, card, f"chaos {mode}", corpus, mode, batch)
+
+
+def late_trace_probe(torch) -> None:
+    """The trace's padding A/B again at the end of the run: the filter's
+    one block on 2,048 lanes, as the drain timing forces it."""
+    from firedancer_tpu_torch.ops.dedup_filter import (
+        DEFAULT_FILTER_BITS,
+        dedup_filter,
+        empty_banks,
+    )
+
+    dev = torch.device("cuda", 0)
+    tags = torch.randint(-2**31, 2**31 - 1, (2, 2048), dtype=torch.int32,
+                         device=dev)
+    valid = torch.ones(2048, dtype=torch.bool, device=dev)
+    banks = empty_banks(DEFAULT_FILTER_BITS, dev)
+    trace_pad_probe(torch, lambda: dedup_filter(tags[0], tags[1], valid,
+                                                *banks), "dedup_", 1)
 
 
 def app_phase(torch, card) -> None:
@@ -4207,8 +4480,10 @@ def main() -> int:
     pack_phase(torch, card, record, *traffic)
     feed_phase(torch, card, rows, record, *traffic)
     app_phase(torch, card)
+    chaos_phase(torch, card, batch_b, direct_b)
+    late_trace_probe(torch)
 
-    # 11. Output.
+    # 12. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

@@ -32,9 +32,10 @@ of which is a confirmed-novel publish; so after
 confirmed-novel publishes (the ring and a batch cover the frags in
 flight between the verify tile's publish and the dedup tile's insert)
 every tag whose bit was last set before the previous rotation has been
-evicted, and the window rotates only then. The JAX window also defers
-rotation under chaos injection; the port has no chaos hooks, but
-``maybe_rotate`` keeps the ``blocked`` argument.
+evicted, and the window rotates only then, and never while a
+``disco.chaos`` injector is armed (the verify tile passes ``blocked``),
+as in the JAX window: replayed and dropped frags break the proof's
+"published => inserted" step.
 
 ``greedy_waves`` is the exact-lock CPU wave packer the pack tile
 compares a device schedule with, and falls back to;

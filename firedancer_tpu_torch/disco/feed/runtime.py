@@ -114,17 +114,25 @@ def stage_latency(pub_ticks, samples: Dict[str, tuple]) -> Dict[str, dict]:
 
 def verify_tile_stats(v) -> Dict[str, object]:
     """The verify_stats record of one VerifyTile, the fields of the JAX
-    record that the port's stat_* counters fill: the rung ladder's
-    (``rung_hist`` keyed by str(rung), ``rung_ladder``, ``rung_switches``,
-    ``rung_cur``; {} / [] / 0 / 0 with the scheduler off), the drain's and
-    the live reconfig's (the JAX :105-134; its chaos, breaker, compile and
-    shard fields have no counterpart yet).
-    ``cpu_failover`` is always 0: the port's feeder never verifies on
-    the host."""
+    record (:60-147) that the port's stat_* counters fill: the healing
+    lane's (``stager_restarts``, ``cpu_failover``, ``quarantined``,
+    ``quarantine_err_txn``, ``ctl_err_drop``, ``breaker_state``
+    ("disabled" without a breaker, as in the step loop),
+    ``breaker_trips``, ``breaker_reprobes``, ``slots_leaked``; all 0 and
+    "closed" on a fault-free feed run), the rung ladder's (``rung_hist``
+    keyed by str(rung), ``rung_ladder``, ``rung_switches``, ``rung_cur``;
+    {} / [] / 0 / 0 with the scheduler off), the drain's and the live
+    reconfig's; ``chaos`` (the injector's snapshot) only while one is
+    armed. The JAX compile and shard fields have no counterpart; the CPU
+    lane's lanes and wall time stay on the tile (``stat_cpu_lanes``,
+    ``stat_cpu_ns``), so that the record keeps the JAX record's keys."""
+    from .. import chaos
+
     fill = v.stat_lanes / float(v.stat_batches * v.batch) \
         if v.stat_batches else 0.0
     feed = bool(v._feed)
-    return {
+    breaker = v._breaker
+    st = {
         "batches": v.stat_batches,
         "lanes": v.stat_lanes,
         "fill_ratio": round(fill, 4),
@@ -139,9 +147,15 @@ def verify_tile_stats(v) -> Dict[str, object]:
                           if feed else 0.0),
         "device_idle_est_ms": round(v.stat_feed_idle_ns / 1e6, 2),
         "stager_restarts": v.stat_stager_restarts,
-        "cpu_failover": 0,
-        "slots_leaked": v.feed_pool.outstanding() if feed else 0,
+        "cpu_failover": v.stat_cpu_failover,
+        "quarantined": v.stat_quarantined,
+        "quarantine_err_txn": v.stat_quarantine_err_txn,
         "ctl_err_drop": v.stat_ctl_err,
+        "breaker_state": (breaker.state if breaker is not None
+                          else "disabled"),
+        "breaker_trips": breaker.trips if breaker is not None else 0,
+        "breaker_reprobes": breaker.reprobes if breaker is not None else 0,
+        "slots_leaked": v.feed_pool.outstanding() if feed else 0,
         "drain_batches": v.stat_drain_batches,
         "drain_novel": v.stat_drain_novel,
         "drain_maybe": v.stat_drain_maybe,
@@ -154,6 +168,10 @@ def verify_tile_stats(v) -> Dict[str, object]:
         "reconfigs": v.stat_reconfigs,
         "reconfig_refused": v.stat_reconfig_refused,
     }
+    c = chaos.active()
+    if c is not None:
+        st["chaos"] = c.snapshot()
+    return st
 
 
 def _repo() -> str:
@@ -199,7 +217,7 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       record_digests: bool = False,
                       pack_scheduler: str = "greedy", device="cuda",
                       feed_proc: Optional[bool] = None, tile_hook=None,
-                      tile_cpus: Optional[List[int]] = None):
+                      tile_cpus: Optional[List[int]] = None, chaos=None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
@@ -211,18 +229,39 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
     right after the tile threads start (a live reconfig's control
     channel, the JAX :367-371). tile_cpus pins replay, verify, dedup,
     pack and sink to its cores in that order, wrapping when short, a
-    worker's tiles through its cpu_map option. Raises on a tile error, a
-    worker's early exit and a timeout."""
+    worker's tiles through its cpu_map option. chaos (None, a
+    (seed, schedule) pair or a ChaosInjector) is armed for the run
+    (disco.chaos.armed) and forces every tile into this process, so that
+    one injector books every site (the JAX :249-257). Raises on a tile
+    error, a worker's early exit and a timeout."""
+    from .. import chaos as chaos_mod
+
+    with chaos_mod.armed(chaos):
+        return _run_feed(topo, payloads, verify_backend, verify_batch,
+                         verify_max_msg_len, bank_cnt, timeout_s,
+                         tcache_depth, verify_opts, record_digests,
+                         pack_scheduler, device, feed_proc, tile_hook,
+                         tile_cpus)
+
+
+def _run_feed(topo, payloads, verify_backend, verify_batch,
+              verify_max_msg_len, bank_cnt, timeout_s, tcache_depth,
+              verify_opts, record_digests, pack_scheduler, device,
+              feed_proc, tile_hook, tile_cpus):
+    """run_feed_pipeline's body, with the run's injector (if any)
+    armed."""
     from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
+    from .. import chaos as chaos_mod
     from .. import pipeline as pl
     from ..monitor import snapshot
     from ..tiles import LatReservoir, VerifyTile, latencies_ns
 
     use_proc = (usable_cores() >= 4 if feed_proc is None
                 else bool(feed_proc))
-    if pack_scheduler == "gc":
+    if pack_scheduler == "gc" or chaos_mod.active() is not None:
         # The gc pack holds a block of txns no ring cursor shows: the
-        # quiescence check reads it, which needs the pack in process.
+        # quiescence check reads it, which needs the pack in process. An
+        # armed injector's counters are this process's.
         use_proc = False
     mtu = topo.mtu
     wksp = Workspace.join(topo.wksp_path)

@@ -408,7 +408,8 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                  pack_scheduler: str = "greedy",
                  device="cuda", feed: Optional[bool] = None,
                  feed_proc: Optional[bool] = None,
-                 tile_cpus: Optional[List[int]] = None) -> PipelineResult:
+                 tile_cpus: Optional[List[int]] = None,
+                 chaos=None) -> PipelineResult:
     """Replay-sourced pipeline: payloads -> verify -> dedup -> pack ->
     sink, over the topology's verify lanes (topo.pod). feed None or True
     runs the fd_feed runtime when it can serve the topology (feed_proc:
@@ -418,10 +419,29 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
     feed=False asks for; the feed serves one lane, so more than one
     always runs the step loop. The verify engine and the gc pack run on
     device: the card unless the caller passes device="cpu". tile_cpus
-    pins the tiles to cores in topology order (pin_tiles). Shutdown is
-    by quiescence (source exhausted and every link drained); filtered
-    frags never reach the sink, so the caller reads recv_cnt and the
-    diag counters."""
+    pins the tiles to cores in topology order (pin_tiles). chaos, None,
+    a (seed, schedule) pair or a disco.chaos.ChaosInjector, is armed
+    for the run in either runner (a pair gives a fresh injector, so the
+    run replays its faults) and uninstalled when the run ends or raises;
+    the feed then runs every tile in process. Shutdown is by quiescence
+    (source exhausted and every link drained); filtered frags never
+    reach the sink, so the caller reads recv_cnt and the diag
+    counters."""
+    from . import chaos as chaos_mod
+
+    with chaos_mod.armed(chaos) as inj:
+        return _run_pipeline(topo, payloads, verify_backend, verify_batch,
+                             verify_max_msg_len, bank_cnt, timeout_s,
+                             tcache_depth, verify_opts, record_digests,
+                             pack_scheduler, device, feed, feed_proc,
+                             tile_cpus, inj)
+
+
+def _run_pipeline(topo, payloads, verify_backend, verify_batch,
+                  verify_max_msg_len, bank_cnt, timeout_s, tcache_depth,
+                  verify_opts, record_digests, pack_scheduler, device, feed,
+                  feed_proc, tile_cpus, inj) -> PipelineResult:
+    """run_pipeline's body, its injector inj (or None) armed."""
     reason = None
     lanes = topo.verify_lanes
     if feed is None or feed:
@@ -437,7 +457,7 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                 timeout_s=timeout_s, tcache_depth=tcache_depth,
                 verify_opts=verify_opts, record_digests=record_digests,
                 pack_scheduler=pack_scheduler, device=device,
-                feed_proc=feed_proc, tile_cpus=tile_cpus)
+                feed_proc=feed_proc, tile_cpus=tile_cpus, chaos=inj)
         logging.getLogger(LOGGER).warning(
             "fd_feed cannot serve this topology, falling back to the "
             "in-process step loop: %s", reason)

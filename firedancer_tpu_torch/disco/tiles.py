@@ -4,11 +4,11 @@
 ``ReplayTile``:709, ``_txn_batch_arrays``:773, ``_InflightBatch``:790,
 ``VerifyTile``:858, ``DedupTile``:3075, ``PackTile``:3323,
 ``SinkTile``:3571).
-``_DeviceBatch`` gives a direct engine's statuses the async surface of
-``_ReadyBatch``:817, and ``latencies_ns`` reads the chain's end-to-end
-latencies from the replay's and the sink's records. ``LatReservoir``
-keeps an out-link's latency samples when the fd_feed runtime asks for
-them (``OutLink.lat_ns``:235 there).
+``_DeviceBatch`` gives a direct engine's statuses, and the CPU lane's,
+the async surface of ``_ReadyBatch``:817, and ``latencies_ns`` reads
+the chain's end-to-end latencies from the replay's and the sink's
+records. ``LatReservoir`` keeps an out-link's latency samples when the
+fd_feed runtime asks for them (``OutLink.lat_ns``:235 there).
 
 Tiles are threads joined to the native shared-memory rings
 (``tango.rings``); the payloads are whole Solana transactions. The
@@ -31,15 +31,18 @@ asynchronously to the engine on ``device`` (the card unless the caller
 passes ``device="cpu"``), and ``"oracle"``, which verifies each
 transaction on the host with the port's copy of the oracle. The gpu
 backend takes batches of at least ``MAX_SIG_CNT`` lanes and MTU-wide
-rows, so every transaction that parses fits a batch and nothing of it
-is verified on the host. It ingests through the native drain
-(``fd_verify_drain``: one C call polls, parses and stages a round of
-frags) or, with ``native_drain=False``, frag by frag in Python
-(``on_frag``). Both share the flush policy, the in-order
+rows, so every transaction that parses fits a batch. It ingests through
+the native drain (``fd_verify_drain``: one C call polls, parses and
+stages a round of frags) or, with ``native_drain=False``, frag by frag
+in Python (``on_frag``). Both share the flush policy, the in-order
 completion and the held-back ack cursor, and write the same cnc diag
 slots. Plain counters (``stat_*``) stand in for the JAX package's flight
-lane. An engine error propagates out of the tile's thread; nothing
-re-verifies on the host.
+lane. A batch whose result raises at completion is quarantined, as in
+the JAX ``_complete``:2967-3040: counted, re-verified on the CPU lane
+(``_quarantine_statuses``), its clean txns published and its offenders
+sent downstream as CTL_ERR frags (``_publish_err``). An error at a
+dispatch of the step loop, building the engine or warming it
+propagates out of the tile's thread.
 
 With ``feed=True`` the gpu backend runs as the JAX package's fd_feed
 feeder (``_feed_setup``:1354 to ``_publish_feed_batch``:2193 there): a
@@ -51,9 +54,19 @@ engine, retires batches in order and publishes each one's passing txns
 with ``fd_frag_publish_bulk_ctl``. The dispatcher makes every torch call;
 the stager makes none. A slot returns to the pool only when its batch
 has retired, since the engine's copy from the slot's pinned arena runs
-after the dispatch returns. An engine error raises out of the
-dispatcher as on the other paths (the JAX feeder's CPU failover, its
-breaker and the chaos hooks are not ported).
+after the dispatch returns. The feeder heals as the JAX one does
+(``_feed_dispatch``:1983-2066, ``_stager_supervise``:1688): a dispatch
+that raises feeds the circuit breaker (``feed.policy.CircuitBreaker``,
+``breaker``, ``breaker_threshold``, ``breaker_cooldown_ms``) and its slot
+is verified on the CPU lane (``_verify_slot_cpu``: the native C++
+verifier, then the oracle lane by lane if that raises; never the plain
+PyTorch versions), as is every slot while the breaker is open; a stager
+that dies is restarted after ``respawn_backoff_s``'s jittered delay from
+``stager_backoff_ms``, past ``stager_restart_max`` restarts the error is
+raised. Each failover, quarantine, trip and restart is counted
+(``feed.runtime.verify_tile_stats``) and logged as a warning. The hooks
+of ``disco.chaos`` sit at the JAX sites: the replay's publish, the
+drain's counters, the stager's round, the dispatch and the completion.
 
 The feeder's rung ladder (the JAX :1097-1155, :1947-2014): with
 ``sched`` on and a staging batch that tops two or more rungs of
@@ -84,6 +97,7 @@ import numpy as np
 import torch
 
 from ..ballet.compute_budget import estimate_rewards_and_compute
+from ..ballet.ed25519 import native as ed_native
 from ..ballet.ed25519 import oracle
 from ..ballet.pack import CuEstimator, Pack, PackTxn, validate_schedule
 from ..ballet.txn import MAX_ACCT_CNT, MAX_SIG_CNT, TxnParseError, parse_txn
@@ -119,6 +133,7 @@ from ..tango.rings import (
 from ..ops.frontend_cuda import DEFAULT_FRONTEND, FRONTENDS
 from ..tango.tcache import TCache
 from ..utils.rng import Rng
+from . import chaos
 from . import engine as fd_engine
 from .drain import (
     CTL_BLOCK_MASK,
@@ -138,6 +153,8 @@ from .feed.policy import (
     FLUSH_FULL,
     FLUSH_STARVED,
     AdaptiveFlush,
+    CircuitBreaker,
+    respawn_backoff_s,
 )
 from .feed.runtime import LOGGER
 from .feed.slots import SlotPool
@@ -163,13 +180,18 @@ FLUSH_RING = "ring"
 FLUSH_HALT = "halt"
 # The fd_feed stager's: the ring's next txn does not fit the lanes left.
 FLUSH_CAPACITY = "capacity"
-# fd_feed stager supervision: restarts before the feeder gives up, and
-# the first restart's delay, doubling a restart up to the cap (the JAX
-# package's FD_FEED_STAGER_RESTART_MAX, FD_FEED_STAGER_BACKOFF_MS and
-# _STAGER_BACKOFF_CAP_S; no jitter).
+# The feeder's healing defaults (verify_opts stager_restart_max,
+# stager_backoff_ms, breaker_threshold, breaker_cooldown_ms; the JAX
+# package's FD_FEED_STAGER_RESTART_MAX, FD_FEED_STAGER_BACKOFF_MS,
+# FD_VERIFY_BREAKER_THRESHOLD and FD_VERIFY_BREAKER_COOLDOWN_MS): restarts
+# of the stager before the feeder gives up, the first restart's delay
+# (doubling a restart, +0-25 % jitter, up to the cap), and the breaker's
+# consecutive device errors and cooldown.
 STAGER_RESTART_MAX = 5
-STAGER_BACKOFF_S = 0.010
+STAGER_BACKOFF_MS = 10
 STAGER_BACKOFF_CAP_S = 2.0
+BREAKER_THRESHOLD = 3
+BREAKER_COOLDOWN_MS = 100
 
 _U64 = (1 << 64) - 1
 # The keys of a live reconfig request (VerifyTile.request_reconfig): the
@@ -630,10 +652,18 @@ class ReplayTile(Tile):
 
     def step(self) -> None:
         lane = self.out_links[self.pos % len(self.out_links)]
-        if not lane.can_publish():
+        c = chaos.active()
+        # An injected credit starvation backs off as a refused publish.
+        if (c is not None and c.source_starved()) or not lane.can_publish():
             self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
             time.sleep(20e-6)
             return
+        if c is not None:
+            # Maybe a CTL_ERR frag ahead of the next payload (1-based);
+            # it spent a credit, so check again.
+            c.source_inject(lane, self.pos + 1)
+            if not lane.can_publish():
+                return
         payload = self.payloads[self.pos]
         now = tempo.tickcount()
         self.pub_ticks.append(now)
@@ -668,7 +698,10 @@ class _InflightBatch:
     t_dispatch: int      # tick count at dispatch
     slot: object = None  # the fd_feed slot the batch was staged in
     drain: object = None  # the batch's _DrainBatch (fd_drain armed)
-    entry: object = None  # the EngineEntry it runs on (its service EMA)
+    # The EngineEntry it runs on (its service EMA); None when the CPU
+    # lane served it, whose completion feeds neither the breaker nor an
+    # EMA.
+    entry: object = None
 
     def is_ready(self) -> bool:
         """The statuses and, with the drain, its verdicts are done."""
@@ -745,7 +778,13 @@ class VerifyTile(Tile):
     and FD_ENGINE_PREWARM and their defaults; ``frontend`` is the rlc
     engine's front half (``frontend_cuda.FRONTENDS``, the JAX
     FD_FRONTEND_IMPL). With the default ladder and a batch of 8,192 or
-    less the scheduler stays off.
+    less the scheduler stays off. The feeder's healing takes ``breaker``
+    (on), ``breaker_threshold``, ``breaker_cooldown_ms``,
+    ``stager_restart_max`` and ``stager_backoff_ms`` (the JAX flags
+    FD_VERIFY_BREAKER, FD_VERIFY_BREAKER_THRESHOLD,
+    FD_VERIFY_BREAKER_COOLDOWN_MS, FD_FEED_STAGER_RESTART_MAX and
+    FD_FEED_STAGER_BACKOFF_MS and their defaults); the step loop has no
+    breaker, as in the JAX package.
     """
 
     name = "verify"
@@ -774,6 +813,11 @@ class VerifyTile(Tile):
         ladder=fd_engine.DEFAULT_LADDER,
         prewarm: str = fd_engine.DEFAULT_PREWARM,
         frontend: str = DEFAULT_FRONTEND,
+        breaker: bool = True,
+        breaker_threshold: int = BREAKER_THRESHOLD,
+        breaker_cooldown_ms: int = BREAKER_COOLDOWN_MS,
+        stager_restart_max: int = STAGER_RESTART_MAX,
+        stager_backoff_ms: int = STAGER_BACKOFF_MS,
         **kw,
     ):
         self.verify_mode = fd_engine.resolve_verify_mode(backend, verify_mode)
@@ -820,6 +864,20 @@ class VerifyTile(Tile):
         self.stat_inflight_stall = 0
         self.stat_rlc_fallback = 0
         self.stat_ctl_err = 0
+        # Healing: batches the CPU lane served at dispatch, batches
+        # quarantined at completion, offenders published CTL_ERR, and the
+        # CPU lane's signature lanes and wall ns (failover and re-verify).
+        self.stat_cpu_failover = 0
+        self.stat_quarantined = 0
+        self.stat_quarantine_err_txn = 0
+        self.stat_cpu_lanes = 0
+        self.stat_cpu_ns = 0
+        self._breaker: Optional[CircuitBreaker] = None
+        if feed and breaker:
+            self._breaker = CircuitBreaker(breaker_threshold,
+                                           breaker_cooldown_ms * 1_000_000)
+        self._stager_restart_max = stager_restart_max
+        self._stager_backoff_s = stager_backoff_ms / 1e3
         # fd_feed: stager restarts, and the dispatcher's idle wall (no
         # batch in flight, no READY slot) after its first batch.
         self.stat_stager_restarts = 0
@@ -941,19 +999,26 @@ class VerifyTile(Tile):
 
     def _nd_account(self, il: InLink) -> bool:
         """Fold a drain round's counter deltas into the diag slots
-        (parse errors, oversize and CTL_ERR drops to the SV filter);
-        True when the round crossed an overrun."""
+        (parse errors, oversize and CTL_ERR drops to the SV filter) and
+        the chaos audit (the CTL_ERR drops and the overruns are the
+        detection of ring_ctl_err and ring_overrun); True when the round
+        crossed an overrun."""
         d = self._nd_counters - self._nd_prev
         self._nd_prev = self._nd_counters.copy()
         if d[1] or d[3]:
             self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, int(d[1] + d[3]))
             self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[4] + d[5]))
+        c = chaos.active()
         if d[6]:
             self.stat_ctl_err += int(d[6])
             self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, int(d[6]))
             self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[7]))
+            if c is not None:
+                c.on_ctl_err_drop(int(d[6]))
         if d[2]:
             il.fseq.diag_add(DIAG_OVRNR_CNT, int(d[2]))
+            if c is not None:
+                c.on_overrun_observed()
             return True
         return False
 
@@ -1077,6 +1142,7 @@ class VerifyTile(Tile):
         self._feed_idle_mark = 0
         self._stager_err: Optional[BaseException] = None
         self._stager_restart_at = 0     # 0: no restart pending
+        self._stager_err_cls: Optional[str] = None  # an injected kill's
         self.stager_cpu_ns = 0
         # Source publish -> stager drain of every staged txn.
         self.drain_lat = LatReservoir()
@@ -1190,37 +1256,55 @@ class VerifyTile(Tile):
     def _stager_supervise(self) -> None:
         """Crash-only supervision of the stager (dispatcher thread): a
         raise out of the stager loop is counted and the stager restarted
-        after a doubling backoff; staged slots (the READY queue, the
-        parked FILLING slot) and the held-back ack survive the restart.
-        Past STAGER_RESTART_MAX restarts the error is raised."""
+        after respawn_backoff_s's delay (doubling a restart, jittered by
+        the tile's Rng, capped at STAGER_BACKOFF_CAP_S); staged slots
+        (the READY queue, the parked FILLING slot) and the held-back ack
+        survive the restart. An injected kill is booked detected when the
+        stager dies and healed when it restarts. Past stager_restart_max
+        restarts the error is raised."""
         err = self._stager_err
         if err is not None:
             self._stager_err = None
             self.stat_stager_restarts += 1
             n = self.stat_stager_restarts
-            if n > STAGER_RESTART_MAX:
+            c = chaos.active()
+            if c is not None and isinstance(err, chaos.ChaosFault):
+                c.note(err.cls, "detected")
+                self._stager_err_cls = err.cls
+            if n > self._stager_restart_max:
                 raise RuntimeError(
                     f"fd_feed stager died {n} times (> "
-                    f"{STAGER_RESTART_MAX}); giving up") from err
-            backoff_s = min(STAGER_BACKOFF_S * (1 << (n - 1)),
-                            STAGER_BACKOFF_CAP_S)
+                    f"{self._stager_restart_max}); giving up") from err
+            backoff_s = respawn_backoff_s(n, self._stager_backoff_s,
+                                          STAGER_BACKOFF_CAP_S, self.rng)
             self._stager_restart_at = (tempo.tickcount()
                                        + int(backoff_s * 1e9))
             logging.getLogger(LOGGER).warning(
                 "fd_feed stager died (%r); restart %d/%d in %.1f ms", err,
-                n, STAGER_RESTART_MAX, backoff_s * 1e3)
+                n, self._stager_restart_max, backoff_s * 1e3)
             return
         if (self._stager_restart_at and not self._feed_stop.is_set()
                 and not self._feed_thread.is_alive()
                 and tempo.tickcount() >= self._stager_restart_at):
             self._stager_restart_at = 0
             self._feed_start()
+            if self._stager_err_cls is not None:
+                c = chaos.active()
+                if c is not None:
+                    c.note(self._stager_err_cls, "healed")
+                self._stager_err_cls = None
 
     def _stager_drain(self, slot) -> int:
         """One fd_verify_drain round into slot at its fill cursors; the
         HA filter on the drain's payload hashes. Returns the txns
-        staged."""
+        staged. The chaos hooks that kill the stager or rewind the cursor
+        run before the C call (a raise leaves nothing half-booked); the
+        one that corrupts a staged message after the HA filter."""
         il = self.in_link
+        c = chaos.active()
+        if c is not None:
+            c.stager_round_hook()
+            c.overrun_rewind(il)
         k0 = slot.n_txn
         mtu = self.max_msg_len
         seq = ctypes.c_uint64(il.seq)
@@ -1265,6 +1349,8 @@ class VerifyTile(Tile):
         if ha_cnt:
             self.cnc.diag_add(CNC_DIAG_HA_FILT_CNT, ha_cnt)
             self.cnc.diag_add(CNC_DIAG_HA_FILT_SZ, ha_sz)
+        if c is not None:
+            c.post_stage_hook(slot, k0, n, lane0=slot.n_lane)
         last = k0 + n - 1
         slot.pay_fill = int(slot.offs[last]) + int(slot.plens[last])
         slot.n_lane += int(slot.tlanes[k0:k0 + n].sum())
@@ -1366,7 +1452,12 @@ class VerifyTile(Tile):
         rung rows copied up. The slot stays with its batch until the
         batch retires: the engine's copy reads the pinned arena after
         this returns, and the completion publishes from the slot's
-        sidecar."""
+        sidecar. With the breaker closed (or granting its half-open
+        probe) the slot goes to the card, after the chaos dispatch hook;
+        a dispatch that raises feeds the breaker, and that slot, like
+        every slot while the breaker is open, is verified on the CPU lane
+        (the JAX :2015-2058), counted in cpu_failover. The fd_drain filters
+        the batch on the card either way (the JAX :2059-2066)."""
         rung, entry, fn = self.batch, self._engine_entry, None
         if self.rung_sched is not None:
             rung = self.rung_sched.dispatch_rung(slot.n_lane)
@@ -1385,8 +1476,32 @@ class VerifyTile(Tile):
             slot.lens[slot.n_lane:rung] = 0
             slot.sigs[slot.n_lane:rung] = 0
             slot.pubs[slot.n_lane:rung] = 0
-        out = self._launch((slot.t_msgs[:rung], slot.t_lens[:rung],
-                            slot.t_sigs[:rung], slot.t_pubs[:rung]), fn)
+        out = None
+        err = None
+        c = chaos.active()
+        now = tempo.tickcount()
+        if self._breaker is None or self._breaker.allow_device(now):
+            try:
+                if c is not None:
+                    c.verify_dispatch_hook()
+                out = self._launch((slot.t_msgs[:rung], slot.t_lens[:rung],
+                                    slot.t_sigs[:rung], slot.t_pubs[:rung]),
+                                   fn)
+            except Exception as e:  # noqa: BLE001 - the CPU lane serves
+                err = e
+                self._breaker_error(now, e)
+                if isinstance(e, chaos.ChaosFault):  # the hook of c
+                    c.note(e.cls, "detected")
+        if out is None:
+            entry = None
+            out = _DeviceBatch(torch.from_numpy(self._verify_slot_cpu(slot)))
+            self.stat_cpu_failover += 1
+            logging.getLogger(LOGGER).warning(
+                "verify dispatch of %d lanes served by the CPU lane (%s)",
+                slot.n_lane, repr(err) if err is not None
+                else f"breaker {self._breaker.state}")
+            if isinstance(err, chaos.ChaosFault):
+                c.note(err.cls, "healed")
         drain = None
         if self._drain is not None and slot.n_txn:
             drain = self._drain_dispatch(slot)
@@ -1438,7 +1553,8 @@ class VerifyTile(Tile):
             return 50e-6
         return max(100e-6, idle_pause(idle_spins))
 
-    def _publish_feed_batch(self, slot, statuses, drain=None) -> int:
+    def _publish_feed_batch(self, slot, statuses, drain=None,
+                            quarantined: bool = False) -> int:
         """The feeder's completion: fold the lanes' statuses into each
         txn's verdict, count the failures in the SV slots and publish the
         passing, non-HA-duplicate txns with one fd_frag_publish_bulk_ctl
@@ -1447,7 +1563,10 @@ class VerifyTile(Tile):
         the batch's drain outputs, the txn's verdict, color and block;
         the novel and maybe publishes are counted over the cursor range
         each call examined, and they drive the window's rotation (the JAX
-        tiles.py:2236-2331). Returns the batch's ack target."""
+        tiles.py:2236-2331). Failing txns consume the chaos audit's
+        corruption records; a quarantined batch (statuses from the CPU
+        lane) first sends each of them downstream as a CTL_ERR frag.
+        Returns the batch's ack target."""
         n = slot.n_txn
         if n == 0:
             return slot.drain_end
@@ -1464,6 +1583,14 @@ class VerifyTile(Tile):
             self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, sv_cnt)
             self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ,
                               int(slot.plens[:n][sv].sum()))
+            c = chaos.active()
+            if c is not None:
+                c.on_sv_drop(slot.psigs[:n][sv])
+            if quarantined:
+                for t in np.nonzero(sv)[0]:
+                    off, ln = int(slot.offs[t]), int(slot.plens[t])
+                    self._publish_err(slot.pay[off:off + ln].tobytes(),
+                                      int(slot.psigs[t]))
         n_ok = int(ok.sum())
         if not n_ok:
             return slot.drain_end
@@ -1516,7 +1643,9 @@ class VerifyTile(Tile):
             self.stat_drain_novel += novel_pub
             self.stat_drain_maybe += maybe_pub
             self._drain.note_published(novel_pub)
-            if self._drain.maybe_rotate():
+            # No rotation while an injector is armed: replayed and dropped
+            # frags break the proof's "published => inserted" step.
+            if self._drain.maybe_rotate(blocked=chaos.active() is not None):
                 self.stat_drain_rot += 1
         il = self.in_link
         il.fseq.diag_add(DIAG_PUB_CNT, published)
@@ -1814,22 +1943,62 @@ class VerifyTile(Tile):
 
     def _complete(self, block: bool, drain_all: bool = False) -> None:
         """Retire finished batches in dispatch order and publish their
-        verified txns. An engine error propagates."""
+        verified txns. The chaos completion hook runs first. A batch
+        whose hook, readiness poll or read-back raises (an RLC pass's
+        error surfaces there, not at its launch) is quarantined (the JAX
+        :2967-3040): counted, a device batch's error fed to the breaker,
+        its statuses re-verified on the CPU lane (_quarantine_statuses),
+        its offenders published as CTL_ERR frags and, in the feed, its
+        clean txns published without the drain's claims (they ran on the
+        poisoned stream). A clean device batch closes a half-open breaker
+        and feeds its engine's service EMA. rlc_fallback counts every
+        batch whose per-lane fallback was launched, a quarantined one
+        too (the JAX package counts clean ones only), so that the
+        direct kernels' launches are rlc_fallback."""
         while self._inflight:
             ib = self._inflight[0]
-            if not block and not ib.is_ready():
-                return
+            err = None
+            try:
+                if not block and not ib.is_ready():
+                    return
+            except Exception as e:  # noqa: BLE001 - quarantined below
+                err = e
             t0 = time.perf_counter_ns()
-            statuses = np.asarray(ib.out)
-            if getattr(ib.out, "used_fallback", False):
-                self.stat_rlc_fallback += 1
-            if ib.entry is not None:
+            c = chaos.active()
+            try:
+                if c is not None:
+                    c.verify_complete_hook()
+                if err is None:
+                    statuses = np.asarray(ib.out)
+            except Exception as e:  # noqa: BLE001 - quarantined below
+                err = e
+            quarantined = err is not None
+            if quarantined:
+                self.stat_quarantined += 1
+                logging.getLogger(LOGGER).warning(
+                    "verify batch quarantined, re-verified on the CPU lane "
+                    "(%r)", err)
+                if ib.entry is not None:
+                    self._breaker_error(tempo.tickcount(), err)
+                fault = isinstance(err, chaos.ChaosFault)  # the hook of c
+                if fault:
+                    c.note(err.cls, "detected")
+                self._settle()
+                statuses = self._quarantine_statuses(ib)
+                if fault:
+                    c.note(err.cls, "healed")
+            elif ib.entry is not None:
+                if self._breaker is not None:
+                    self._breaker.record_success()
                 # The engine's service EMA (dispatch -> clean completion),
                 # the rung scheduler's cost model.
                 ib.entry.note_service(tempo.tickcount() - ib.t_dispatch)
+            if getattr(ib.out, "used_fallback", False):
+                self.stat_rlc_fallback += 1
             if ib.slot is not None:
-                batch_ack = self._publish_feed_batch(ib.slot, statuses,
-                                                     ib.drain)
+                batch_ack = self._publish_feed_batch(
+                    ib.slot, statuses, None if quarantined else ib.drain,
+                    quarantined)
             else:
                 off = 0
                 batch_ack = 0
@@ -1839,6 +2008,8 @@ class VerifyTile(Tile):
                         ok = cnt > 0 and bool(
                             (statuses[off:off + cnt] == 0).all())
                         self._finish(payload, ok, tsorig=tsorig)
+                        if quarantined and not ok:
+                            self._publish_err(payload, meta_sig(payload))
                     off += cnt
             # Pop after publishing: a quiescence check reading
             # _inflight from another thread must not see a gap. A slot
@@ -1852,6 +2023,98 @@ class VerifyTile(Tile):
             self._ack_if_idle()
             if not drain_all:
                 return  # retire at most one a call; keep the loop hot
+
+    def _settle(self) -> None:
+        """Before a quarantined batch's slot goes back to the pool: wait
+        for the tile's stream, whose copies may still read the slot's
+        pinned arenas. An error of the stream is the batch's, already
+        booked."""
+        if self.device is not None and self.device.type == "cuda":
+            try:
+                torch.cuda.current_stream(self.device).synchronize()
+            except Exception:  # noqa: BLE001 - booked as the quarantine
+                pass
+
+    def _breaker_error(self, now: int, err: BaseException) -> None:
+        """Feed a device error to the breaker; a trip, or a failed probe
+        opening it again, is logged."""
+        b = self._breaker
+        if b is not None and b.record_error(now):
+            logging.getLogger(LOGGER).warning(
+                "verify breaker open after %r (trips %d, reprobes %d): the "
+                "CPU lane serves", err, b.trips, b.reprobes)
+
+    # -- the CPU lane ---------------------------------------------------
+
+    def _verify_slot_cpu(self, slot) -> np.ndarray:
+        """The CPU lane over a staged slot: the failover target and the
+        quarantine's re-verify (the JAX :2101). The native verifier in
+        one call (ballet.ed25519.native); if that raises, the oracle lane
+        by lane. Never the plain PyTorch versions of the kernels."""
+        t0 = time.perf_counter_ns()
+        try:
+            out = ed_native.verify_arrays(slot.msgs, slot.lens, slot.sigs,
+                                          slot.pubs, slot.n_lane)
+        except Exception as e:  # noqa: BLE001 - the oracle serves
+            logging.getLogger(LOGGER).warning(
+                "native ed25519 verifier failed (%r): the oracle verifies "
+                "the slot lane by lane", e)
+            out = np.ones(self.batch, np.int32)
+            for lane in range(slot.n_lane):
+                ln = int(slot.lens[lane])
+                out[lane] = oracle.verify(slot.msgs[lane, :ln].tobytes(),
+                                          slot.sigs[lane].tobytes(),
+                                          slot.pubs[lane].tobytes())
+        self.stat_cpu_lanes += slot.n_lane
+        self.stat_cpu_ns += time.perf_counter_ns() - t0
+        return out
+
+    def _oracle_verify_payload(self, payload: bytes) -> bool:
+        """A whole txn's verdict on the CPU lane (the JAX :2130): the
+        native verifier over its signatures, the oracle if that raises."""
+        try:
+            items = list(parse_txn(payload).verify_items(payload))
+        except TxnParseError:
+            return False
+        self.stat_cpu_lanes += len(items)
+        try:
+            return all(st == 0 for st in ed_native.verify_items(items))
+        except Exception:  # noqa: BLE001 - the oracle serves
+            return all(oracle.verify(msg, sig, pub) == 0
+                       for (sig, pub, msg) in items)
+
+    def _oracle_statuses_todo(self, todo) -> np.ndarray:
+        """Lane statuses of a step-loop batch from whole-txn verdicts
+        (the JAX :2162)."""
+        t0 = time.perf_counter_ns()
+        statuses = np.ones(self.batch, np.int32)
+        off = 0
+        for payload, cnt, _tsorig, _seq_end in todo:
+            ok = payload is None or self._oracle_verify_payload(payload)
+            statuses[off:off + cnt] = 0 if ok else 1
+            off += cnt
+        self.stat_cpu_ns += time.perf_counter_ns() - t0
+        return statuses
+
+    def _quarantine_statuses(self, ib) -> np.ndarray:
+        """A poisoned batch's statuses in its own layout, from the CPU
+        lane (the JAX :2151)."""
+        if ib.slot is not None:
+            return self._verify_slot_cpu(ib.slot)
+        return self._oracle_statuses_todo(ib.todo)
+
+    def _publish_err(self, payload: bytes, sig: int) -> None:
+        """The quarantine's audit trail (the JAX :2174): an offender goes
+        downstream as a CTL_ERR frag, which the dedup tile counts and
+        drops before its tcache, under publish_backp's backpressure and
+        HALT rules."""
+        while not self.out_link.can_publish():
+            if self.cnc.signal_query() == CNC_HALT:
+                return
+            self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
+            time.sleep(20e-6)
+        self.out_link.publish(payload, sig, ctl=CTL_SOM_EOM | CTL_ERR)
+        self.stat_quarantine_err_txn += 1
 
     def _ack_if_idle(self) -> None:
         """With nothing staged or in flight, everything consumed is

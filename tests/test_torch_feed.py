@@ -18,8 +18,10 @@
   feeder, nothing overruns, the sink is exact.
 * Routing: the oracle backend warns and records its fallback reason; a
   worker refuses a gc pack;
-  ``_feed_fallback_reason``'s rules; an engine error in the feeder
-  raises and publishes nothing (no host failover); stager and
+  ``_feed_fallback_reason``'s rules; an engine that fails to build and
+  an error of the fd_drain's launch raise and publish nothing (no host
+  failover: that covers the dispatch and the completion of a built
+  engine, ``tests/test_torch_chaos.py``); stager and
   dispatcher hold under a 10 us switch interval; ``stage_latencies``
   matches stamps past the 32-bit wrap; ``LatReservoir`` keeps a uniform
   sample.
@@ -301,29 +303,43 @@ def test_feed_fallback_reasons(monkeypatch):
     assert "drain entry points" in reason("gpu", B, None)
 
 
-def test_feed_engine_error_raises_without_failover(corpus, tmp_path):
+def test_feed_engine_error_raises_without_failover(corpus, tmp_path,
+                                                  monkeypatch):
+    """The CPU lane takes over only at the dispatch or the completion of
+    a built engine (tests/test_torch_chaos.py). An engine that cannot be
+    built or warmed raises out of the tile's construction, and an error
+    of the batch's fd_drain launch (no breaker covers it) raises out of
+    the feeder: nothing is published and no failover is counted."""
     topo = ppipe.build_topology(str(tmp_path / "e.wksp"), depth=DEPTH)
     w = prings.Workspace.join(topo.wksp_path)
     replay = ptiles.ReplayTile(w, "replay.cnc",
                                ppipe.out_link(w, "replay_verify"),
                                payloads=corpus.payloads)
+
+    def broken(*args, **kw):
+        raise RuntimeError("engine failed")
+
+    with monkeypatch.context() as m:
+        m.setattr(ptiles.fd_engine.EngineRegistry, "acquire", broken)
+        with pytest.raises(RuntimeError, match="engine failed"):
+            ptiles.VerifyTile(w, "verify.cnc",
+                              ppipe.in_link(w, "replay_verify"),
+                              ppipe.out_link(w, "verify_dedup"),
+                              batch=B, device="cpu", feed=True)
     verify = ptiles.VerifyTile(w, "verify.cnc",
                                ppipe.in_link(w, "replay_verify"),
                                ppipe.out_link(w, "verify_dedup"),
                                batch=B, device="cpu", feed=True)
     sink = ptiles.SinkTile(w, "sink.cnc", ppipe.in_link(w, "verify_dedup"))
-
-    def broken(*args):
-        raise RuntimeError("engine failed")
-
-    verify._verify_batch_fn = broken
+    verify._drain_dispatch = broken
     with pytest.raises(RuntimeError, match="engine failed"):
         ppipe.run_tiles([replay, verify, sink],
                         lambda: ppipe.chain_quiesced(replay, verify, sink),
                         timeout_s=60.0)
     assert verify.error is not None and not verify._feed_thread.is_alive()
     assert verify.out_link.seq == 0 and sink.recv_cnt == 0
-    assert pruntime.verify_tile_stats(verify)["cpu_failover"] == 0
+    vs = pruntime.verify_tile_stats(verify)
+    assert vs["cpu_failover"] == 0 and vs["quarantined"] == 0
     w.leave()
 
 

@@ -267,6 +267,17 @@ def test_port_scan_reaches_the_app_and_utils_modules():
         "pod", "pcap", "pcapng")} <= names
 
 
+def test_port_scan_reaches_the_healing_modules():
+    """The scan covers the verify tile's healing lane: the fault
+    injector, the native CPU verifier's binding, the breaker's policy
+    module and the Rng they draw from."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"firedancer_tpu_torch/utils/rng.py",
+            "firedancer_tpu_torch/disco/chaos.py",
+            "firedancer_tpu_torch/ballet/ed25519/native.py",
+            "firedancer_tpu_torch/disco/feed/policy.py"} <= names
+
+
 def test_acquire_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="capability 9"):
