@@ -276,6 +276,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    tile's cpu_failover, quarantined, breaker_trips and stager_restarts
    are 0: outside phase 11 no fault is injected, so a kernel fault that
    the breaker or the quarantine would absorb fails the run instead.
+   fd_flight and fd_sentinel run in every pipeline run, on by default;
+   each run of phases 8, 9 and 12 (pipeline_run; a feed run through
+   run_feed_pipeline, run_pipeline's route, with a hook that keeps the
+   verify tile) also fails unless each link's span counts every frag
+   published on it and the sink's every receipt, verify_stats equals
+   the registry's verify row and the tile's own batch log, slot pool
+   and breaker field for field, and the sentinel polled at least once a
+   second of the run; (a)'s runs also write their Prometheus text,
+   which must parse and carry the verify row. Each run prints its spans
+   (n, p50 and p99 bucket bounds by edge) and the sentinel's polls and
+   alerts.
 11. Chaos: the verify tile's healing lane on the card. First the CPU
    lane (ballet.ed25519.native.verify_arrays, the native C++ verifier)
    against K1-K4's statuses on phase 4's batch (b), lane for lane (every
@@ -303,7 +314,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
    Last, the trace's padding A/B at the end of the run (five traces of
    the filter's 2,048-lane block unpadded and five padded, in turns; as
    at phase 9's start).
-12. Output: the card line, one JSON line of per-kernel numbers, and the
+12. Flight: first the registry's host cost a call (a span observe, a
+   1,200-frag bulk observe, a lane increment and publish, a sentinel
+   poll); then (f) cut to the first 30,000 payloads of phase 9's corpus
+   (relabelled: a txn's first copy in the cut is the valid one), rings
+   4,096 deep, B = 8192, inflight 4, the drain on, worker processes,
+   four runs in turns with fd_flight and fd_sentinel off, on, on, off,
+   each with phase 9's checks. Each run is read while it runs by
+   firedancer_tpu_torch/tools/fd_top.py (a process of its own, a frame
+   every 0.5 s) and monitor.snapshot (a thread, every 0.5 s): in an
+   "on" run both must show the sink's span mid-run and the SLO rows
+   polled, fd_top its SPAN and SLO panels, and fd_top's --prom (its
+   main called here) on the final rows the run's own Prometheus text
+   (compile records aside);
+   an "on" run writes a HALT dump and the two workers' dumps into a
+   temporary directory, which must parse and hold the verify row, the
+   sink's span, the polled SLO rows and the verify recorder's dispatch
+   and halt events; an "off" run must record no span and run no
+   sentinel. Prints each run's txn/s and p50/p99, the means on and off
+   and the phase's seconds, beside the card's name and power limit.
+13. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -474,6 +504,12 @@ CHAOS_CLASSES = ("ring_ctl_err", "ring_overrun", "credit_starve",
                  "device_lost")
 CHAOS_DEPTH = 4096
 CHAOS_TCACHE = 1 << 17
+# The flight phase (12): (f) cut to its first FLIGHT_N payloads, four
+# runs in turns, flight and sentinel off and on, each read live every
+# PROBE_S seconds.
+FLIGHT_N = 30_000
+FLIGHT_ARMS = (False, True, True, False)
+PROBE_S = 0.5
 CHAOS_OPTS = {"inflight": 4, "breaker_threshold": 2,
               "breaker_cooldown_ms": 20}
 
@@ -3065,10 +3101,70 @@ def drain_pack_parity(torch, kept) -> None:
         f"({'; '.join(notes)}; {len(kept)} batches colored)")
 
 
+def flight_problems(res, tile=None, prom_path=None) -> list:
+    """fd_flight's gates on a run (phases 8, 9 and 12): with spans on,
+    each link's span counts every frag published on the link and the
+    sink's every receipt; verify_stats equals the registry's verify row
+    field for field and, given the feed's verify tile, the tile's own
+    counters (its batch log, slot pool and breaker); with the sentinel
+    on, it polled at least once a second of the run; the Prometheus
+    text at prom_path parses and carries the verify row."""
+    from firedancer_tpu_torch.disco import flight
+    from firedancer_tpu_torch.disco.tiles import (
+        FLUSH_DEADLINE,
+        FLUSH_STARVED,
+    )
+
+    problems = []
+    if any(h["n"] for h in res.stage_hist.values()):
+        for link in ("replay_verify", "verify_dedup", "dedup_pack",
+                     "pack_sink"):
+            n, pub = res.stage_hist[link]["n"], \
+                res.diag[f"link.{link}"]["tx_seq"]
+            if n != pub:
+                problems.append(f"span {link} n {n} != its publishes {pub}")
+        if res.stage_hist["sink"]["n"] != res.recv_cnt:
+            problems.append(f"span sink n {res.stage_hist['sink']['n']} != "
+                            f"recv_cnt {res.recv_cnt}")
+    vs, row = res.verify_stats[0], res.flight_tiles.get("verify", {})
+    view = {k: vs[k] for k in row if k in vs}
+    view["breaker_state"] = flight.BREAKER_STATE_CODE[vs["breaker_state"]]
+    diff = {k: (v, row[k]) for k, v in view.items() if row[k] != v}
+    if diff:
+        problems.append(f"verify_stats against the registry row: {diff}")
+    if tile is not None:
+        log = tile.batch_log
+        own = {"batches": len(log), "lanes": sum(n for n, _ in log),
+               "flush_timeout": sum(v == FLUSH_DEADLINE for _, v in log),
+               "flush_starved": sum(v == FLUSH_STARVED for _, v in log),
+               "slot_stall": tile.feed_pool.slot_stall,
+               "slots_leaked": tile.feed_pool.outstanding(),
+               "breaker_state": (tile._breaker.state if tile._breaker
+                                 else "disabled")}
+        diff = {k: (vs[k], v) for k, v in own.items() if vs[k] != v}
+        if diff:
+            problems.append(f"verify_stats against the tile's own "
+                            f"counters: {diff}")
+    if res.slo is not None and res.slo["evals"] < int(res.elapsed_s):
+        problems.append(f"the sentinel polled {res.slo['evals']} times in "
+                        f"{res.elapsed_s:.1f} s")
+    if prom_path is not None:
+        try:
+            with open(prom_path) as f:
+                series = flight.parse_prom(f.read())
+            got = series['fd_flight_batches{tile="verify"}']
+            if got != vs["batches"]:
+                problems.append(f"prom verify batches {got} != "
+                                f"{vs['batches']}")
+        except (OSError, ValueError, KeyError) as e:
+            problems.append(f"prom text: {e!r}")
+    return problems
+
+
 def pipeline_run(torch, card, label, traffic, sched, batch, *,
                  depth=TILE_DEPTH, wksp_sz=TILE_WKSP, tcache_depth=PIPE_TCACHE,
                  verify_opts=None, feed=False, feed_proc=None, tile_hook=None,
-                 mixed=False):
+                 mixed=False, flight=None, sentinel=None, live=None):
     """One run_pipeline on the card, replay -> verify -> dedup -> pack
     (sched) -> sink, with feed=False the in-process step loop (phase 8
     (b)), with feed=True the fd_feed runtime (phase 9; with tile_hook,
@@ -3087,8 +3183,13 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     modes, the drain switched off mid-run): every direct, fused RLC and
     dedup_filter kernel launched, some batches and not all filtered,
     the dedup tile's skipped probes equal to the novel claims and its
-    probes to verify's publishes, no false novel. Returns (result,
-    launches)."""
+    probes to verify's publishes, no false novel. fd_flight's gates
+    (flight_problems) hold on every run; a feed run goes through
+    run_feed_pipeline (run_pipeline's route for it) with a hook that
+    keeps the verify tile. flight and sentinel are the run's options;
+    live(topo), if given, is called once the topology exists and returns
+    a function called after the run, before the workspace is removed.
+    Returns (result, launches)."""
     from firedancer_tpu_torch.disco import pipeline
     from firedancer_tpu_torch.disco.engine import registry
     from firedancer_tpu_torch.disco.feed.runtime import run_feed_pipeline
@@ -3103,24 +3204,35 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     topo = pipeline.build_topology(path, depth=depth, wksp_sz=wksp_sz)
     reg = registry()
     warms0 = {e: e.warms for e in reg.entries()}
+    seen = {}
+
+    def keep(v):
+        seen["tile"] = v
+        if tile_hook is not None:
+            tile_hook(v)
+
+    prom_path = (flight or {}).get("metrics_prom")
     try:
+        finish = live(topo) if live is not None else None
         torch.cuda.synchronize()
         backend.reset_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             kw = dict(verify_backend="gpu", verify_batch=batch,
                       tcache_depth=tcache_depth, record_digests=True,
                       pack_scheduler=sched, timeout_s=600.0,
-                      verify_opts=vopts, feed_proc=feed_proc)
-            if tile_hook is None:
+                      verify_opts=vopts, feed_proc=feed_proc,
+                      flight=flight, sentinel=sentinel)
+            if not feed:
                 res = pipeline.run_pipeline(topo, payloads, feed=feed, **kw)
             else:
-                res = run_feed_pipeline(topo, payloads, tile_hook=tile_hook,
-                                        **kw)
+                res = run_feed_pipeline(topo, payloads, tile_hook=keep, **kw)
             idle_by = time.perf_counter() + 120.0
             while not reg.prewarm_idle() and time.perf_counter() < idle_by:
                 time.sleep(0.01)
             torch.cuda.synchronize()
         launches, plain = dict(backend.launches), dict(backend.plain_calls)
+        if finish is not None:
+            res.live = finish()
     finally:
         os.remove(path)
     warmed = {e.key: (e.spec.mode, e.warms - warms0.get(e, 0))
@@ -3223,6 +3335,7 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
         problems.append(f"feed {res.feed}, fallback reason "
                         f"{res.feed_fallback_reason!r}; want feed={feed}")
     problems += healing_problems(res.verify_stats)
+    problems += flight_problems(res, seen.get("tile"), prom_path)
     if feed:
         in_proc = sched == "gc" or not feed_proc
         if ("workers" in res.proc_cpu_s) == in_proc:
@@ -3278,6 +3391,17 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
             f"{vs['cpu_failover']}, quarantined {vs['quarantined']}, "
             f"breaker {vs['breaker_state']} ({vs['breaker_trips']} trips), "
             f"slots leaked {vs['slots_leaked']} [{card}]")
+    spans = "; ".join(f"{k} n {v['n']} p50<= {v['p50_ns_le'] / 1e6:.3f} "
+                      f"p99<= {v['p99_ns_le'] / 1e6:.3f}"
+                      for k, v in res.stage_hist.items() if v["n"])
+    slo = res.slo
+    # Each alert with the tiles it names (heartbeat) or its burn.
+    alerts = [(a["slo"], a.get("tiles", a["burn_milli"]))
+              for a in (slo or {}).get("alerts", ())]
+    say(f"{label}: fd_flight spans ms (log2 buckets, every frag): "
+        f"{spans or 'off'}; fd_sentinel "
+        + (f"{slo['evals']} polls in {res.elapsed_s:.1f} s, alerts {alerts}"
+           if slo else "off"))
     if sched == "gc":
         say(f"{label}: {ps['blocks']} blocks ({ps['dev_blocks']} colored "
             f"by the drain), {ps['block_device']} device "
@@ -3305,7 +3429,7 @@ def pack_phase(torch, card, record, fixtures, fx_ok, corpus,
 
 
 def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
-               batch: int = B) -> None:
+               batch: int = B):
     """Phase 9: run_pipeline through the fd_feed runtime on the card, the
     fd_drain armed (its default) unless a run says otherwise. First
     phase 3's dedup_filter parity on the meta sigs of (a)'s corpus
@@ -3318,7 +3442,7 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
     forced), rlc (worker processes), and gc with drain_pack (each verify
     batch colored; the first and the last coloring held to the plain
     version). Each kernel row's launches are those of the first run of
-    this phase that runs it."""
+    this phase that runs it. Returns (a)'s corpus."""
     from firedancer_tpu_torch.disco import corpus as dcorpus
     from firedancer_tpu_torch.disco import tiles
     from firedancer_tpu_torch.disco.engine import EngineSpec, registry
@@ -3342,11 +3466,16 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
     runs = {}
     for arm in ("auto", "off"):
         opts = dict(FEED_OPTS, drain=arm)
-        res, launches = pipeline_run(
-            torch, card, f"feed (a) bench replay, worker processes, drain "
-            f"{arm}", pipe_traffic([], [], bench), "greedy", batch,
-            depth=FEED_DEPTH, wksp_sz=FEED_WKSP, verify_opts=opts, feed=True,
-            feed_proc=True)
+        prom = os.path.join(REPO, "build", f"feed_a_{arm}.prom")
+        try:
+            res, launches = pipeline_run(
+                torch, card, f"feed (a) bench replay, worker processes, "
+                f"drain {arm}", pipe_traffic([], [], bench), "greedy", batch,
+                depth=FEED_DEPTH, wksp_sz=FEED_WKSP, verify_opts=opts,
+                feed=True, feed_proc=True, flight={"metrics_prom": prom})
+        finally:
+            if os.path.exists(prom):
+                os.remove(prom)
         runs.setdefault(arm, []).append((res, launches))
     for name in DIRECT_KERNELS + ("dedup_filter",):
         rows[name]["launches"] = runs["auto"][0][1][name]
@@ -3391,6 +3520,7 @@ def feed_phase(torch, card, rows, record, fixtures, fx_ok, corpus,
     ladder_runs(torch, card, bench, [r for rs in runs.values()
                                      for r, _ in rs])
     reconfig_run(torch, card, bench)
+    return bench
 
 
 def rung_kernel_parity(torch, bench, device="cuda") -> None:
@@ -4061,6 +4191,276 @@ def app_phase(torch, card) -> None:
     say(f"app phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+def prefix_corpus(corpus, n: int):
+    """The first n payloads of a corpus, relabelled: a txn's first copy
+    in the prefix is valid and later copies are repeats (a repeat whose
+    first copy lies past the cut becomes the valid one)."""
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+
+    seen, exp = set(), []
+    for p, e in zip(corpus.payloads[:n], corpus.expected[:n]):
+        if e in (dcorpus.OK, dcorpus.DUP):
+            e = dcorpus.DUP if p in seen else dcorpus.OK
+            seen.add(p)
+        exp.append(e)
+    exp = np.asarray(exp, np.int8)
+    return dcorpus.Corpus(list(corpus.payloads[:n]), exp,
+                          n_unique_ok=int((exp == dcorpus.OK).sum()))
+
+
+def live_probe(topo):
+    """Read a run's registry while it runs: fd_top (a process of its own,
+    a frame every PROBE_S) and monitor.snapshot (a thread here, every
+    PROBE_S). Returns finish(), to call after the run and before the
+    workspace goes: it stops both, runs fd_top's main with --prom on the
+    final rows (here: the tool imports torch, seconds a process) and
+    returns {"frames", "frames_err", "snaps", "prom"}."""
+    import contextlib
+    import importlib.util
+    import io
+    import threading
+
+    from firedancer_tpu_torch.disco import monitor
+    from firedancer_tpu_torch.tango.rings import Workspace
+
+    pod_path = topo.wksp_path + ".pod"
+    with open(pod_path, "wb") as f:
+        f.write(topo.pod.serialize())
+    tool = os.path.join(REPO, "firedancer_tpu_torch", "tools", "fd_top.py")
+    args = ["--wksp", topo.wksp_path, "--pod", pod_path]
+    proc = subprocess.Popen(
+        [sys.executable, tool, *args, "--interval", str(PROBE_S),
+         "--iterations", "600", "--no-ansi"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    snaps, stop = [], threading.Event()
+
+    def loop():
+        w = Workspace.join(topo.wksp_path)
+        try:
+            while not stop.wait(PROBE_S):
+                snaps.append(monitor.snapshot(w, topo.pod))
+        finally:
+            w.leave()
+
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+
+    def finish():
+        stop.set()
+        th.join(timeout=10.0)
+        proc.terminate()
+        try:
+            frames, err = proc.communicate(timeout=30.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            frames, err = proc.communicate()
+        spec = importlib.util.spec_from_file_location("fd_top", tool)
+        top = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(top)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = top.main([*args, "--prom"])
+        os.remove(pod_path)
+        if rc != 0:
+            fail(f"fd_top --prom: rc {rc}")
+        return {"frames": frames, "frames_err": err, "snaps": snaps,
+                "prom": out.getvalue()}
+
+    return finish
+
+
+def _sink_counts(frames: str) -> list:
+    """The sink span's n in each fd_top frame (its SPAN panel's rows)."""
+    out, in_span = [], False
+    for line in frames.splitlines():
+        if line.startswith("SPAN"):
+            in_span = True
+        elif not line.strip():
+            in_span = False
+        elif in_span and line.split()[0] == "sink":
+            out.append(int(line.split()[1]))
+    return out
+
+
+def live_problems(res, live: dict) -> list:
+    """What an "on" run's live reads must show: the sink's span mid-run
+    (0 < n < recv_cnt) in a snapshot and in an fd_top frame, the SLO
+    rows polled, fd_top's SPAN and SLO panels, and its Prometheus text
+    of the final rows equal to this process's but for the compile
+    records."""
+    from firedancer_tpu_torch.disco import flight
+
+    problems = []
+    total = res.recv_cnt
+    mid = [s["span.sink"]["n"] for s in live["snaps"]
+           if 0 < s["span.sink"]["n"] < total]
+    if not mid:
+        problems.append(f"no snapshot caught the sink's span mid-run "
+                        f"({len(live['snaps'])} snapshots)")
+    if not any(s["slo.pipeline_progress"]["evals"] for s in live["snaps"]):
+        problems.append("no snapshot shows a polled SLO row")
+    frames = live["frames"]
+    tops = [n for n in _sink_counts(frames) if 0 < n < total]
+    if not tops or "SLO" not in frames or "e2e_p99" not in frames:
+        problems.append(f"fd_top showed no live SPAN and SLO panels "
+                        f"({len(_sink_counts(frames))} frames with a sink "
+                        f"row; stderr {live['frames_err'][-500:]!r})")
+
+    def rows(text):
+        return {k: v for k, v in flight.parse_prom(text).items()
+                if not k.startswith("fd_flight_compile")}
+
+    try:
+        if rows(live["prom"]) != res.live_prom:
+            problems.append("fd_top --prom differs from the run's text")
+    except ValueError as e:
+        problems.append(f"fd_top --prom does not parse: {e}")
+    say(f"  live: {len(live['snaps'])} snapshots, sink span n mid-run "
+        f"{mid[:3]}...; fd_top {len(_sink_counts(frames))} frames, sink "
+        f"n {tops[:3]}...")
+    return problems
+
+
+def dump_problems(res, dump_dir: str) -> list:
+    """The HALT dump of an "on" run (and the workers' dumps) in
+    dump_dir: they parse, and the main one holds the verify row, the
+    sink's span, the SLO rows and the verify recorder's dispatch and
+    halt events."""
+    names = sorted(os.listdir(dump_dir)) if os.path.isdir(dump_dir) else []
+    halt = [n for n in names if n.endswith("_halt.json")]
+    workers = [n for n in names if "halt_worker_" in n]
+    if len(halt) != 1 or len(workers) != 2:
+        return [f"dumps in {dump_dir}: {names}"]
+    with open(os.path.join(dump_dir, halt[0])) as f:
+        d = json.load(f)
+    for n in workers:
+        with open(os.path.join(dump_dir, n)) as f:
+            json.load(f)
+    problems = []
+    kinds = {e["kind"] for e in d["recorders"]["verify"]["events"]}
+    if (d["kind"], d["reason"]) != ("fd_flight_dump", "halt"):
+        problems.append(f"dump kind {d['kind']}, reason {d['reason']}")
+    if d["metrics"]["verify"]["batches"] != res.verify_stats[0]["batches"]:
+        problems.append("dump's verify row differs from verify_stats")
+    if d["edges"]["sink"]["n"] != res.recv_cnt:
+        problems.append(f"dump's sink span {d['edges']['sink']}")
+    if not d["slos"]["e2e_p99"]["evals"]:
+        problems.append("dump's SLO rows were never polled")
+    if not {"dispatch", "halt"} <= kinds:
+        problems.append(f"verify recorder kinds {sorted(kinds)}")
+    size = os.path.getsize(os.path.join(dump_dir, halt[0]))
+    say(f"  dump: {halt[0]} ({size} bytes; recorders "
+        f"{sorted(d['recorders'])}), workers' {workers}")
+    return problems
+
+
+def flight_host_costs(tmp: str) -> str:
+    """The registry's host cost a call on this host, timed here: a span
+    observe, a 1,200-frag bulk observe (a feed batch's publishes), a lane
+    increment, a lane publish and a sentinel poll over a topology's
+    registry."""
+    from firedancer_tpu_torch.disco import flight, pipeline, sentinel
+    from firedancer_tpu_torch.tango.rings import Workspace
+
+    topo = pipeline.build_topology(os.path.join(tmp, "cost.wksp"), depth=64)
+    w = Workspace.join(topo.wksp_path)
+    try:
+        h = flight.edge_hist(w, "sink")
+        lane = flight.tile_lane(w, "verify")
+        lats = np.random.RandomState(1).randint(0, 1 << 31, 1200)
+        snt = sentinel.Sentinel(w, topo.pod)
+
+        def per_call(fn, n):
+            t = time.perf_counter_ns()
+            for i in range(n):
+                fn(i)
+            return (time.perf_counter_ns() - t) / n
+
+        obs = per_call(lambda i: h.observe(1000 + i), 100_000)
+        many = per_call(lambda i: h.observe_many(lats), 1_000)
+        inc = per_call(lambda i: lane.inc("lanes", 3), 100_000)
+        pub = per_call(lambda i: (lane.inc("batches"), lane.publish()),
+                       10_000)
+        poll = per_call(lambda i: snt.poll(now=i * 0.25), 200)
+        snt.stop()
+    finally:
+        w.leave()
+    return (f"observe {obs:.0f} ns, observe_many of 1,200 {many / 1e3:.1f} "
+            f"us, lane inc {inc:.0f} ns, lane publish {pub / 1e3:.1f} us, "
+            f"sentinel poll {poll / 1e3:.1f} us")
+
+
+def flight_phase(torch, card, bench, batch: int = B) -> None:
+    """Phase 12: fd_flight and fd_sentinel on the card. (f) cut to the
+    first FLIGHT_N payloads of phase 9's corpus (rings 4,096 deep, B =
+    8192, inflight 4, worker processes, the drain on), four runs in
+    turns, flight and sentinel off, on, on, off (pipeline_run's checks
+    and flight gates on each). Every run is read live by fd_top in a
+    process of its own and by monitor.snapshot on a thread (an "on" run
+    must pass live_problems); an "on" run writes its Prometheus text and
+    its HALT dump, and the workers theirs, into a temporary directory
+    (dump_problems). Prints first the registry's host cost a call
+    (flight_host_costs), then each run's txn/s and p50/p99 and the
+    means on and off."""
+    import tempfile
+
+    from firedancer_tpu_torch.disco import flight
+
+    t0 = time.perf_counter()
+    corpus = prefix_corpus(bench, FLIGHT_N)
+    traffic = pipe_traffic([], [], corpus)
+    tmp = tempfile.mkdtemp(prefix="flight_", dir=os.path.join(REPO, "build"))
+    runs = []
+    try:
+        say(f"flight (12) host cost a call: {flight_host_costs(tmp)} "
+            f"[{card}]")
+        for i, on in enumerate(FLIGHT_ARMS):
+            dump_dir = os.path.join(tmp, f"dumps{i}")
+            prom = os.path.join(tmp, f"run{i}.prom")
+            fopts = ({"dump_dir": dump_dir, "metrics_prom": prom} if on
+                     else {"enabled": False})
+            res, _ = pipeline_run(
+                torch, card, f"flight (f) first {FLIGHT_N} payloads, "
+                f"flight and sentinel {'on' if on else 'off'}", traffic,
+                "greedy", batch, depth=FEED_DEPTH, wksp_sz=FEED_WKSP,
+                verify_opts=dict(FEED_OPTS), feed=True, feed_proc=True,
+                flight=fopts, sentinel=on, live=live_probe)
+            problems = []
+            if on:
+                with open(prom) as f:
+                    res.live_prom = {
+                        k: v for k, v in flight.parse_prom(f.read()).items()
+                        if not k.startswith("fd_flight_compile")}
+                problems += live_problems(res, res.live)
+                problems += dump_problems(res, dump_dir)
+                if res.slo is None or res.stage_hist["sink"]["n"] == 0:
+                    problems.append("flight on, yet no spans or no sentinel")
+            elif res.slo is not None or any(
+                    h["n"] for h in res.stage_hist.values()):
+                problems.append("flight off, yet spans or a sentinel")
+            if problems:
+                fail(f"flight run {i} ({'on' if on else 'off'}): "
+                     + "; ".join(problems))
+            runs.append((on, res))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = len(traffic["payloads"])
+
+    def line(r):
+        return (f"{n / r.span_s:.0f} txn/s p50 {r.latency_p50_ns / 1e6:.1f} "
+                f"p99 {r.latency_p99_ns / 1e6:.1f} ms")
+
+    say("flight (12) off/on in turns: " + "; ".join(
+        f"{'on' if on else 'off'} {line(r)}" for on, r in runs)
+        + f" [{card}]")
+    mean = {a: np.mean([n / r.span_s for on, r in runs if on == a])
+            for a in (False, True)}
+    say(f"flight (12): mean txn/s off {mean[False]:.0f}, on {mean[True]:.0f}"
+        f" (on/off {mean[True] / mean[False]:.3f}); the phase "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -4478,12 +4878,13 @@ def main() -> int:
     signing_path(torch, gpu, rows, card)
     traffic = tile_phase(torch, card)
     pack_phase(torch, card, record, *traffic)
-    feed_phase(torch, card, rows, record, *traffic)
+    bench = feed_phase(torch, card, rows, record, *traffic)
     app_phase(torch, card)
     chaos_phase(torch, card, batch_b, direct_b)
     late_trace_probe(torch)
+    flight_phase(torch, card, bench)
 
-    # 12. Output.
+    # 13. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..tango.rings import CTL_ERR
 from ..utils.rng import Rng
+from . import flight
 
 FAULT_CLASSES = (
     "ring_ctl_err",
@@ -171,6 +172,9 @@ class ChaosInjector:
         self._corrupt_psigs: List[int] = []
         self._starve_active = False
         self.corrupted_sha256: List[str] = []
+        # Every booked event also goes to the "chaos" flight recorder, so
+        # a dump carries the fault timeline (the JAX :238-244).
+        self._flightrec = flight.recorder("chaos")
 
     # -- plumbing --------------------------------------------------------
 
@@ -180,8 +184,10 @@ class ChaosInjector:
         faults do not skew the audit."""
         with self._lock:
             c = self.counters.get(cls)
-            if c is not None:
-                c[kind] += n
+            if c is None:
+                return
+            c[kind] += n
+        self._flightrec.record("chaos", cls=cls, event=kind, n=n)
 
     def _tick(self, site: str) -> int:
         """The next 1-based ordinal of a hook site."""

@@ -50,6 +50,7 @@ from ..ops.dedup_filter import dedup_filter, empty_banks
 from ..ops.frontend_cuda import DEFAULT_FRONTEND, FRONTENDS
 from ..ops.verify import verify_batch
 from ..ops.verify_rlc import make_async_verifier
+from . import flight
 from .feed.policy import AdaptiveFlush
 
 ENGINE_COLD = "cold"
@@ -170,6 +171,8 @@ class EngineEntry:
         self.state = ENGINE_COLD
         self.err: str | None = None
         self.warm_s = 0.0          # seconds of the last warm pass
+        # The last warm's build found every kernel library built.
+        self.warm_hit = False
         self.warms = 0             # warm passes run (zero batches)
         self.dispatches = 0
         self.lanes = 0
@@ -225,15 +228,20 @@ class EngineEntry:
         (batch, max_msg_len) on the calling thread's current stream: in
         rlc mode through the RLC pass (its front half in spec.frontend)
         and its direct fallback both. That stream is synchronised before
-        the entry turns WARM. Returns True when this call warmed."""
+        the entry turns WARM. Returns True when this call warmed. The
+        warm is booked in flight.record_compile (the port's compile
+        accounting): its seconds, and a cache hit when no kernel library
+        had to be built."""
         with self._lock:
             if max_msg_len in self._warmed:
                 return False
             b = self.spec.batch
             self.state = ENGINE_WARMING
             t0 = time.perf_counter()
+            hit = True
             try:
                 if self.device.type == "cuda":
+                    hit = build.all_built()
                     build.build_all()
                 zeros = (
                     torch.zeros(b, max_msg_len, dtype=torch.uint8,
@@ -251,6 +259,8 @@ class EngineEntry:
                 self.err = repr(exc)[:200]
                 raise
             self.warm_s = time.perf_counter() - t0
+            self.warm_hit = hit
+            flight.record_compile(self.key, self.warm_s, hit)
             self.warms += 1
             self._warmed.add(max_msg_len)
             self.state = ENGINE_WARM
@@ -288,6 +298,7 @@ class EngineEntry:
                 "frontend": self.spec.frontend,
                 "device": str(self.device), "drain": self.drain,
                 "state": self.state, "warm_s": round(self.warm_s, 3),
+                "warm_hit": self.warm_hit,
                 "warms": self.warms,
                 "dispatches": self.dispatches, "lanes": self.lanes,
                 "service_ns": self.service_ns, "err": self.err}

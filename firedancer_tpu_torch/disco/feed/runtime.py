@@ -37,6 +37,15 @@ the 64-bit tick. Each stage's samples are matched to the replay's
 publish ticks by ``stage_latencies``: the out-links' and the stager's
 (``tiles.LatReservoir``, set on the feed's links only) and the sink's
 receipts, which like the end-to-end latency need ``record_digests``.
+
+fd_flight and fd_sentinel (the JAX :223, :545-559): the run installs
+its flight options (``flight=``, passed on to the workers, which attach
+their tiles' rows by label) and the SIGUSR1 dump, runs a sentinel
+(``sentinel=``) from the tiles' start to quiescence, stopped before
+HALT and on every raise before the workspace is left, and reads
+``stage_hist``, ``slo`` and ``flight_tiles`` at the end
+(``pipeline.finish_flight_run``). ``verify_tile_stats`` is a view over
+the verify tile's flight lane.
 """
 
 from __future__ import annotations
@@ -113,60 +122,66 @@ def stage_latency(pub_ticks, samples: Dict[str, tuple]) -> Dict[str, dict]:
 
 
 def verify_tile_stats(v) -> Dict[str, object]:
-    """The verify_stats record of one VerifyTile, the fields of the JAX
-    record (:60-147) that the port's stat_* counters fill: the healing
-    lane's (``stager_restarts``, ``cpu_failover``, ``quarantined``,
-    ``quarantine_err_txn``, ``ctl_err_drop``, ``breaker_state``
-    ("disabled" without a breaker, as in the step loop),
-    ``breaker_trips``, ``breaker_reprobes``, ``slots_leaked``; all 0 and
-    "closed" on a fault-free feed run), the rung ladder's (``rung_hist``
-    keyed by str(rung), ``rung_ladder``, ``rung_switches``, ``rung_cur``;
-    {} / [] / 0 / 0 with the scheduler off), the drain's and the live
-    reconfig's; ``chaos`` (the injector's snapshot) only while one is
-    armed. The JAX compile and shard fields have no counterpart; the CPU
-    lane's lanes and wall time stay on the tile (``stat_cpu_lanes``,
-    ``stat_cpu_ns``), so that the record keeps the JAX record's keys."""
+    """The verify_stats record of one VerifyTile, a view over its flight
+    lane (``v.fl``; the JAX :60-147) and the tile-only fields: the
+    dispatch counters, the healing lane's (``stager_restarts``,
+    ``cpu_failover``, ``quarantined``, ``quarantine_err_txn``,
+    ``ctl_err_drop``, ``breaker_state`` ("disabled" without a breaker,
+    as in the step loop), ``breaker_trips``, ``breaker_reprobes``,
+    ``slots_leaked``; all 0 and "closed" on a fault-free feed run), the
+    warm accounting (``compile_cnt``, ``compile_ms``,
+    ``compile_cache_hit``: the warms this tile paid), the rung ladder's
+    (``rung_hist`` keyed by str(rung), ``rung_ladder``,
+    ``rung_switches``, ``rung_cur``; {} / [] / 0 / 0 with the scheduler
+    off), the drain's and the live reconfig's; ``chaos`` (the injector's
+    snapshot) only while one is armed. The JAX shard fields wait for
+    multi-GPU; the CPU lane's lanes and wall time stay on the tile
+    (``stat_cpu_lanes``, ``stat_cpu_ns``)."""
     from .. import chaos
 
-    fill = v.stat_lanes / float(v.stat_batches * v.batch) \
-        if v.stat_batches else 0.0
+    m = v.fl.as_dict()
+    lanes, batches = m["lanes"], m["batches"]
+    fill = lanes / float(batches * v.batch) if batches else 0.0
     feed = bool(v._feed)
     breaker = v._breaker
     st = {
-        "batches": v.stat_batches,
-        "lanes": v.stat_lanes,
+        "batches": batches,
+        "lanes": lanes,
         "fill_ratio": round(fill, 4),
-        "flush_timeout": v.stat_flush_timeout,
-        "flush_starved": v.stat_flush_starved,
-        "inflight_stall": v.stat_inflight_stall,
+        "flush_timeout": m["flush_timeout"],
+        "flush_starved": m["flush_starved"],
+        "inflight_stall": m["inflight_stall"],
         "mode": v.verify_mode,
-        "rlc_fallback": v.stat_rlc_fallback,
+        "rlc_fallback": m["rlc_fallback"],
         "feed": feed,
         "slot_stall": v.feed_pool.slot_stall if feed else 0,
         "slot_stall_ms": (round(v.feed_pool.stall_ns / 1e6, 2)
                           if feed else 0.0),
-        "device_idle_est_ms": round(v.stat_feed_idle_ns / 1e6, 2),
-        "stager_restarts": v.stat_stager_restarts,
-        "cpu_failover": v.stat_cpu_failover,
-        "quarantined": v.stat_quarantined,
-        "quarantine_err_txn": v.stat_quarantine_err_txn,
-        "ctl_err_drop": v.stat_ctl_err,
+        "device_idle_est_ms": round(m["feed_idle_ns"] / 1e6, 2),
+        "stager_restarts": m["stager_restarts"],
+        "cpu_failover": m["cpu_failover"],
+        "quarantined": m["quarantined"],
+        "quarantine_err_txn": m["quarantine_err_txn"],
+        "ctl_err_drop": m["ctl_err_drop"],
         "breaker_state": (breaker.state if breaker is not None
                           else "disabled"),
         "breaker_trips": breaker.trips if breaker is not None else 0,
         "breaker_reprobes": breaker.reprobes if breaker is not None else 0,
         "slots_leaked": v.feed_pool.outstanding() if feed else 0,
-        "drain_batches": v.stat_drain_batches,
-        "drain_novel": v.stat_drain_novel,
-        "drain_maybe": v.stat_drain_maybe,
-        "drain_rot": v.stat_drain_rot,
+        "compile_cnt": m["compile_cnt"],
+        "compile_ms": round(m["compile_ns"] / 1e6, 1),
+        "compile_cache_hit": m["compile_cache_hit"],
+        "drain_batches": m["drain_batches"],
+        "drain_novel": m["drain_novel"],
+        "drain_maybe": m["drain_maybe"],
+        "drain_rot": m["drain_rot"],
         "rung_hist": {str(k): n for k, n in sorted(v.stat_rung_hist.items())},
         "rung_ladder": (list(v.rung_sched.rungs)
                         if v.rung_sched is not None else []),
-        "rung_switches": v.stat_rung_switches,
-        "rung_cur": v.stat_rung_cur,
-        "reconfigs": v.stat_reconfigs,
-        "reconfig_refused": v.stat_reconfig_refused,
+        "rung_switches": m["rung_switches"],
+        "rung_cur": m["rung_cur"],
+        "reconfigs": m["reconfigs"],
+        "reconfig_refused": m["reconfig_refused"],
     }
     c = chaos.active()
     if c is not None:
@@ -217,7 +232,8 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       record_digests: bool = False,
                       pack_scheduler: str = "greedy", device="cuda",
                       feed_proc: Optional[bool] = None, tile_hook=None,
-                      tile_cpus: Optional[List[int]] = None, chaos=None):
+                      tile_cpus: Optional[List[int]] = None, chaos=None,
+                      flight=None, sentinel=None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
@@ -232,27 +248,31 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
     worker's tiles through its cpu_map option. chaos (None, a
     (seed, schedule) pair or a ChaosInjector) is armed for the run
     (disco.chaos.armed) and forces every tile into this process, so that
-    one injector books every site (the JAX :249-257). Raises on a tile
+    one injector books every site (the JAX :249-257). flight and sentinel
+    are the run's options (pipeline.run_pipeline). Raises on a tile
     error, a worker's early exit and a timeout."""
     from .. import chaos as chaos_mod
+    from .. import flight as flight_mod
 
-    with chaos_mod.armed(chaos):
+    with flight_mod.configured(flight), chaos_mod.armed(chaos):
         return _run_feed(topo, payloads, verify_backend, verify_batch,
                          verify_max_msg_len, bank_cnt, timeout_s,
                          tcache_depth, verify_opts, record_digests,
                          pack_scheduler, device, feed_proc, tile_hook,
-                         tile_cpus)
+                         tile_cpus, sentinel)
 
 
 def _run_feed(topo, payloads, verify_backend, verify_batch,
               verify_max_msg_len, bank_cnt, timeout_s, tcache_depth,
               verify_opts, record_digests, pack_scheduler, device,
-              feed_proc, tile_hook, tile_cpus):
-    """run_feed_pipeline's body, with the run's injector (if any)
-    armed."""
+              feed_proc, tile_hook, tile_cpus, sentinel_opts):
+    """run_feed_pipeline's body, with the run's flight options installed
+    and its injector (if any) armed."""
     from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
     from .. import chaos as chaos_mod
+    from .. import flight
     from .. import pipeline as pl
+    from .. import sentinel as sentinel_mod
     from ..monitor import snapshot
     from ..tiles import LatReservoir, VerifyTile, latencies_ns
 
@@ -265,6 +285,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         use_proc = False
     mtu = topo.mtu
     wksp = Workspace.join(topo.wksp_path)
+    flight.install_dump_signal(wksp)  # SIGUSR1 -> a live dump
     vopts = dict(verify_opts or {}, feed=True)
     verify = VerifyTile(wksp, "verify.cnc", pl.in_link(wksp, "replay_verify"),
                         pl.out_link(wksp, "verify_dedup", mtu),
@@ -291,6 +312,8 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         for t in tiles:
             t.cpu_idx = cpu_map[t.name]
         opts["cpu_map"] = cpu_map
+    # The workers run under this run's flight options.
+    wopts = dict(opts, flight=flight.options().as_dict())
 
     tile_max_ns = int((timeout_s + 30.0) * 1e9)
     errors: list = []
@@ -307,23 +330,25 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
     results = {"replay": os.path.join(tmp, "replay.json"),
                "downstream": os.path.join(tmp, "downstream.json")}
     procs: Dict[str, subprocess.Popen] = {}
+    snt = None
     ru_self = resource.getrusage(resource.RUSAGE_SELF)
     ru_kids = resource.getrusage(resource.RUSAGE_CHILDREN)
     t0 = time.perf_counter()
     try:
         if use_proc:
             procs["downstream"] = _spawn_worker(
-                "dedup,pack,sink", topo.wksp_path, opts, tile_max_ns,
+                "dedup,pack,sink", topo.wksp_path, wopts, tile_max_ns,
                 results["downstream"], tmp)
             payloads_path = os.path.join(tmp, "payloads.pkl")
             with open(payloads_path, "wb") as f:
                 pickle.dump(list(payloads), f)
             procs["replay"] = _spawn_worker(
                 "replay", topo.wksp_path,
-                dict(opts, payloads_path=payloads_path), tile_max_ns,
+                dict(wopts, payloads_path=payloads_path), tile_max_ns,
                 results["replay"], tmp)
         for th in threads:
             th.start()
+        snt = sentinel_mod.start_for_run(wksp, topo.pod, sentinel_opts)
         if tile_hook is not None:
             tile_hook(verify)
 
@@ -363,6 +388,8 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
                 settle = 0
             last = cursors
             time.sleep(SETTLE_S)
+        # At quiescence, before HALT: the drain books no stall.
+        slo = snt.stop() if snt is not None else None
 
         # A worker tile still in BOOT would overwrite HALT with RUN when
         # it reaches its loop: wait (bounded) until each has left BOOT
@@ -467,6 +494,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             stage_latency=stage_latency(
                 pub_ticks, {k: samples[k] for k in STAGES}),
         )
+        pl.finish_flight_run(wksp, res, slo)
         res.proc_cpu_s["main"] = round(
             ru_self2.ru_utime + ru_self2.ru_stime - ru_self.ru_utime
             - ru_self.ru_stime, 6)
@@ -480,8 +508,11 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        # Only after every tile thread has ended: a tile still writing
-        # into the mapping would fault.
-        if all(not th.is_alive() for th in threads):
+        if snt is not None:
+            snt.stop()  # idempotent: a raise must stop the poller too
+        # Only after every tile thread and the sentinel have ended: a
+        # thread still reading or writing the mapping would fault.
+        if all(not th.is_alive() for th in threads) and (
+                snt is None or not snt.alive()):
             wksp.leave()
         shutil.rmtree(tmp, ignore_errors=True)

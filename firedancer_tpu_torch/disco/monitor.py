@@ -9,8 +9,12 @@ backpressure, filter counts and per-link rates.
 records (``fdctl monitor`` reads it from the pod file), as the JAX one
 does; ``snapshot(wksp, tiles, links)`` takes the names instead
 (``pipeline.topology_tiles`` and ``topology_links``: the runners'
-form). The port has no fd_flight, fd_sentinel or fd_xray rows, so a
-snapshot holds the cnc and fseq counters only.
+form). Either form overlays the fd_flight registry as the JAX one does
+(:117-140): each tile's metric row as ``fl_<metric>`` in its
+``tile.<name>`` row, each edge's span summary as ``span.<edge>`` and
+each fd_sentinel SLO row as ``slo.<name>``; the FEEDER panel of
+``render`` shows the breaker and quarantine columns from them. The JAX
+fd_xray rows (``xq.*``) wait for fd_xray.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..tango.rings import (
     Workspace,
 )
 from ..utils.pod import Pod
+from . import flight
 from .tiles import (
     CNC_DIAG_BACKP_CNT,
     CNC_DIAG_HA_FILT_CNT,
@@ -100,13 +105,27 @@ def snapshot(wksp: Workspace, tiles: Union[Pod, Sequence[str]],
             if "fseq" in sub:
                 mc = MCache(wksp, sub["mcache"]) if "mcache" in sub else None
                 out[f"link.{name}"] = _link_row(FSeq(wksp, sub["fseq"]), mc)
-        return out
-    for name in tiles:
-        out[f"tile.{name}"] = _tile_row(Cnc(wksp, f"{name}.cnc"))
-    for name in links:
-        out[f"link.{name}"] = _link_row(FSeq(wksp, f"{name}.fseq"),
-                                        MCache(wksp, f"{name}.mcache"))
+    else:
+        for name in tiles:
+            out[f"tile.{name}"] = _tile_row(Cnc(wksp, f"{name}.cnc"))
+        for name in links:
+            out[f"link.{name}"] = _link_row(FSeq(wksp, f"{name}.fseq"),
+                                            MCache(wksp, f"{name}.mcache"))
+    _flight_overlay(wksp, out)
     return out
+
+
+def _flight_overlay(wksp: Workspace, out: dict) -> None:
+    """The registry's rows into a snapshot (where the workspace has
+    them): metrics as fl_* into the tiles' rows, spans, SLO rows."""
+    for label, metrics in (flight.read_tiles(wksp) or {}).items():
+        row = out.get(f"tile.{label}")
+        if row is not None:
+            row.update({f"fl_{k}": v for k, v in metrics.items()})
+    for label, summ in (flight.read_edges(wksp) or {}).items():
+        out[f"span.{label}"] = summ
+    for label, row in (flight.read_slos(wksp) or {}).items():
+        out[f"slo.{label}"] = row
 
 
 def render(

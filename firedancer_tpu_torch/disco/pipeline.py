@@ -24,6 +24,18 @@ serves one verify lane); else it runs the in-process step loop (the JAX
 ``FD_FEED=0`` runner), a verify tile a lane, until the chain has
 drained (``pipeline_quiesced``). ``run_tiles`` and ``chain_quiesced``
 also drive the shorter replay -> verify -> sink chain.
+
+fd_flight and fd_sentinel (the JAX :98-158, :320-336): the workspace
+holds the registry's regions (``flight.create_regions``: a metric row a
+tile, a span histogram a link edge and ``verify_drain``, ``sink`` and
+``quic_ingest``, a row an SLO) and the pod ``firedancer.flight.schema``.
+Both runners take ``flight`` and ``sentinel`` options
+(``flight.FlightOptions``, ``sentinel.SentinelOptions``, or a bool for
+on/off; the JAX flags' defaults, both on), install the SIGUSR1 dump,
+run a ``Sentinel`` beside the tiles and stop it at quiescence, before
+HALT and before the workspace is left, on every path;
+``finish_flight_run`` writes the HALT dump and the Prometheus text
+where the options name them and reads ``PipelineResult.stage_hist``.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ from ..ballet.txn import MAX_SIG_CNT
 from ..tango import rings
 from ..tango.rings import CNC_HALT, Cnc, DCache, FSeq, MCache, Workspace
 from ..utils.pod import Pod
+from . import flight
+from . import sentinel as sentinel_mod
 from .feed.runtime import (
     LOGGER,
     latency_percentiles,
@@ -59,6 +73,9 @@ from .tiles import (
 
 LINKS = ("replay_verify", "verify_dedup", "dedup_pack", "pack_sink")
 TILES = ("replay", "verify", "dedup", "pack", "sink", "quic")
+# The span edges beside the links: the stager's ring dwell, the
+# end-to-end span and the QUIC front door's (no QUIC tile yet).
+SPAN_EDGES = ("verify_drain", "sink", "quic_ingest")
 
 
 # The links each further verify lane adds.
@@ -96,6 +113,12 @@ def topology_tiles(lanes: int = 1) -> List[str]:
     return list(TILES) + [lane_link("verify", i) for i in range(1, lanes)]
 
 
+def topology_edges(lanes: int = 1) -> List[str]:
+    """The span histogram edges of a topology: its links, then
+    SPAN_EDGES."""
+    return topology_links(lanes) + list(SPAN_EDGES)
+
+
 def link_names(link: str) -> LinkNames:
     return LinkNames(f"{link}.mcache", f"{link}.dcache", f"{link}.fseq")
 
@@ -110,14 +133,17 @@ def build_topology(wksp_path: str, depth: int = 128, mtu: int = FD_TPU_MTU,
     """Create the workspace and every link and cnc of verify_lanes verify
     lanes; the file stays for tiles to join (Workspace.join). The pod
     records each link's mcache, dcache, fseq and depth, each tile's cnc,
-    ``firedancer.mtu`` and ``firedancer.layout.verify_lane_cnt``, under
-    the JAX package's keys. The port builds no fd_flight or fd_xray
-    regions, so its pod has none of the JAX pod's ``firedancer.flight.*``
-    keys."""
+    ``firedancer.mtu``, ``firedancer.layout.verify_lane_cnt`` and
+    ``firedancer.flight.schema``, under the JAX package's keys. The
+    fd_flight regions follow (a row a tile, a span a topology_edges
+    edge, a row an SLO), as the JAX package lays them out; its fd_xray
+    region has no counterpart."""
     if verify_lanes < 1:
         raise ValueError(f"verify_lanes must be at least 1, got "
                          f"{verify_lanes}")
     links = topology_links(verify_lanes)
+    tiles = topology_tiles(verify_lanes)
+    edges = topology_edges(verify_lanes)
     need = len(links) * dcache_size(depth, mtu)
     if wksp_sz < need:
         raise ValueError(f"wksp_sz {wksp_sz} holds less than the links' "
@@ -136,13 +162,17 @@ def build_topology(wksp_path: str, depth: int = 128, mtu: int = FD_TPU_MTU,
             pod.insert_cstr(f"firedancer.{link}.dcache", names.dcache)
             pod.insert_cstr(f"firedancer.{link}.fseq", names.fseq)
             pod.insert_ulong(f"firedancer.{link}.depth", depth)
-        for tile in topology_tiles(verify_lanes):
+        for tile in tiles:
             Cnc(wksp, f"{tile}.cnc", create=True)
             pod.insert_cstr(f"firedancer.{tile}.cnc", f"{tile}.cnc")
+        flight.create_regions(wksp, tiles, edges,
+                              slo_labels=sentinel_mod.SLO_NAMES)
     finally:
         wksp.leave()
     pod.insert_ulong("firedancer.mtu", mtu)
     pod.insert_ulong("firedancer.layout.verify_lane_cnt", verify_lanes)
+    pod.insert_ulong("firedancer.flight.schema",
+                     flight.ARTIFACT_SCHEMA_VERSION)
     return Topology(wksp_path=wksp_path, depth=depth, mtu=mtu, pod=pod)
 
 
@@ -152,10 +182,11 @@ def in_link(wksp: Workspace, link: str) -> InLink:
 
 def out_link(wksp: Workspace, link: str, mtu: int = FD_TPU_MTU) -> OutLink:
     """The producer side of link, with its consumer's fseq as the one
-    reliable consumer of the credit flow control."""
+    reliable consumer of the credit flow control and the link's span
+    histogram (edge = link)."""
     names = link_names(link)
     return OutLink(wksp, names, mtu=mtu,
-                   reliable_fseqs=[FSeq(wksp, names.fseq)])
+                   reliable_fseqs=[FSeq(wksp, names.fseq)], edge=link)
 
 
 def build_tile(wksp: Workspace, name: str, mtu: int = FD_TPU_MTU,
@@ -208,11 +239,12 @@ def chain_quiesced(replay, verifies, sink) -> bool:
     return True
 
 
-def run_tiles(tiles, quiesced, timeout_s: float = 60.0) -> float:
+def run_tiles(tiles, quiesced, timeout_s: float = 60.0,
+              sentinel=None) -> float:
     """Run each tile on a thread until quiesced() (or timeout_s, or a
-    tile raising), then signal HALT through every cnc and join. Returns
-    the seconds it ran; raises the first tile error, and TimeoutError
-    when the tiles never quiesced."""
+    tile raising), stop the run's sentinel (if given), then signal HALT
+    through every cnc and join. Returns the seconds it ran; raises the
+    first tile error, and TimeoutError when the tiles never quiesced."""
     errors: list = []
 
     def target(t):
@@ -227,11 +259,16 @@ def run_tiles(tiles, quiesced, timeout_s: float = 60.0) -> float:
     for th in threads:
         th.start()
     done = False
-    while time.perf_counter() - t0 < timeout_s and not errors:
-        if quiesced():
-            done = True
-            break
-        time.sleep(0.002)
+    try:
+        while time.perf_counter() - t0 < timeout_s and not errors:
+            if quiesced():
+                done = True
+                break
+            time.sleep(0.002)
+    finally:
+        # At quiescence and before HALT, so the drain books no stall.
+        if sentinel is not None:
+            sentinel.stop()
     for t in tiles:
         t.cnc.signal(CNC_HALT)
     for th in threads:
@@ -275,6 +312,14 @@ class PipelineResult:
     verify_stats: List[Dict[str, object]] = field(default_factory=list)
     # sha256 of every payload the sink received (record_digests).
     sink_digests: Optional[List[bytes]] = None
+    # fd_flight's span histograms by edge, {n, p50_ns_le, p99_ns_le,
+    # sum_ns}, over the whole population (read from the workspace).
+    stage_hist: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    # fd_sentinel's run summary (Sentinel.summary; None with it off).
+    slo: Optional[dict] = None
+    # The flight metric rows by tile at the end of the run (read_tiles;
+    # every process's lanes, published).
+    flight_tiles: Dict[str, Dict[str, int]] = field(default_factory=dict)
     # The port's own records: thread CPU seconds by tile, the pack
     # tile's counters (scheduler, blocks, the gc gate, CU-cap drops) and
     # the dedup tile's fd_drain counters (probe_skip, probed,
@@ -315,6 +360,25 @@ def _dedup_stats(dedup: DedupTile) -> Dict[str, int]:
             "false_novel": dedup.stat_drain_false_novel}
 
 
+def finish_flight_run(wksp: Workspace, res: "PipelineResult",
+                      slo_summary: Optional[dict] = None) -> None:
+    """The end of a run, with the tiles halted and the sentinel stopped
+    (the JAX :138-158 less the xray autopsy): the HALT dump and the
+    Prometheus text where the run's flight options name them, and
+    res's stage_hist, slo and flight_tiles from the workspace."""
+    opts = flight.options()
+    flight.maybe_dump("halt", wksp=wksp)
+    if opts.metrics_prom:
+        try:
+            with open(opts.metrics_prom, "w") as f:
+                f.write(flight.render_prom(wksp))
+        except OSError:
+            pass
+    res.stage_hist = flight.read_edges(wksp) or {}
+    res.flight_tiles = flight.read_tiles(wksp) or {}
+    res.slo = slo_summary
+
+
 def pin_tiles(tiles, tile_cpus: Optional[List[int]]) -> None:
     """Core pinning (the reference's layout.affinity): the configured CPU
     list assigned to tiles in topology order, wrapping when short."""
@@ -327,11 +391,14 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
                timeout_s: float, tcache_depth: int, verify_opts: dict,
                record_digests: bool, pack_scheduler: str,
                device, lanes: int = 1,
-               tile_cpus: Optional[List[int]] = None) -> PipelineResult:
+               tile_cpus: Optional[List[int]] = None, pod=None,
+               sentinel_opts=None):
     """Wire the replay tile's lanes through a verify tile each (lane i on
     ``verify.v<i>.cnc`` and its lane's links) -> dedup -> pack -> sink,
     run the tiles until pipeline_quiesced (raising on a tile error or a
-    timeout), snapshot the diag counters of every tile and link."""
+    timeout) beside the run's sentinel (stopped on every path), snapshot
+    the diag counters of every tile and link and finish the flight
+    run. Returns (result, the sentinel or None)."""
     verifies = []
     for i in range(lanes):
         v = VerifyTile(wksp, f"{lane_link('verify', i)}.cnc",
@@ -351,10 +418,14 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
         for name in ("dedup", "pack", "sink"))
     tiles = [replay, *verifies, dedup, pack, sink]
     pin_tiles(tiles, tile_cpus)
-    elapsed = run_tiles(
-        tiles,
-        lambda: pipeline_quiesced(replay, verifies, dedup, pack, sink),
-        timeout_s=timeout_s)
+    snt = sentinel_mod.start_for_run(wksp, pod, sentinel_opts)
+    try:
+        elapsed = run_tiles(
+            tiles,
+            lambda: pipeline_quiesced(replay, verifies, dedup, pack, sink),
+            timeout_s=timeout_s, sentinel=snt)
+    finally:
+        slo = snt.stop() if snt is not None else None
     lat = latencies_ns(replay, sink) if record_digests else []
     res = PipelineResult(
         recv_cnt=sink.recv_cnt,
@@ -372,7 +443,8 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
     )
     p = latency_percentiles(lat)
     res.latency_p50_ns, res.latency_p99_ns = p["p50_ns"], p["p99_ns"]
-    return res
+    finish_flight_run(wksp, res, slo)
+    return res, snt
 
 
 def _feed_fallback_reason(verify_backend: str, verify_batch: int,
@@ -409,7 +481,7 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                  device="cuda", feed: Optional[bool] = None,
                  feed_proc: Optional[bool] = None,
                  tile_cpus: Optional[List[int]] = None,
-                 chaos=None) -> PipelineResult:
+                 chaos=None, flight=None, sentinel=None) -> PipelineResult:
     """Replay-sourced pipeline: payloads -> verify -> dedup -> pack ->
     sink, over the topology's verify lanes (topo.pod). feed None or True
     runs the fd_feed runtime when it can serve the topology (feed_proc:
@@ -423,25 +495,30 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
     a (seed, schedule) pair or a disco.chaos.ChaosInjector, is armed
     for the run in either runner (a pair gives a fresh injector, so the
     run replays its faults) and uninstalled when the run ends or raises;
-    the feed then runs every tile in process. Shutdown is by quiescence
+    the feed then runs every tile in process. flight and sentinel are
+    the run's fd_flight and fd_sentinel options (None: the flight
+    options in force and the sentinel's defaults, both on; a bool turns
+    one on or off; see the module docstring). Shutdown is by quiescence
     (source exhausted and every link drained); filtered frags never
     reach the sink, so the caller reads recv_cnt and the diag
     counters."""
     from . import chaos as chaos_mod
+    from . import flight as flight_mod
 
-    with chaos_mod.armed(chaos) as inj:
+    with flight_mod.configured(flight), chaos_mod.armed(chaos) as inj:
         return _run_pipeline(topo, payloads, verify_backend, verify_batch,
                              verify_max_msg_len, bank_cnt, timeout_s,
                              tcache_depth, verify_opts, record_digests,
                              pack_scheduler, device, feed, feed_proc,
-                             tile_cpus, inj)
+                             tile_cpus, inj, sentinel)
 
 
 def _run_pipeline(topo, payloads, verify_backend, verify_batch,
                   verify_max_msg_len, bank_cnt, timeout_s, tcache_depth,
                   verify_opts, record_digests, pack_scheduler, device, feed,
-                  feed_proc, tile_cpus, inj) -> PipelineResult:
-    """run_pipeline's body, its injector inj (or None) armed."""
+                  feed_proc, tile_cpus, inj, sentinel) -> PipelineResult:
+    """run_pipeline's body, its flight options installed and its
+    injector inj (or None) armed."""
     reason = None
     lanes = topo.verify_lanes
     if feed is None or feed:
@@ -457,18 +534,23 @@ def _run_pipeline(topo, payloads, verify_backend, verify_batch,
                 timeout_s=timeout_s, tcache_depth=tcache_depth,
                 verify_opts=verify_opts, record_digests=record_digests,
                 pack_scheduler=pack_scheduler, device=device,
-                feed_proc=feed_proc, tile_cpus=tile_cpus, chaos=inj)
+                feed_proc=feed_proc, tile_cpus=tile_cpus, chaos=inj,
+                sentinel=sentinel)
         logging.getLogger(LOGGER).warning(
             "fd_feed cannot serve this topology, falling back to the "
             "in-process step loop: %s", reason)
     wksp = Workspace.join(topo.wksp_path)
+    flight.install_dump_signal(wksp)  # SIGUSR1 -> a live dump
     replay = build_tile(wksp, "replay", payloads=payloads, lanes=lanes)
-    res = _run_tiles(wksp, replay, verify_backend, verify_batch,
+    res, snt = _run_tiles(wksp, replay, verify_backend, verify_batch,
                      verify_max_msg_len or topo.mtu, bank_cnt, timeout_s,
                      tcache_depth, dict(verify_opts or {}), record_digests,
-                     pack_scheduler, device, lanes, tile_cpus)
-    # Only after every tile thread has ended: on an error the mapping is
-    # kept, since a tile still writing into it would fault.
-    wksp.leave()
+                          pack_scheduler, device, lanes, tile_cpus, topo.pod,
+                          sentinel)
+    # Only after every tile thread and the sentinel have ended: on an
+    # error, or a poller that outlived its join, the mapping is kept,
+    # since a thread still reading or writing it would fault.
+    if snt is None or not snt.alive():
+        wksp.leave()
     res.feed_fallback_reason = reason
     return res

@@ -36,8 +36,7 @@ the native drain (``fd_verify_drain``: one C call polls, parses and
 stages a round of frags) or, with ``native_drain=False``, frag by frag
 in Python (``on_frag``). Both share the flush policy, the in-order
 completion and the held-back ack cursor, and write the same cnc diag
-slots. Plain counters (``stat_*``) stand in for the JAX package's flight
-lane. A batch whose result raises at completion is quarantined, as in
+slots. A batch whose result raises at completion is quarantined, as in
 the JAX ``_complete``:2967-3040: counted, re-verified on the CPU lane
 (``_quarantine_statuses``), its clean txns published and its offenders
 sent downstream as CTL_ERR frags (``_publish_err``). An error at a
@@ -67,6 +66,19 @@ raised. Each failover, quarantine, trip and restart is counted
 (``feed.runtime.verify_tile_stats``) and logged as a warning. The hooks
 of ``disco.chaos`` sit at the JAX sites: the replay's publish, the
 drain's counters, the stager's round, the dispatch and the completion.
+
+fd_flight (``disco.flight``; the JAX :237-351, :600-622, :969-1006): the
+verify, dedup and pack tiles count into their flight lane (``fl``; the
+``stat_*`` names of its metrics are read-only views of it), published
+to the workspace's row at housekeeping; every tile records its events
+(``flightrec``: dispatches, flush verdicts, breaker transitions,
+quarantines, failovers, restarts, reconfigs, the halt) and dumps the
+flight record before a raise leaves its thread. Each out-link given an
+edge observes its span on every stamped publish, the bulk publishes a
+batch at once (``OutLink.lat_sample_many``), the stager the ring dwell
+of each round on ``verify_drain`` and the sink the end-to-end span on
+``sink``; with flight off (``flight.FlightOptions.enabled``) recorders
+and spans are off and the lanes stay.
 
 The feeder's rung ladder (the JAX :1097-1155, :1947-2014): with
 ``sched`` on and a staging batch that tops two or more rungs of
@@ -135,6 +147,7 @@ from ..tango.tcache import TCache
 from ..utils.rng import Rng
 from . import chaos
 from . import engine as fd_engine
+from . import flight
 from .drain import (
     CTL_BLOCK_MASK,
     CTL_NOVEL,
@@ -194,6 +207,8 @@ BREAKER_THRESHOLD = 3
 BREAKER_COOLDOWN_MS = 100
 
 _U64 = (1 << 64) - 1
+# A ring dwell from a 32-bit stamp at or past this is a wrap artifact.
+DWELL_WRAP_NS = 4_000_000_000
 # The keys of a live reconfig request (VerifyTile.request_reconfig): the
 # JAX request's FD_FRONTEND_IMPL and FD_DRAIN flips are the port's
 # frontend and drain; its decompress flip has no counterpart.
@@ -221,6 +236,12 @@ def idle_pause(idle_spins: int) -> float:
     if idle_spins <= 64:
         return 0.0
     return min(20e-6 * (1 << min((idle_spins - 65) // 8, 6)), 1e-3)
+
+
+def _lane_stat(name: str) -> property:
+    """A tile's read-only stat_* view of its flight lane's metric."""
+    return property(lambda self: self.fl.get(name),
+                    doc=f"The flight lane's {name}.")
 
 
 def meta_sig(payload: bytes) -> int:
@@ -311,11 +332,15 @@ class InLink:
 
 
 class OutLink:
-    """Producer side: dcache chunk walk, mcache publish, credit control."""
+    """Producer side: dcache chunk walk, mcache publish, credit control.
+    Given an edge name, with flight on, every publish of a stamped frag
+    observes (tspub - tsorig) & 0xFFFFFFFF into the edge's span
+    histogram (``span``)."""
 
     def __init__(self, wksp: Workspace, names: LinkNames,
                  mtu: int = FD_TPU_MTU,
-                 reliable_fseqs: Optional[Sequence[FSeq]] = None):
+                 reliable_fseqs: Optional[Sequence[FSeq]] = None,
+                 edge: Optional[str] = None):
         self.mcache = MCache(wksp, names.mcache)
         self.dcache = DCache(wksp, names.dcache)
         self.mtu = mtu
@@ -332,6 +357,28 @@ class OutLink:
         self.cr_avail = 0
         # Latency samples of what this link publishes; None keeps none.
         self.lat: Optional[LatReservoir] = None
+        # The edge's always-on span histogram; None keeps none.
+        self.span: Optional[flight.EdgeHist] = flight.span(wksp, edge)
+
+    def lat_sample(self, tsorig: int, now: int) -> None:
+        """One stamped frag published at tick now: its span and its
+        reservoir sample."""
+        if self.span is not None:
+            self.span.observe((now - tsorig) & 0xFFFFFFFF)
+        if self.lat is not None:
+            self.lat.add(tsorig, now)
+
+    def lat_sample_many(self, ts: np.ndarray, now: int) -> None:
+        """The frags of a bulk publish at tick now (uint32 stamps; 0,
+        unstamped, skipped): one vectorised span update."""
+        ts = ts[ts != 0]
+        if not len(ts):
+            return
+        if self.span is not None:
+            self.span.observe_many(
+                ((now & 0xFFFFFFFF) - ts.astype(np.int64)) & 0xFFFFFFFF)
+        if self.lat is not None:
+            self.lat.add_many(ts, now)
 
     def housekeep(self) -> None:
         self.cr_avail = self.fctl.tx_cr_update(self.cr_avail, self.seq)
@@ -351,8 +398,8 @@ class OutLink:
                              f"link MTU ({self.mtu})")
         self.dcache.write(self.chunk, payload)
         now = tempo.tickcount()
-        if self.lat is not None:
-            self.lat.add(tsorig, now)
+        if tsorig:
+            self.lat_sample(tsorig, now)
         self.mcache.publish(self.seq, sig, self.chunk, len(payload), ctl,
                             tsorig, now & 0xFFFFFFFF)
         self.chunk = self.dcache.next_chunk(self.chunk, len(payload), self.mtu)
@@ -380,6 +427,11 @@ class Tile:
             raise ValueError("pass in_link or in_links, not both")
         self.wksp = wksp
         self.cnc_name = cnc_name
+        # The cnc name less ".cnc": the tile's flight row label and
+        # recorder name.
+        self.flight_label = (cnc_name[:-4] if cnc_name.endswith(".cnc")
+                             else cnc_name)
+        self.flightrec = flight.recorder(self.flight_label)
         self.cnc = Cnc(wksp, cnc_name)
         # Several in-links are polled in turn (the dedup tile's mux);
         # in_link is the first.
@@ -539,12 +591,17 @@ class Tile:
             self._run_loop(max_ns)
         except BaseException as e:
             self.error = e
+            # The postmortem before the raise: what the tile was doing
+            # (written when the run's flight options name a directory).
+            self.flightrec.record("crash", err=repr(e)[:200])
+            flight.maybe_dump(f"crash:{self.flight_label}", wksp=self.wksp)
             raise
         finally:
             try:
                 self.on_halt()
             finally:
                 self.halted = True
+                self.flightrec.record("halt")
                 try:
                     self.housekeep(tempo.tickcount())
                 finally:
@@ -841,6 +898,9 @@ class VerifyTile(Tile):
                 f"max_msg_len={max_msg_len}")
         super().__init__(wksp, cnc_name, in_link=in_link, out_link=out_link,
                          **kw)
+        # The tile's flight lane: every dispatch and healing counter of
+        # TILE_METRICS (the stat_* properties read it).
+        self.fl = flight.tile_lane(wksp, self.flight_label)
         self.backend = backend
         self.batch = batch
         self.max_msg_len = max_msg_len
@@ -861,45 +921,29 @@ class VerifyTile(Tile):
         self._last_unacked = int(self.cnc.diag(CNC_DIAG_UNACKED))
         # (lanes, verdict) of every batch dispatched, in order.
         self.batch_log: list = []
-        self.stat_inflight_stall = 0
-        self.stat_rlc_fallback = 0
-        self.stat_ctl_err = 0
-        # Healing: batches the CPU lane served at dispatch, batches
-        # quarantined at completion, offenders published CTL_ERR, and the
-        # CPU lane's signature lanes and wall ns (failover and re-verify).
-        self.stat_cpu_failover = 0
-        self.stat_quarantined = 0
-        self.stat_quarantine_err_txn = 0
+        # The CPU lane's signature lanes and wall ns (failover and
+        # re-verify).
         self.stat_cpu_lanes = 0
         self.stat_cpu_ns = 0
         self._breaker: Optional[CircuitBreaker] = None
         if feed and breaker:
             self._breaker = CircuitBreaker(breaker_threshold,
                                            breaker_cooldown_ms * 1_000_000)
+        self._breaker_pub = (None, 0, 0)   # the breaker last published
         self._stager_restart_max = stager_restart_max
         self._stager_backoff_s = stager_backoff_ms / 1e3
-        # fd_feed: stager restarts, and the dispatcher's idle wall (no
-        # batch in flight, no READY slot) after its first batch.
-        self.stat_stager_restarts = 0
-        self.stat_feed_idle_ns = 0
         # Wall ns of the engine calls (copies in, launches) and of the
         # completions (read-back wait, publishes).
         self.stat_dispatch_ns = 0
         self.stat_complete_ns = 0
-        # fd_drain: batches filtered, claimed-novel and maybe publishes,
-        # window rotations.
-        self.stat_drain_batches = 0
-        self.stat_drain_novel = 0
-        self.stat_drain_maybe = 0
-        self.stat_drain_rot = 0
         self._drain: Optional[DrainWindow] = None
         self._drain_pack = False
         self._drain_block = 0
         self._drain_h_bits = drain_filter_bits
         self._drain_pack_req = bool(drain_pack)
         # The rung ladder: the scheduler (None: the fixed batch), the
-        # rung engines, batches by rung, rung switches and the current
-        # target rung (0 with the scheduler off).
+        # rung engines, batches by rung (rung switches and the current
+        # target rung, 0 with the scheduler off, are in the lane).
         self.sched = bool(sched)
         self.prewarm = prewarm
         self.frontend = frontend
@@ -907,15 +951,11 @@ class VerifyTile(Tile):
         self._rung_entries: dict = {}
         self._rung_last = 0
         self.stat_rung_hist: dict = {}
-        self.stat_rung_switches = 0
-        self.stat_rung_cur = 0
         # Live reconfig: one pending request at a time (any thread parks
         # it; the dispatcher applies it at the inflight barrier).
         self._reconfig_lock = threading.Lock()
         self._reconfig_pending: Optional[dict] = None
         self._reconfig_seq = 0
-        self.stat_reconfigs = 0
-        self.stat_reconfig_refused = 0
         self._engine_entry = None
         self._engine_spec = None
         self._verify_batch_fn = None
@@ -923,9 +963,11 @@ class VerifyTile(Tile):
         if backend == "gpu":
             self._engine_spec = fd_engine.EngineSpec.for_tile(
                 backend, self.verify_mode, batch, frontend)
-            entry, _ = fd_engine.registry().acquire(
+            entry, warmed_now = fd_engine.registry().acquire(
                 self._engine_spec, warm=True, device=device,
                 max_msg_len=max_msg_len)
+            if warmed_now:
+                self._account_compile(entry)
             self._engine_entry = entry
             self._verify_batch_fn = entry.fn
             self.device = entry.device
@@ -939,13 +981,26 @@ class VerifyTile(Tile):
             if self.sched and rungs:
                 self._rung_setup(rungs)
 
-    @property
-    def stat_batches(self) -> int:
-        return len(self.batch_log)
-
-    @property
-    def stat_lanes(self) -> int:
-        return sum(lanes for lanes, _ in self.batch_log)
+    stat_batches = _lane_stat("batches")
+    stat_lanes = _lane_stat("lanes")
+    stat_flush_timeout = _lane_stat("flush_timeout")
+    stat_flush_starved = _lane_stat("flush_starved")
+    stat_inflight_stall = _lane_stat("inflight_stall")
+    stat_rlc_fallback = _lane_stat("rlc_fallback")
+    stat_ctl_err = _lane_stat("ctl_err_drop")
+    stat_cpu_failover = _lane_stat("cpu_failover")
+    stat_quarantined = _lane_stat("quarantined")
+    stat_quarantine_err_txn = _lane_stat("quarantine_err_txn")
+    stat_stager_restarts = _lane_stat("stager_restarts")
+    stat_feed_idle_ns = _lane_stat("feed_idle_ns")
+    stat_drain_batches = _lane_stat("drain_batches")
+    stat_drain_novel = _lane_stat("drain_novel")
+    stat_drain_maybe = _lane_stat("drain_maybe")
+    stat_drain_rot = _lane_stat("drain_rot")
+    stat_rung_switches = _lane_stat("rung_switches")
+    stat_rung_cur = _lane_stat("rung_cur")
+    stat_reconfigs = _lane_stat("reconfigs")
+    stat_reconfig_refused = _lane_stat("reconfig_refused")
 
     @property
     def stat_flush(self) -> dict:
@@ -956,13 +1011,50 @@ class VerifyTile(Tile):
             out[verdict] += 1
         return out
 
-    @property
-    def stat_flush_timeout(self) -> int:
-        return self.stat_flush[FLUSH_DEADLINE]
+    def _book_batch(self, lanes: int, verdict: str, **ev) -> None:
+        """Count a dispatched batch in the log and the lane, its flush
+        verdict (deadline, starved) and a dispatch event."""
+        self.batch_log.append((lanes, verdict))
+        fl = self.fl
+        fl.inc("batches")
+        fl.inc("lanes", lanes)
+        if verdict == FLUSH_DEADLINE or verdict == FLUSH_STARVED:
+            fl.inc("flush_timeout" if verdict == FLUSH_DEADLINE
+                   else "flush_starved")
+            self.flightrec.record("flush", verdict=verdict, lanes=lanes)
+        self.flightrec.record("dispatch", lanes=lanes, **ev)
 
-    @property
-    def stat_flush_starved(self) -> int:
-        return self.stat_flush[FLUSH_STARVED]
+    def _account_compile(self, entry) -> None:
+        """Book an engine warm this tile paid into its lane (the JAX
+        _account_compile:1285): count, wall ns and build cache hits."""
+        self.fl.inc("compile_cnt")
+        self.fl.inc("compile_ns", int(entry.warm_s * 1e9))
+        if entry.warm_hit:
+            self.fl.inc("compile_cache_hit")
+        self.flightrec.record("compile", engine=entry.key,
+                              s=round(entry.warm_s, 3), hit=entry.warm_hit)
+
+    def _publish_flight(self) -> None:
+        """Fold the pool's slot stalls and the breaker's gauges into the
+        lane (a breaker transition recorded) and publish it."""
+        fl = self.fl
+        if self._feed:
+            stall = self.feed_pool.slot_stall
+            have = fl.get("slot_stall")
+            if stall > have:
+                fl.inc("slot_stall", stall - have)
+        b = self._breaker
+        fl.set_gauge("breaker_state", flight.BREAKER_STATE_CODE.get(
+            b.state if b is not None else "disabled", 3))
+        if b is not None:
+            fl.set_gauge("breaker_trips", b.trips)
+            fl.set_gauge("breaker_reprobes", b.reprobes)
+            cur = (b.state, b.trips, b.reprobes)
+            if cur != self._breaker_pub and self._breaker_pub[0] is not None:
+                self.flightrec.record("breaker", state=b.state,
+                                      trips=b.trips, reprobes=b.reprobes)
+            self._breaker_pub = cur
+        fl.publish()
 
     # -- native drain ----------------------------------------------------
 
@@ -1010,7 +1102,8 @@ class VerifyTile(Tile):
             self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[4] + d[5]))
         c = chaos.active()
         if d[6]:
-            self.stat_ctl_err += int(d[6])
+            self.fl.inc("ctl_err_drop", int(d[6]))
+            self.flightrec.record("ctl_err_drop", n=int(d[6]))
             self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, int(d[6]))
             self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[7]))
             if c is not None:
@@ -1107,7 +1200,7 @@ class VerifyTile(Tile):
         if not self._pending:
             return
         while len(self._inflight) >= self.inflight_max:
-            self.stat_inflight_stall += 1
+            self.fl.inc("inflight_stall")
             self._complete(block=True)
         lanes = self._pending_lanes
         if lanes < self.batch:
@@ -1122,7 +1215,7 @@ class VerifyTile(Tile):
         self._inflight.append(_InflightBatch(
             out=out, todo=self._pending, t_dispatch=tempo.tickcount(),
             entry=self._engine_entry))
-        self.batch_log.append((lanes, verdict))
+        self._book_batch(lanes, verdict, device=True)
         self._pending = []
         self._pending_lanes = 0
         self._nd_pay_fill = 0
@@ -1146,6 +1239,9 @@ class VerifyTile(Tile):
         self.stager_cpu_ns = 0
         # Source publish -> stager drain of every staged txn.
         self.drain_lat = LatReservoir()
+        # The ring dwell (the producer's publish -> the stager's drain)
+        # of each round's oldest frag, the verify_drain edge.
+        self._dwell_span = flight.span(self.wksp, "verify_drain")
 
     def _drain_setup(self) -> None:
         """Arm the fd_drain (feed mode, an out-link, drain "auto"), or
@@ -1187,7 +1283,10 @@ class VerifyTile(Tile):
             rungs, self.max_wait_ns,
             cost_ns=lambda r: ents[r].service_est_ns())
         self.flush_policy = self.rung_sched.flush
-        self.stat_rung_cur = self._rung_last = rungs[0]
+        self._rung_last = rungs[0]
+        self.fl.set_gauge("rung_cur", rungs[0])
+        self.flightrec.record("rung_ladder", rungs=list(rungs),
+                              prewarm=self.prewarm)
         return {spec.with_batch(r) for r in rungs}
 
     def _drain_pack_arrays(self, slot):
@@ -1237,7 +1336,7 @@ class VerifyTile(Tile):
             novel, bits_new, _ = dedup_filter(tags_hi, tags_lo, valid,
                                               bits_a, bits_b)
         self._drain.commit(bits_new)
-        self.stat_drain_batches += 1
+        self.fl.inc("drain_batches")
         return _DrainBatch(novel, colors, block)
 
     def _feed_start(self) -> None:
@@ -1265,8 +1364,9 @@ class VerifyTile(Tile):
         err = self._stager_err
         if err is not None:
             self._stager_err = None
-            self.stat_stager_restarts += 1
+            self.fl.inc("stager_restarts")
             n = self.stat_stager_restarts
+            self.flightrec.record("stager_restart", n=n, err=repr(err)[:120])
             c = chaos.active()
             if c is not None and isinstance(err, chaos.ChaosFault):
                 c.note(err.cls, "detected")
@@ -1336,6 +1436,12 @@ class VerifyTile(Tile):
         if k0 == 0:
             slot.t_first = now  # the deadline's anchor
         self.drain_lat.add_many(slot.tsorigs[k0:k0 + n], now)
+        if self._dwell_span is not None:
+            # A 32-bit stamp's dwell is exact below 2^32 ns; past 4 s it
+            # is taken as a wrap and not booked (the JAX xray.dwell32).
+            dwell = (now - int(slot.tspubs[k0])) & 0xFFFFFFFF
+            if dwell < DWELL_WRAP_NS:
+                self._dwell_span.observe(dwell)
         # The round's offsets are relative to its base: make them
         # absolute, so the completion publishes every round at once.
         slot.offs[k0:k0 + n] += slot.pay_fill
@@ -1436,8 +1542,11 @@ class VerifyTile(Tile):
         rung = sched.pick(tempo.tickcount(), slot.n_lane, slot.t_first,
                           backlog, backlog_full=backlog * 2 >= il.mcache.depth)
         if rung != self._rung_last:
-            self.stat_rung_switches += 1
-            self.stat_rung_cur = self._rung_last = rung
+            self.fl.inc("rung_switches")
+            self.fl.set_gauge("rung_cur", rung)
+            self.flightrec.record("rung", b=rung, prev=self._rung_last,
+                                  lanes=slot.n_lane, backlog=backlog)
+            self._rung_last = rung
         return rung
 
     def _feed_commit(self, slot, verdict: str) -> None:
@@ -1495,7 +1604,8 @@ class VerifyTile(Tile):
         if out is None:
             entry = None
             out = _DeviceBatch(torch.from_numpy(self._verify_slot_cpu(slot)))
-            self.stat_cpu_failover += 1
+            self.fl.inc("cpu_failover")
+            self.flightrec.record("cpu_failover", lanes=slot.n_lane)
             logging.getLogger(LOGGER).warning(
                 "verify dispatch of %d lanes served by the CPU lane (%s)",
                 slot.n_lane, repr(err) if err is not None
@@ -1508,7 +1618,10 @@ class VerifyTile(Tile):
         self._inflight.append(_InflightBatch(
             out=out, todo=[], t_dispatch=tempo.tickcount(), slot=slot,
             drain=drain, entry=entry))
-        self.batch_log.append((slot.n_lane, slot.flush_verdict))
+        ev = {"device": entry is not None}
+        if self.rung_sched is not None:
+            ev["b"] = rung
+        self._book_batch(slot.n_lane, slot.flush_verdict, **ev)
 
     def _feed_poll(self):
         """The dispatcher's round (poll_inputs in feed mode): supervise
@@ -1537,7 +1650,7 @@ class VerifyTile(Tile):
         if (self.batch_log and not self._inflight
                 and self.feed_pool.ready_cnt() == 0):
             if self._feed_idle_mark:
-                self.stat_feed_idle_ns += now - self._feed_idle_mark
+                self.fl.inc("feed_idle_ns", now - self._feed_idle_mark)
             self._feed_idle_mark = now
         else:
             self._feed_idle_mark = 0
@@ -1640,18 +1753,18 @@ class VerifyTile(Tile):
             if pub <= 0:
                 break
         if novel is not None:
-            self.stat_drain_novel += novel_pub
-            self.stat_drain_maybe += maybe_pub
+            self.fl.inc("drain_novel", novel_pub)
+            self.fl.inc("drain_maybe", maybe_pub)
             self._drain.note_published(novel_pub)
             # No rotation while an injector is armed: replayed and dropped
             # frags break the proof's "published => inserted" step.
             if self._drain.maybe_rotate(blocked=chaos.active() is not None):
-                self.stat_drain_rot += 1
+                self.fl.inc("drain_rot")
         il = self.in_link
         il.fseq.diag_add(DIAG_PUB_CNT, published)
         il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
-        if ol.lat is not None:
-            ol.lat.add_many(slot.tsorigs[:n][ok][:published], now)
+        # The span of every frag published, one vectorised update.
+        ol.lat_sample_many(slot.tsorigs[:n][ok][:published], now)
         return slot.drain_end
 
     # -- live reconfig ----------------------------------------------------
@@ -1674,7 +1787,8 @@ class VerifyTile(Tile):
         swap)."""
 
         def refuse(reason: str) -> tuple:
-            self.stat_reconfig_refused += 1
+            self.fl.inc("reconfig_refused")
+            self.flightrec.record("reconfig_refused", reason=reason)
             return False, reason
 
         try:
@@ -1720,6 +1834,8 @@ class VerifyTile(Tile):
             pend = {"seq": self._reconfig_seq, "verify_mode": mode,
                     "frontend": frontend, "drain": drain, "ladder": rungs}
             self._reconfig_pending = pend
+        self.flightrec.record("reconfig_request", seq=pend["seq"], mode=mode,
+                              ladder=list(rungs) if rungs else None)
         return True, f"pending (seq {pend['seq']})"
 
     def _apply_reconfig(self) -> None:
@@ -1743,9 +1859,12 @@ class VerifyTile(Tile):
         spec = fd_engine.EngineSpec.for_tile(
             self.backend, req["verify_mode"], self.batch, req["frontend"])
         e = reg.warm_entry(spec, self.device)
-        if e is None:
-            e, _ = reg.acquire(spec, warm=True, device=self.device,
-                               max_msg_len=self.max_msg_len)
+        cold = e is None
+        if cold:
+            e, warmed_now = reg.acquire(spec, warm=True, device=self.device,
+                                        max_msg_len=self.max_msg_len)
+            if warmed_now:
+                self._account_compile(e)
         self._engine_entry, self._verify_batch_fn = e, e.fn
         self._engine_spec = spec
         self.verify_mode, self.frontend = req["verify_mode"], req["frontend"]
@@ -1761,7 +1880,10 @@ class VerifyTile(Tile):
             self._drain_setup()
         with self._reconfig_lock:
             self._reconfig_pending = None
-        self.stat_reconfigs += 1
+        self.fl.inc("reconfigs")
+        self.flightrec.record("reconfig", seq=req["seq"], engine=spec.key,
+                              rungs=list(rungs) if rungs else None,
+                              cold_primary=cold, drain=req["drain"])
 
     # -- per-frag path ---------------------------------------------------
 
@@ -1782,7 +1904,8 @@ class VerifyTile(Tile):
 
     def on_frag(self, frag: Frag, payload: bytes) -> None:
         if frag.ctl & CTL_ERR:
-            self.stat_ctl_err += 1
+            self.fl.inc("ctl_err_drop")
+            self.flightrec.record("ctl_err_drop", n=1)
             self._filter(frag, payload, CNC_DIAG_SV_FILT_CNT,
                          CNC_DIAG_SV_FILT_SZ)
             return
@@ -1827,7 +1950,7 @@ class VerifyTile(Tile):
             todo = [(payload, len(items), tsorig, seq_end)
                     for payload, items, tsorig, seq_end in self._pending[:take]]
             while len(self._inflight) >= self.inflight_max:
-                self.stat_inflight_stall += 1
+                self.fl.inc("inflight_stall")
                 self._complete(block=True)
             pad = [(bytes(64), bytes(32), b"")] * (self.batch - len(flat))
             out = self._launch(self._engine_args(
@@ -1836,9 +1959,9 @@ class VerifyTile(Tile):
                 out=out, todo=todo, t_dispatch=tempo.tickcount(),
                 entry=self._engine_entry))
             # A batch cut because the next txn does not fit is full.
-            self.batch_log.append((len(flat), FLUSH_FULL
-                                   if self._pending_lanes >= self.batch
-                                   else verdict))
+            self._book_batch(len(flat), FLUSH_FULL
+                             if self._pending_lanes >= self.batch
+                             else verdict, device=True)
             del self._pending[:take]
             self._pending_lanes -= len(flat)
             if self._pending:
@@ -1893,6 +2016,7 @@ class VerifyTile(Tile):
         for il in self.in_links:
             il.fseq.update(min(self._acked_seq, il.seq))
         self._publish_unacked()
+        self._publish_flight()
         self._housekeep_out()
         self.on_housekeep()
 
@@ -1974,7 +2098,8 @@ class VerifyTile(Tile):
                 err = e
             quarantined = err is not None
             if quarantined:
-                self.stat_quarantined += 1
+                self.fl.inc("quarantined")
+                self.flightrec.record("quarantine", err=repr(err)[:120])
                 logging.getLogger(LOGGER).warning(
                     "verify batch quarantined, re-verified on the CPU lane "
                     "(%r)", err)
@@ -1994,7 +2119,7 @@ class VerifyTile(Tile):
                 # the rung scheduler's cost model.
                 ib.entry.note_service(tempo.tickcount() - ib.t_dispatch)
             if getattr(ib.out, "used_fallback", False):
-                self.stat_rlc_fallback += 1
+                self.fl.inc("rlc_fallback")
             if ib.slot is not None:
                 batch_ack = self._publish_feed_batch(
                     ib.slot, statuses, None if quarantined else ib.drain,
@@ -2114,7 +2239,7 @@ class VerifyTile(Tile):
             self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
             time.sleep(20e-6)
         self.out_link.publish(payload, sig, ctl=CTL_SOM_EOM | CTL_ERR)
-        self.stat_quarantine_err_txn += 1
+        self.fl.inc("quarantine_err_txn")
 
     def _ack_if_idle(self) -> None:
         """With nothing staged or in flight, everything consumed is
@@ -2163,9 +2288,14 @@ class DedupTile(Tile):
                          in_links=in_links, **kw)
         self.tcache = TCache(tcache_depth)
         self.bulk = bulk
-        self.stat_drain_probe_skip = 0
-        self.stat_drain_probed = 0
-        self.stat_drain_false_novel = 0
+        self.fl = flight.tile_lane(wksp, self.flight_label)
+
+    stat_drain_probe_skip = _lane_stat("drain_probe_skip")
+    stat_drain_probed = _lane_stat("drain_probed")
+    stat_drain_false_novel = _lane_stat("drain_false_novel")
+
+    def on_housekeep(self) -> None:
+        self.fl.publish()
 
     def on_round(self, il: InLink, st: dict, n: int) -> None:
         if self.bulk and self.out_link is not None:
@@ -2189,9 +2319,12 @@ class DedupTile(Tile):
                 st["sigs"][:n][clean],
                 novel=novel[clean] if novel.any() else None)
             n_novel = int(novel.sum())
-            self.stat_drain_probe_skip += n_novel
-            self.stat_drain_probed += int(clean.sum()) - n_novel
-            self.stat_drain_false_novel += self.tcache.false_novel_cnt - fn0
+            self.fl.inc("drain_probe_skip", n_novel)
+            self.fl.inc("drain_probed", int(clean.sum()) - n_novel)
+            d_fn = self.tcache.false_novel_cnt - fn0
+            if d_fn:
+                self.fl.inc("drain_false_novel", d_fn)
+                self.flightrec.record("drain_false_novel", n=d_fn)
         filt = ~clean | dup
         n_filt = int(filt.sum())
         if n_filt:
@@ -2238,8 +2371,7 @@ class DedupTile(Tile):
                 break
         il.fseq.diag_add(DIAG_PUB_CNT, published)
         il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
-        if ol.lat is not None:
-            ol.lat.add_many(st["ts"][:n][~filt][:published], now)
+        ol.lat_sample_many(st["ts"][:n][~filt][:published], now)
 
     def _filter(self, frag: Frag) -> None:
         self.in_cur.fseq.diag_add(DIAG_FILT_CNT, 1)
@@ -2254,14 +2386,15 @@ class DedupTile(Tile):
             # The drain's claim (the JAX :3291-3315): the verdict is the
             # filter's, the insert keeps the ring's order, and the
             # tripwire drops a contradicted claim as a duplicate.
-            self.stat_drain_probe_skip += 1
+            self.fl.inc("drain_probe_skip")
             if self.tcache.insert_novel_batch([frag.sig])[0]:
-                self.stat_drain_false_novel += 1
+                self.fl.inc("drain_false_novel")
+                self.flightrec.record("drain_false_novel", n=1)
                 self._filter(frag)
                 return
             self.publish_backp(payload, frag.sig, tsorig=frag.tsorig)
             return
-        self.stat_drain_probed += 1
+        self.fl.inc("drain_probed")
         if self.tcache.insert(frag.sig):
             self._filter(frag)
             return
@@ -2341,16 +2474,22 @@ class PackTile(Tile):
         # check's proof that no consumed frag is still held.
         self.stat_done = 0
         self.stat_cu_drop = 0
-        # The gc gate's accounting: block_device + sched_fallback = blocks,
-        # of which dev_blocks came colored by the verify tile's drain.
+        # The gc gate's accounting: block_device + sched_fallback = blocks
+        # (in the lane), of which dev_blocks came colored by the verify
+        # tile's drain.
+        self.fl = flight.tile_lane(wksp, self.flight_label)
         self.stat_dev_blocks = 0
-        self.stat_block_device = 0
-        self.stat_wave_device = 0
-        self.stat_sched_fallback = 0
         # Wall ns of schedule_block (arrays, kernel, read-back) and of
         # the gate (greedy waves, validation).
         self.stat_gc_ns = 0
         self.stat_gate_ns = 0
+
+    stat_block_device = _lane_stat("pack_block_device")
+    stat_wave_device = _lane_stat("pack_wave_device")
+    stat_sched_fallback = _lane_stat("pack_sched_fallback")
+
+    def on_housekeep(self) -> None:
+        self.fl.publish()
 
     def drained(self) -> bool:
         """Every frag consumed so far was published or filtered."""
@@ -2435,10 +2574,12 @@ class PackTile(Tile):
                                            CU_CAP_DEFAULT)
         if validate_schedule(dev_waves) and device_beats_greedy(
                 dev_waves, dev_left, cpu_waves, cpu_left):
-            self.stat_block_device += 1
-            self.stat_wave_device += len(dev_waves)
+            self.fl.inc("pack_block_device")
+            self.fl.inc("pack_wave_device", len(dev_waves))
             return dev_waves, dev_left
-        self.stat_sched_fallback += 1
+        self.fl.inc("pack_sched_fallback")
+        self.flightrec.record("pack_sched_fallback", txns=len(txns),
+                              waves=len(dev_waves))
         return cpu_waves, cpu_left
 
     def _close_dev_block(self) -> None:
@@ -2529,6 +2670,8 @@ class SinkTile(Tile):
         self.recv_tsorig: list = []
         self.recv_ticks: list = []
         self.t_last = 0
+        # The end-to-end span (source stamp -> receipt), the sink edge.
+        self._e2e_span = flight.span(wksp, "sink")
 
     def on_frag(self, frag: Frag, payload: bytes) -> None:
         self.recv_cnt += 1
@@ -2537,6 +2680,8 @@ class SinkTile(Tile):
         self.bank_hist[bank] = self.bank_hist.get(bank, 0) + 1
         now = tempo.tickcount()
         self.t_last = now
+        if frag.tsorig and self._e2e_span is not None:
+            self._e2e_span.observe((now - frag.tsorig) & 0xFFFFFFFF)
         if self.record_digests:
             self.digests.append(_sha256(payload).digest())
             self.recv_tsorig.append(frag.tsorig)

@@ -24,8 +24,15 @@ tick, and the pack's and the dedup tile's counters. The main process
 reads the end-to-end latency and stage_latency from them.
 
 Options (``--opts``): mtu, tcache_depth, bank_cnt, pack_scheduler,
-record_digests, cpu_map (a core by tile name to pin it to), and for the
-replay payloads_path (a pickled list of payloads).
+record_digests, cpu_map (a core by tile name to pin it to), flight (the
+run's ``flight.FlightOptions`` fields, installed for the worker's life),
+and for the replay payloads_path (a pickled list of payloads).
+
+fd_flight (the JAX :200-202, :289-294): the tiles attach their rows of
+the workspace's registry by label (their lanes and spans land in the
+main process's view), the worker installs the SIGUSR1 dump and, after a
+clean HALT, writes a ``halt:worker:<tiles>`` dump where the options name
+a directory.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ def build_tile(wksp, name: str, opts: dict):
     from firedancer_tpu_torch.disco.tiles import LatReservoir
 
     opts = dict(opts)
+    opts.pop("flight", None)
     payloads = ()
     cpu = opts.pop("cpu_map", {}).get(name)
     path = opts.pop("payloads_path", None)
@@ -98,10 +106,13 @@ def main(argv=None) -> int:
     names = [t for t in args.tile.split(",") if t]
     opts = json.loads(args.opts)
 
+    from firedancer_tpu_torch.disco import flight
     from firedancer_tpu_torch.tango import tempo
     from firedancer_tpu_torch.tango.rings import CNC_HALT, Cnc, Workspace
 
+    flight.configure(opts.get("flight"))
     wksp = Workspace.join(args.wksp)
+    flight.install_dump_signal(wksp)
     cncs = [Cnc(wksp, f"{t}.cnc") for t in names]
     built = threading.Event()
 
@@ -146,6 +157,7 @@ def main(argv=None) -> int:
     if errors:
         print(f"worker: tile(s) died: {errors}", file=sys.stderr)
         return 1
+    flight.maybe_dump(f"halt:worker:{args.tile}", wksp=wksp)
     if args.result:
         out = {name: tile_result(name, t) for name, t in zip(names, tiles)}
         with open(args.result, "w") as f:

@@ -69,6 +69,11 @@ def ptxas_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{stamp()}.ptxas.txt"
 
 
+def all_built() -> bool:
+    """Every kernel's library of this source stamp is built."""
+    return all(lib_path(k).exists() for k in KERNELS)
+
+
 def build_all() -> dict[str, Path]:
     """Compile every kernel whose library is missing; returns the paths.
     Raises RuntimeError with nvcc's stderr when a build fails."""

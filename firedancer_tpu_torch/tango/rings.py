@@ -267,6 +267,12 @@ class Workspace:
     def laddr(self, off: int) -> int:
         return lib().fd_wksp_laddr(self._h, off)
 
+    def view(self, name: str):
+        """The named allocation's bytes, mapped (a ctypes char array);
+        KeyError when the workspace lacks it."""
+        off, sz = self.query(name)
+        return (ctypes.c_char * sz).from_address(self.laddr(off))
+
     def alloc_list(self) -> list[tuple[str, int, int]]:
         """[(name, off, sz)] of every named allocation (fd_wksp_ctl list)."""
         name, off, sz = ctypes.create_string_buffer(64), _u64(), _u64()

@@ -10,7 +10,8 @@ workspace).
   int -> float widening alike.
 * ``Pod``: the same inserts serialize to the same bytes, and each
   package reads the other's; ``configure init all`` at 1 and 3 verify
-  lanes writes the JAX pod's keys and values but ``FLIGHT_KEYS``.
+  lanes writes the JAX pod's keys and values, fd_flight's schema key
+  among them.
 * ``read_capture`` reads a JAX-written classic pcap and pcapng as the
   JAX package does; ``synth_payloads(device="cpu")`` and ``keygen`` give
   the JAX bytes.
@@ -70,9 +71,6 @@ from firedancer_tpu_torch.utils.pod import Pod as PPod
 
 torch.set_num_threads(1)
 
-# The JAX pod's keys the port's pod has not: the port builds no fd_flight
-# region (ROADMAP queue 1 item 4).
-FLIGHT_KEYS = {"firedancer.flight.schema"}
 LANE_REASON = "verify_lane_cnt={} (feed serves exactly 1 lane)"
 
 
@@ -230,8 +228,8 @@ def test_pod_keys_after_configure_init_all(tmp_path, lanes):
             ppod = dict(PPod.deserialize(f.read()).iter_leaves())
         with open(jcfg.pod_path(jc), "rb") as f:
             jpod = dict(JPod.deserialize(f.read()).iter_leaves())
-        assert FLIGHT_KEYS <= set(jpod)
-        assert ppod == {k: v for k, v in jpod.items() if k not in FLIGHT_KEYS}
+        assert "firedancer.flight.schema" in ppod
+        assert ppod == jpod
         assert ppod["firedancer.layout.verify_lane_cnt"] == lanes
         assert (f"firedancer.replay_verify.v{lanes - 1}.mcache" in ppod) \
             == (lanes > 1)

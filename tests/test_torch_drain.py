@@ -48,6 +48,7 @@ from firedancer_tpu.tango import rings as jrings
 from firedancer_tpu.tango import tcache as jtcache
 from firedancer_tpu_torch.disco import drain as pdrain
 from firedancer_tpu_torch.disco import engine as pengine
+from firedancer_tpu_torch.disco import flight as pflight
 from firedancer_tpu_torch.disco import pipeline as ppipe
 from firedancer_tpu_torch.disco import tiles as ptiles
 from firedancer_tpu_torch.ops import backend
@@ -759,8 +760,12 @@ def test_dedup_on_frag_ctl_err_drops_before_probe():
 
     class Fake:
         tcache = ptcache.TCache(16)
-        stat_drain_probe_skip = stat_drain_probed = 0
-        stat_drain_false_novel = 0
+        # The tile counts through its flight lane.
+        fl = pflight.TileLane("dedup")
+        flightrec = pflight.FlightRecorder("dedup", 8)
+        stat_drain_probe_skip = ptiles.DedupTile.stat_drain_probe_skip
+        stat_drain_probed = ptiles.DedupTile.stat_drain_probed
+        stat_drain_false_novel = ptiles.DedupTile.stat_drain_false_novel
 
         def _filter(self, frag):
             filt.append(frag.sig)

@@ -39,6 +39,7 @@ from firedancer_tpu.tango import tcache as jtcache
 from firedancer_tpu_torch.disco import corpus as pcorpus
 from firedancer_tpu_torch.disco import monitor as pmonitor
 from firedancer_tpu_torch.disco import pipeline as ppipe
+from firedancer_tpu_torch.disco import sentinel as psentinel
 from firedancer_tpu_torch.disco import tiles as ptiles
 from firedancer_tpu_torch.disco.feed import runtime as pruntime
 from firedancer_tpu_torch.ops import backend
@@ -284,8 +285,11 @@ def test_snapshot_names_every_tile_and_link(tmp_path):
     w = prings.Workspace.join(topo.wksp_path)
     snap = pmonitor.snapshot(w, ppipe.TILES, ppipe.LINKS)
     w.leave()
+    # The flight registry's overlay: its spans and SLO rows beside them.
     assert set(snap) == ({f"tile.{t}" for t in ppipe.TILES}
-                         | {f"link.{k}" for k in ppipe.LINKS})
+                         | {f"link.{k}" for k in ppipe.LINKS}
+                         | {f"span.{e}" for e in ppipe.topology_edges()}
+                         | {f"slo.{n}" for n in psentinel.SLO_NAMES})
     assert all(v == 0 for row in snap.values() for v in row.values())
 
 

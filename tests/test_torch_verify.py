@@ -257,6 +257,24 @@ def test_port_scan_reaches_the_feed_modules():
             "firedancer_tpu_torch/disco/feed/slots.py"} <= names
 
 
+FLIGHT_MODULES = ("firedancer_tpu_torch/disco/flight.py",
+                  "firedancer_tpu_torch/disco/sentinel.py",
+                  "firedancer_tpu_torch/tools/fd_top.py")
+
+
+def test_port_scan_reaches_the_flight_modules():
+    """The scan covers fd_flight, fd_sentinel's SLO engine and fd_top,
+    and none of them reads the environment: their flags are options."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert set(FLIGHT_MODULES) <= names
+    for rel in FLIGHT_MODULES:
+        tree = ast.parse((ROOT / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("environ", "getenv", "environb"), (
+                    f"{rel} reads the environment")
+
+
 def test_port_scan_reaches_the_app_and_utils_modules():
     """The scan covers the operator entry point and the utilities it
     copied from the JAX package."""
