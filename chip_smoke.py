@@ -333,7 +333,28 @@ Phases, each fatal on failure (exit code != 0, no result line):
    and halt events; an "off" run must record no span and run no
    sentinel. Prints each run's txn/s and p50/p99, the means on and off
    and the phase's seconds, beside the card's name and power limit.
-13. Output: the card line, one JSON line of per-kernel numbers, and the
+13. Xray: fd_xray on the card. (x): phase 12's 30,000 payloads on
+   rings 32,768 deep (every link's ring keeps the meta of each frag it
+   carried), B = 8192, inflight 4, the drain on, worker processes,
+   flight and the sentinel on (the end-to-end budget at 1 ms over
+   windows of 0.5 and 1 s, so it alerts), four runs in turns with xray
+   off, on, on, off, each with phase 9's checks and read live by fd_top
+   and monitor.snapshot. An "on" run (autopsies into a temporary
+   directory) must give each link's head count equal to sampled_mask
+   over the trace ids read back from its mcache and the sink's over the
+   pack's, every full span chain at the sink non-decreasing in latency,
+   a dwell on every link, a waterfall that reconciles with stage_hist, a
+   HALT autopsy and at least one alert autopsy that parse,
+   tools/fd_xray.py --chrome-trace over the HALT autopsy with an event a
+   span, fd_top's XRAY panel mid-run and PipelineResult.xray's JAX keys;
+   an "off" run no summary, no autopsy and no queue row. Then one (l)
+   run (B = 32,768, rings 32,768 deep, the scheduler on, xray on):
+   prints the verify -> dedup edge's credit stall (ns, count), the
+   verify tile's tile_heartbeat alerts and the autopsies' first
+   suspects. Prints each run's txn/s and p50/p99, the means on and off,
+   the launches and the phase's seconds, beside the card's name and
+   power limit.
+14. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -510,6 +531,21 @@ CHAOS_TCACHE = 1 << 17
 FLIGHT_N = 30_000
 FLIGHT_ARMS = (False, True, True, False)
 PROBE_S = 0.5
+# Phase 13 (fd_xray): (x) is (f)'s first XRAY_N payloads on rings
+# XRAY_DEPTH deep, so every link's ring still holds the meta of each frag
+# it carried (the trace ids the head counts are held to), xray off, on,
+# on, off; every run's sentinel judges the end-to-end budget at 1 ms
+# over windows of 0.5 and 1 s, so it alerts within a run of a few
+# seconds. The default sampling (1 in 64) and ring (512 spans).
+XRAY_N = 30_000
+XRAY_ARMS = (False, True, True, False)
+XRAY_DEPTH = 32768
+XRAY_SENTINEL = {"budgets": {"FD_SLO_E2E_BUDGET_MS": 1}, "fast_s": 0.5,
+                 "slow_s": 1.0}
+XRAY_LINKS = ("replay_verify", "verify_dedup", "dedup_pack", "pack_sink")
+# PipelineResult.xray's keys, the JAX package's.
+XRAY_KEYS = ["exemplars", "sample_rate", "suspects", "top_slowest",
+             "traces", "waterfall"]
 CHAOS_OPTS = {"inflight": 4, "breaker_threshold": 2,
               "breaker_cooldown_ms": 20}
 
@@ -3164,7 +3200,8 @@ def flight_problems(res, tile=None, prom_path=None) -> list:
 def pipeline_run(torch, card, label, traffic, sched, batch, *,
                  depth=TILE_DEPTH, wksp_sz=TILE_WKSP, tcache_depth=PIPE_TCACHE,
                  verify_opts=None, feed=False, feed_proc=None, tile_hook=None,
-                 mixed=False, flight=None, sentinel=None, live=None):
+                 mixed=False, flight=None, sentinel=None, xray=None,
+                 live=None):
     """One run_pipeline on the card, replay -> verify -> dedup -> pack
     (sched) -> sink, with feed=False the in-process step loop (phase 8
     (b)), with feed=True the fd_feed runtime (phase 9; with tile_hook,
@@ -3186,8 +3223,8 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
     probes to verify's publishes, no false novel. fd_flight's gates
     (flight_problems) hold on every run; a feed run goes through
     run_feed_pipeline (run_pipeline's route for it) with a hook that
-    keeps the verify tile. flight and sentinel are the run's options;
-    live(topo), if given, is called once the topology exists and returns
+    keeps the verify tile. flight, sentinel and xray are the run's
+    options; live(topo), if given, is called once the topology exists and returns
     a function called after the run, before the workspace is removed.
     Returns (result, launches)."""
     from firedancer_tpu_torch.disco import pipeline
@@ -3221,7 +3258,7 @@ def pipeline_run(torch, card, label, traffic, sched, batch, *,
                       tcache_depth=tcache_depth, record_digests=True,
                       pack_scheduler=sched, timeout_s=600.0,
                       verify_opts=vopts, feed_proc=feed_proc,
-                      flight=flight, sentinel=sentinel)
+                      flight=flight, sentinel=sentinel, xray=xray)
             if not feed:
                 res = pipeline.run_pipeline(topo, payloads, feed=feed, **kw)
             else:
@@ -4461,6 +4498,341 @@ def flight_phase(torch, card, bench, batch: int = B) -> None:
         f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def xray_live(topo):
+    """live_probe, and at the run's end (the workspace still there) each
+    link's trace ids read back from its mcache (None where the ring
+    wrapped) and the xray queue rows."""
+    probe = live_probe(topo)
+
+    def finish():
+        from firedancer_tpu_torch.disco import xray
+        from firedancer_tpu_torch.tango.rings import (
+            POLL_FRAG,
+            MCache,
+            Workspace,
+        )
+
+        out = probe()
+        w = Workspace.join(topo.wksp_path)
+        try:
+            out["ids"] = {}
+            for link in XRAY_LINKS:
+                mc = MCache(w, f"{link}.mcache")
+                n = mc.seq_next()
+                ids = None
+                if n <= mc.depth:
+                    ids = np.zeros(n, np.uint64)
+                    for seq in range(n):
+                        r, frag = mc.poll(seq)
+                        if r != POLL_FRAG:
+                            fail(f"{link} seq {seq}: poll {r}")
+                        ids[seq] = frag.tsorig
+                out["ids"][link] = ids
+            out["queue"] = xray.read_queue(w)
+        finally:
+            w.leave()
+        return out
+
+    return finish
+
+
+def _frames(text: str) -> list:
+    """fd_top's frames (each starts at its TILE header)."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("TILE"):
+            out.append([])
+        if out:
+            out[-1].append(line)
+    return out
+
+
+def xray_top_mid_run(frames: str, total: int) -> int:
+    """fd_top frames that show the XRAY panel with a sampled dwell on a
+    link while the sink's span is mid-run (0 < n < total)."""
+    hits = 0
+    for fr in _frames(frames):
+        sink = [int(ln.split()[1]) for ln in fr
+                if ln.split()[:1] == ["sink"] and len(ln.split()) == 4]
+        if "XRAY" not in " ".join(fr) or not sink or \
+                not 0 < sink[0] < total:
+            continue
+        i = next(k for k, ln in enumerate(fr) if ln.startswith("XRAY edge"))
+        rows = []
+        for ln in fr[i + 1:]:
+            if not ln.strip():
+                break
+            rows.append(ln.split())
+        if any(len(r) == 8 and r[0] in XRAY_LINKS and int(r[3]) > 0
+               for r in rows):
+            hits += 1
+    return hits
+
+
+def _autopsies(xdir: str) -> tuple:
+    """(the HALT autopsy, [alert autopsies]) parsed from xdir; raises on
+    a file that does not parse or is not an autopsy."""
+    halt, alerts = [], []
+    for name in sorted(os.listdir(xdir)) if os.path.isdir(xdir) else []:
+        with open(os.path.join(xdir, name)) as f:
+            a = json.load(f)
+        if a.get("kind") != "xray_autopsy":
+            fail(f"{name}: kind {a.get('kind')!r}")
+        a["_file"] = os.path.join(xdir, name)
+        (halt if a["reason"] == "halt" else alerts).append(a)
+    return halt, alerts
+
+
+def xray_on_problems(res, live: dict, xdir: str, total: int) -> list:
+    """What an "on" run of (x) must show: each link's head count equal to
+    sampled_mask over the ids it carried and the sink's over what the
+    pack published; each sink head span's chain (where every ring still
+    holds it) non-decreasing in latency; a dwell on every link; the
+    waterfall reconciled with stage_hist; a HALT autopsy and at least
+    one alert autopsy; tools/fd_xray.py --chrome-trace over the HALT
+    autopsy parsing into an event a span; fd_top's XRAY panel mid-run;
+    PipelineResult.xray's keys the JAX ones."""
+    from firedancer_tpu_torch.disco import xray
+
+    problems = []
+    halt, alerts = _autopsies(xdir)
+    if len(halt) != 1 or not alerts:
+        return [f"autopsies in {xdir}: {len(halt)} HALT, {len(alerts)} "
+                "alert"]
+    spans = halt[0]["exemplars"]["spans"]
+    thr = xray.sample_threshold()
+    ids = dict(live["ids"], sink=live["ids"]["pack_sink"])
+    heads = {}
+    for edge, got_ids in ids.items():
+        if got_ids is None:
+            problems.append(f"{edge}'s ring wrapped")
+            continue
+        want = int(xray.sampled_mask(got_ids, thr).sum())
+        got = spans.get(f"edge:{edge}", {}).get("counts", {}).get("head", 0)
+        heads[edge] = (got, want, len(got_ids))
+        if got != want or not want:
+            problems.append(f"{edge}: {got} head spans, sampled_mask over "
+                            f"its {len(got_ids)} ids {want}")
+    # The chains the rings still hold (a ring keeps its last 512 spans,
+    # and the 1 ms budget makes most spans tails): each trace at the sink
+    # with spans on at least two more edges, its latency non-decreasing
+    # along the chain, where no span's latency is past the 4 s wrap guard.
+    chain = ("replay_verify", "verify_dedup", "dedup_pack", "pack_sink",
+             "sink")
+    by = {e: {s["trace"]: s["lat_ns"] for s in
+              spans.get(f"edge:{e}", {}).get("spans", [])} for e in chain}
+    chains = full = bad = 0
+    for trace in by["sink"]:
+        lats = [by[e][trace] for e in chain if trace in by[e]]
+        if len(lats) < 3 or max(lats) >= 4_000_000_000:
+            continue
+        chains += 1
+        full += len(lats) == len(chain)
+        if lats != sorted(lats):
+            bad += 1
+    if bad or not chains:
+        problems.append(f"{bad} of {chains} span chains not monotone")
+    q = live["queue"]
+    dry = [e for e in XRAY_LINKS if not q[e]["dwell"]["n"]]
+    if dry:
+        problems.append(f"no dwell on {dry}")
+    wf = res.xray["waterfall"] if res.xray else []
+    if not xray.waterfall_reconciles(res.stage_hist, wf):
+        problems.append("the waterfall does not reconcile with stage_hist")
+    if sorted(res.xray or {}) != XRAY_KEYS:
+        problems.append(f"PipelineResult.xray keys {sorted(res.xray or {})}")
+    out = os.path.join(xdir, "..", "chrome.json")
+    tool = os.path.join(REPO, "firedancer_tpu_torch", "tools", "fd_xray.py")
+    r = subprocess.run([sys.executable, tool, "--chrome-trace",
+                        halt[0]["_file"], "-o", out],
+                       capture_output=True, text=True, timeout=120)
+    n_spans = sum(len(v["spans"]) for v in spans.values())
+    try:
+        with open(out) as f:
+            xs = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+        if r.returncode or len(xs) != n_spans:
+            problems.append(f"fd_xray --chrome-trace rc {r.returncode}, "
+                            f"{len(xs)} events for {n_spans} spans")
+    except (OSError, ValueError, KeyError) as e:
+        problems.append(f"fd_xray --chrome-trace: {e!r} {r.stderr[-300:]}")
+    top = xray_top_mid_run(live["frames"], total)
+    if not top:
+        problems.append(f"fd_top showed no XRAY panel mid-run (stderr "
+                        f"{live['frames_err'][-300:]!r})")
+    sus = alerts[0]["suspects"][0] if alerts[0]["suspects"] else {}
+    say(f"  xray: head spans by edge (got, sampled_mask, ids) {heads}; "
+        f"{chains} chains of 3-5 edges checked, {full} of all 5; exemplars {res.xray['exemplars']}, traces "
+        f"{res.xray['traces']}; autopsies 1 HALT + {len(alerts)} alert "
+        f"({sorted({a['reason'] for a in alerts})}), the first's suspect "
+        f"{sus.get('stage')} ({sus.get('slo')}); chrome trace {n_spans} "
+        f"events; fd_top XRAY frames mid-run {top}")
+    return problems
+
+
+def xray_waterfall_line(res) -> str:
+    return "; ".join(
+        f"{st['stage']} queue {st['queue_mean_ns'] / 1e6:.2f} ms "
+        f"(n {st['queue_n']}) service "
+        + ("-" if st["service_mean_ns"] is None
+           else f"{st['service_mean_ns'] / 1e6:.2f} ms")
+        + f" stall {st['stall_ns'] / 1e6:.1f} ms"
+        for st in res.xray["waterfall"])
+
+
+def xray_host_costs(tmp: str) -> str:
+    """fd_xray's host cost a call on this host, timed here: a per-frag
+    observe that captures nothing and one that captures a tail, a
+    1,200-frag bulk observe that tails every frag (a feed batch past its
+    budget), a drained round's dwell sample and an autopsy written with
+    six full rings."""
+    from firedancer_tpu_torch.disco import pipeline, xray
+    from firedancer_tpu_torch.tango.rings import Workspace
+
+    topo = pipeline.build_topology(os.path.join(tmp, "xcost.wksp"), depth=64)
+    w = Workspace.join(topo.wksp_path)
+    try:
+        with xray.configured({"dir": os.path.join(tmp, "xcost")},
+                             {"budgets": {"FD_SLO_E2E_BUDGET_MS": 1}}):
+            ctx = xray.span_ctx("sink")
+            cold = next(t for t in range(1, 1 << 20) if not xray.sampled(t))
+            tail = ctx.tail_ns + 1
+            ts = np.arange(1, 1201, dtype=np.uint64) * 977
+            lats = np.full(1200, tail, np.int64)
+            il = pipeline.in_link(w, "dedup_pack")
+            tsp = np.ones(64, np.uint32)
+            for e in ("replay_verify", "verify_dedup", "dedup_pack",
+                      "pack_sink"):
+                xray.span_ctx(e).observe_many(ts, lats)
+
+            def per_call(fn, n):
+                t = time.perf_counter_ns()
+                for i in range(n):
+                    fn(i)
+                return (time.perf_counter_ns() - t) / n
+
+            none = per_call(lambda i: ctx.observe(cold, cold + 5, 5), 100_000)
+            tails = per_call(lambda i: ctx.observe(cold, cold + tail, tail),
+                             100_000)
+            many = per_call(lambda i: ctx.observe_many(ts, lats), 1_000)
+            dwell = per_call(lambda i: il.dwell_round(tsp, 64), 10_000)
+            autopsy = per_call(lambda i: xray.maybe_autopsy("cost", wksp=w),
+                               10)
+    finally:
+        w.leave()
+    return (f"observe (no capture) {none:.0f} ns, observe (a tail) "
+            f"{tails:.0f} ns, observe_many of 1,200 tails "
+            f"{many / 1e3:.1f} us, a 64-frag round's dwell sample "
+            f"{dwell / 1e3:.1f} us, an autopsy of six full rings "
+            f"{autopsy / 1e6:.1f} ms")
+
+
+def xray_phase(torch, card, bench, batch: int = B) -> None:
+    """Phase 13: fd_xray on the card. (x): (f) cut to the first XRAY_N
+    payloads of phase 9's corpus on rings XRAY_DEPTH deep (B = 8192,
+    inflight 4, the drain on, worker processes, flight and sentinel on
+    with XRAY_SENTINEL), four runs in turns with xray off, on, on, off
+    (pipeline_run's checks on each; an "on" run writes its autopsies
+    into a temporary directory and must pass xray_on_problems, an "off"
+    run must record no span, no queue row and no autopsy). Then one (l)
+    run (B = 32,768, rings 32,768 deep, the ladder's scheduler on, xray
+    on, the sentinel's defaults): the verify -> dedup edge's credit
+    stall, the verify tile's tile_heartbeat alerts and the autopsies'
+    first suspects, PERF.md's heartbeat question. Prints each run's
+    txn/s and p50/p99, the means on and off, the launches and the
+    phase's seconds."""
+    import tempfile
+
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.ops.dedup_filter import DEFAULT_FILTER_BITS
+
+    t0 = time.perf_counter()
+    # Both runs' primary engines and filters warm before the runs (phase
+    # 9's live reconfig may have left a fresh entry at LADDER_B): a warm
+    # inside a run would count its launches there.
+    for b in (batch, LADDER_B):
+        registry().acquire(EngineSpec("direct", b))[0].warm_drain(
+            DEFAULT_FILTER_BITS)
+    corpus = prefix_corpus(bench, XRAY_N)
+    traffic = pipe_traffic([], [], corpus)
+    n = len(traffic["payloads"])
+    tmp = tempfile.mkdtemp(prefix="xray_", dir=os.path.join(REPO, "build"))
+    runs = []
+    try:
+        say(f"xray (13) host cost a call: {xray_host_costs(tmp)} [{card}]")
+        for i, on in enumerate(XRAY_ARMS):
+            xdir = os.path.join(tmp, f"autopsies{i}")
+            res, launches = pipeline_run(
+                torch, card, f"xray (x) first {XRAY_N} payloads, xray "
+                f"{'on' if on else 'off'}", traffic, "greedy", batch,
+                depth=XRAY_DEPTH, wksp_sz=TILE_WKSP,
+                verify_opts=dict(FEED_OPTS), feed=True, feed_proc=True,
+                sentinel=dict(XRAY_SENTINEL),
+                xray={"dir": xdir} if on else False, live=xray_live)
+            if on:
+                problems = xray_on_problems(res, res.live, xdir, n)
+                say(f"  xray waterfall: {xray_waterfall_line(res)}")
+            else:
+                q = res.live["queue"]
+                problems = [f"xray off, yet {what}" for what, bad in (
+                    ("a summary", res.xray is not None),
+                    ("an autopsy", os.path.exists(xdir)),
+                    ("queue rows", any(r["dwell"]["n"] or r["stall_cnt"]
+                                       or r["depth_samples"] or r["idle_ns"]
+                                       for r in q.values()))) if bad]
+            if problems:
+                fail(f"xray run {i} ({'on' if on else 'off'}): "
+                     + "; ".join(problems))
+            say(f"  launches {launches}; sentinel alerts "
+                f"{[a['slo'] for a in (res.slo or {}).get('alerts', ())]}")
+            runs.append((on, res))
+
+        # (l-xray): the heartbeat question.
+        ldir = os.path.join(tmp, "autopsies_l")
+        lt = pipe_traffic([], [], bench)
+        res, launches = pipeline_run(
+            torch, card, f"xray (l-xray) ladder B={LADDER_B}, sched on, "
+            "xray on, worker processes", lt, "greedy", LADDER_B,
+            verify_opts=dict(FEED_OPTS, sched=True), feed=True,
+            feed_proc=True, xray={"dir": ldir})
+        halt, alerts = _autopsies(ldir)
+        if len(halt) != 1:
+            fail(f"xray (l-xray): {len(halt)} HALT autopsies")
+        q = halt[0]["queue"]
+        hb = [a.get("tiles", []) for a in res.slo["alerts"]
+              if a["slo"] == "tile_heartbeat"]
+        first = {a["reason"]: (a["suspects"] or [{}])[0].get("stage")
+                 for a in alerts}
+        vs = res.verify_stats[0]
+        say(f"xray (l-xray): verify -> dedup credit stall "
+            f"{q['verify_dedup']['stall_ns'] / 1e6:.1f} ms in "
+            f"{q['verify_dedup']['stall_cnt']} stalls (mean "
+            f"{q['verify_dedup']['stall_ns'] / max(1, q['verify_dedup']['stall_cnt']) / 1e6:.2f} ms); "
+            f"stall by edge (ms, count) " + ", ".join(
+                f"{e} {q[e]['stall_ns'] / 1e6:.1f}/{q[e]['stall_cnt']}"
+                for e in XRAY_LINKS)
+            + f"; tile_heartbeat alerts {len(hb)} (tiles {hb}); alert "
+            f"autopsies' first suspects {first}; HALT's first suspect "
+            f"{(halt[0]['suspects'] or [{}])[0]}; rung_hist "
+            f"{vs['rung_hist']}, batches {vs['batches']}; run "
+            f"{res.elapsed_s:.1f} s; launches {launches} [{card}]")
+        say(f"  xray (l-xray) waterfall: {xray_waterfall_line(res)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def line(r):
+        return (f"{n / r.span_s:.0f} txn/s p50 {r.latency_p50_ns / 1e6:.1f} "
+                f"p99 {r.latency_p99_ns / 1e6:.1f} ms")
+
+    say("xray (13) off/on in turns: " + "; ".join(
+        f"{'on' if on else 'off'} {line(r)}" for on, r in runs)
+        + f" [{card}]")
+    mean = {a: np.mean([n / r.span_s for on, r in runs if on == a])
+            for a in (False, True)}
+    say(f"xray (13): mean txn/s off {mean[False]:.0f}, on {mean[True]:.0f}"
+        f" (on/off {mean[True] / mean[False]:.3f}); the phase "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -4883,8 +5255,9 @@ def main() -> int:
     chaos_phase(torch, card, batch_b, direct_b)
     late_trace_probe(torch)
     flight_phase(torch, card, bench)
+    xray_phase(torch, card, bench)
 
-    # 13. Output.
+    # 14. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

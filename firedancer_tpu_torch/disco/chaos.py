@@ -147,6 +147,7 @@ class ChaosInjector:
 
     def __init__(self, seed: int = 0, schedule: str = ""):
         self.seed = seed
+        self.schedule_text = schedule or ""   # as given (the autopsies')
         self.schedule = parse_schedule(schedule or "")
         unported = sorted(set(self.schedule) - set(PORTED_CLASSES))
         if unported:

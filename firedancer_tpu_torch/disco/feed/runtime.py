@@ -46,6 +46,12 @@ HALT and on every raise before the workspace is left, and reads
 ``stage_hist``, ``slo`` and ``flight_tiles`` at the end
 (``pipeline.finish_flight_run``). ``verify_tile_stats`` is a view over
 the verify tile's flight lane.
+
+fd_xray (the JAX :545-568): the run installs its xray options (``xray=``,
+passed on to the workers with the sentinel's budgets), starts with this
+process's span rings emptied, and builds ``PipelineResult.xray`` and the
+HALT autopsy from this process's rings and the spans each worker's
+result file carries (the source's, and dedup's, pack's and the sink's).
 """
 
 from __future__ import annotations
@@ -233,7 +239,7 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       pack_scheduler: str = "greedy", device="cuda",
                       feed_proc: Optional[bool] = None, tile_hook=None,
                       tile_cpus: Optional[List[int]] = None, chaos=None,
-                      flight=None, sentinel=None):
+                      flight=None, sentinel=None, xray=None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
@@ -248,13 +254,17 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
     worker's tiles through its cpu_map option. chaos (None, a
     (seed, schedule) pair or a ChaosInjector) is armed for the run
     (disco.chaos.armed) and forces every tile into this process, so that
-    one injector books every site (the JAX :249-257). flight and sentinel
-    are the run's options (pipeline.run_pipeline). Raises on a tile
-    error, a worker's early exit and a timeout."""
+    one injector books every site (the JAX :249-257). flight, sentinel
+    and xray are the run's options (pipeline.run_pipeline). Raises on a
+    tile error, a worker's early exit and a timeout."""
     from .. import chaos as chaos_mod
     from .. import flight as flight_mod
+    from .. import xray as xray_mod
 
-    with flight_mod.configured(flight), chaos_mod.armed(chaos):
+    vopts = dict(verify_opts or {}, feed=True)
+    with flight_mod.configured(flight), \
+            xray_mod.configured(xray, sentinel, vopts), \
+            chaos_mod.armed(chaos):
         return _run_feed(topo, payloads, verify_backend, verify_batch,
                          verify_max_msg_len, bank_cnt, timeout_s,
                          tcache_depth, verify_opts, record_digests,
@@ -273,6 +283,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
     from .. import flight
     from .. import pipeline as pl
     from .. import sentinel as sentinel_mod
+    from .. import xray
     from ..monitor import snapshot
     from ..tiles import LatReservoir, VerifyTile, latencies_ns
 
@@ -284,6 +295,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         # armed injector's counters are this process's.
         use_proc = False
     mtu = topo.mtu
+    xray.reset_rings()
     wksp = Workspace.join(topo.wksp_path)
     flight.install_dump_signal(wksp)  # SIGUSR1 -> a live dump
     vopts = dict(verify_opts or {}, feed=True)
@@ -312,8 +324,11 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         for t in tiles:
             t.cpu_idx = cpu_map[t.name]
         opts["cpu_map"] = cpu_map
-    # The workers run under this run's flight options.
-    wopts = dict(opts, flight=flight.options().as_dict())
+    # The workers run under this run's flight and xray options (and the
+    # sentinel's budgets, their tail thresholds).
+    wopts = dict(opts, flight=flight.options().as_dict(),
+                 xray=xray.options().as_dict(),
+                 slo_budgets=dict(xray.sentinel_options().budgets))
 
     tile_max_ns = int((timeout_s + 30.0) * 1e9)
     errors: list = []
@@ -438,7 +453,8 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             with open(results["downstream"]) as f:
                 down = json.load(f)
             with open(results["replay"]) as f:
-                rep = json.load(f)["replay"]
+                rep_doc = json.load(f)
+            rep = rep_doc["replay"]
             replay_rec = SimpleNamespace(payloads=payloads,
                                          pub_ticks=rep["pub_ticks"])
             s = down["sink"]
@@ -457,7 +473,11 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
                            for k in ("dedup", "pack", "sink")}}
             pack_stats = down["pack"]["stats"]
             dedup_stats = down["dedup"]["stats"]
+            worker_spans = xray.merge_spans(
+                (down.get("xray") or {}).get("spans") or {},
+                (rep_doc.get("xray") or {}).get("spans"))
         else:
+            worker_spans = None
             replay_rec, sink_rec = replay, sink
             samples = {"replay_pub": replay.out_link.lat.samples(),
                        "dedup_pub": dedup.out_link.lat.samples(),
@@ -494,7 +514,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             stage_latency=stage_latency(
                 pub_ticks, {k: samples[k] for k in STAGES}),
         )
-        pl.finish_flight_run(wksp, res, slo)
+        pl.finish_flight_run(wksp, res, slo, extra_spans=worker_spans)
         res.proc_cpu_s["main"] = round(
             ru_self2.ru_utime + ru_self2.ru_stime - ru_self.ru_utime
             - ru_self.ru_stime, 6)

@@ -25,7 +25,8 @@ RECORDER  a ring of the last ``events`` events of each tile
           (dispatches, flush verdicts, breaker transitions,
           quarantines, restarts, reconfigs, chaos injections, HALT),
           dumped to JSON on a crash, at HALT and on SIGUSR1 when
-          ``dump_dir`` names a directory.
+          ``dump_dir`` names a directory; a dump also carries fd_xray's
+          exemplar spans and queue rows (``disco.xray``).
 
 The JAX flags are options here (``FlightOptions``: ``enabled`` the JAX
 ``FD_FLIGHT``, ``events`` ``FD_FLIGHT_EVENTS``, ``dump_dir``
@@ -793,8 +794,11 @@ def recorder(name: str):
 
 
 def dump(reason: str, wksp=None) -> dict:
-    """The postmortem: every recorder's ring, the compile records and,
-    given a workspace still joined, the registry's rows."""
+    """The postmortem: every recorder's ring, the compile records, the
+    fd_xray section (this process's exemplar spans and, given a
+    workspace still joined, its queue rows; the JAX :874-897) and, given
+    the workspace, the registry's rows. A reader that predates the xray
+    section ignores the key."""
     with _recorders_lock:
         recs = dict(_recorders)
     out: dict = {
@@ -807,12 +811,20 @@ def dump(reason: str, wksp=None) -> dict:
                       for name, r in sorted(recs.items())},
         "compiles": compile_records(),
     }
+    from . import xray  # xray imports this module
+
+    try:
+        out["xray"] = {"spans": xray.dump_spans()}
+    except Exception:  # noqa: BLE001 - the dump must not raise
+        pass
     # A left workspace's handle is None: reading it would crash.
     if wksp is not None and getattr(wksp, "_h", None):
         try:
             out["metrics"] = read_tiles(wksp)
             out["edges"] = read_edges(wksp)
             out["slos"] = read_slos(wksp)
+            if "xray" in out:
+                out["xray"]["queue"] = xray.read_queue(wksp)
         except Exception:  # noqa: BLE001 - the dump must not raise
             pass
     return out

@@ -10,11 +10,12 @@ records (``fdctl monitor`` reads it from the pod file), as the JAX one
 does; ``snapshot(wksp, tiles, links)`` takes the names instead
 (``pipeline.topology_tiles`` and ``topology_links``: the runners'
 form). Either form overlays the fd_flight registry as the JAX one does
-(:117-140): each tile's metric row as ``fl_<metric>`` in its
-``tile.<name>`` row, each edge's span summary as ``span.<edge>`` and
-each fd_sentinel SLO row as ``slo.<name>``; the FEEDER panel of
-``render`` shows the breaker and quarantine columns from them. The JAX
-fd_xray rows (``xq.*``) wait for fd_xray.
+(:117-154): each tile's metric row as ``fl_<metric>`` in its
+``tile.<name>`` row, each edge's span summary as ``span.<edge>``, each
+fd_sentinel SLO row as ``slo.<name>`` and each edge's fd_xray queue row
+as ``xq.<edge>`` (its dwell summary as ``dwell_*`` beside the stall,
+idle, depth and credit fields); the FEEDER panel of ``render`` shows the
+breaker and quarantine columns from them.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..tango.rings import (
     Workspace,
 )
 from ..utils.pod import Pod
-from . import flight
+from . import flight, xray
 from .tiles import (
     CNC_DIAG_BACKP_CNT,
     CNC_DIAG_HA_FILT_CNT,
@@ -117,7 +118,8 @@ def snapshot(wksp: Workspace, tiles: Union[Pod, Sequence[str]],
 
 def _flight_overlay(wksp: Workspace, out: dict) -> None:
     """The registry's rows into a snapshot (where the workspace has
-    them): metrics as fl_* into the tiles' rows, spans, SLO rows."""
+    them): metrics as fl_* into the tiles' rows, spans, SLO rows and the
+    xray queue rows."""
     for label, metrics in (flight.read_tiles(wksp) or {}).items():
         row = out.get(f"tile.{label}")
         if row is not None:
@@ -126,6 +128,11 @@ def _flight_overlay(wksp: Workspace, out: dict) -> None:
         out[f"span.{label}"] = summ
     for label, row in (flight.read_slos(wksp) or {}).items():
         out[f"slo.{label}"] = row
+    for label, row in (xray.read_queue(wksp) or {}).items():
+        d = dict(row)
+        dwell = d.pop("dwell", {}) or {}
+        d.update({f"dwell_{k}": v for k, v in dwell.items()})
+        out[f"xq.{label}"] = d
 
 
 def render(

@@ -36,6 +36,14 @@ run a ``Sentinel`` beside the tiles and stop it at quiescence, before
 HALT and before the workspace is left, on every path;
 ``finish_flight_run`` writes the HALT dump and the Prometheus text
 where the options name them and reads ``PipelineResult.stage_hist``.
+
+fd_xray (the JAX :128-131, :146-149, :232-236, :419-421): the workspace
+holds the ``xray.queue`` region (an rx and a tx row a span edge), both
+runners take ``xray`` options (``xray.XrayOptions`` or a bool; on by
+default, as the JAX FD_XRAY) and start with this process's span rings
+emptied, ``finish_flight_run`` writes the HALT autopsy where the options
+name a directory, and ``PipelineResult.xray`` is the run's summary
+(``xray.run_summary``; None with xray off).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from ..tango.rings import CNC_HALT, Cnc, DCache, FSeq, MCache, Workspace
 from ..utils.pod import Pod
 from . import flight
 from . import sentinel as sentinel_mod
+from . import xray as xray_mod
 from .feed.runtime import (
     LOGGER,
     latency_percentiles,
@@ -136,8 +145,8 @@ def build_topology(wksp_path: str, depth: int = 128, mtu: int = FD_TPU_MTU,
     ``firedancer.mtu``, ``firedancer.layout.verify_lane_cnt`` and
     ``firedancer.flight.schema``, under the JAX package's keys. The
     fd_flight regions follow (a row a tile, a span a topology_edges
-    edge, a row an SLO), as the JAX package lays them out; its fd_xray
-    region has no counterpart."""
+    edge, a row an SLO) and fd_xray's queue region (an rx and a tx row a
+    topology_edges edge), as the JAX package lays them out."""
     if verify_lanes < 1:
         raise ValueError(f"verify_lanes must be at least 1, got "
                          f"{verify_lanes}")
@@ -167,6 +176,7 @@ def build_topology(wksp_path: str, depth: int = 128, mtu: int = FD_TPU_MTU,
             pod.insert_cstr(f"firedancer.{tile}.cnc", f"{tile}.cnc")
         flight.create_regions(wksp, tiles, edges,
                               slo_labels=sentinel_mod.SLO_NAMES)
+        xray_mod.create_region(wksp, edges)
     finally:
         wksp.leave()
     pod.insert_ulong("firedancer.mtu", mtu)
@@ -177,7 +187,9 @@ def build_topology(wksp_path: str, depth: int = 128, mtu: int = FD_TPU_MTU,
 
 
 def in_link(wksp: Workspace, link: str) -> InLink:
-    return InLink(wksp, link_names(link))
+    """The consumer side of link, with the link's xray queue row (edge =
+    link)."""
+    return InLink(wksp, link_names(link), edge=link)
 
 
 def out_link(wksp: Workspace, link: str, mtu: int = FD_TPU_MTU) -> OutLink:
@@ -338,6 +350,10 @@ class PipelineResult:
     # CPU seconds of the run by process (the feed): "main", and with
     # worker processes "workers", theirs after they exited.
     proc_cpu_s: Dict[str, float] = field(default_factory=dict)
+    # fd_xray's run summary (xray.run_summary: exemplar counts by
+    # trigger, sampled traces, the slowest exemplars, the waterfall, the
+    # suspects); None with xray off.
+    xray: Optional[dict] = None
 
 
 def _pack_stats(pack: PackTile) -> Dict[str, object]:
@@ -361,13 +377,18 @@ def _dedup_stats(dedup: DedupTile) -> Dict[str, int]:
 
 
 def finish_flight_run(wksp: Workspace, res: "PipelineResult",
-                      slo_summary: Optional[dict] = None) -> None:
+                      slo_summary: Optional[dict] = None,
+                      extra_spans: Optional[dict] = None) -> None:
     """The end of a run, with the tiles halted and the sentinel stopped
-    (the JAX :138-158 less the xray autopsy): the HALT dump and the
-    Prometheus text where the run's flight options name them, and
-    res's stage_hist, slo and flight_tiles from the workspace."""
+    (the JAX :138-158, :419-421): the HALT dump, the HALT autopsy (with
+    the run's alerts and the worker processes' spans, extra_spans) and
+    the Prometheus text where the run's options name them, and res's
+    stage_hist, slo, flight_tiles and xray from the workspace."""
     opts = flight.options()
+    alerts = (slo_summary or {}).get("alerts")
     flight.maybe_dump("halt", wksp=wksp)
+    xray_mod.maybe_autopsy("halt", wksp=wksp, alerts=alerts,
+                           extra_spans=extra_spans)
     if opts.metrics_prom:
         try:
             with open(opts.metrics_prom, "w") as f:
@@ -377,6 +398,8 @@ def finish_flight_run(wksp: Workspace, res: "PipelineResult",
     res.stage_hist = flight.read_edges(wksp) or {}
     res.flight_tiles = flight.read_tiles(wksp) or {}
     res.slo = slo_summary
+    res.xray = xray_mod.run_summary(wksp, extra_spans=extra_spans,
+                                    alerts=alerts)
 
 
 def pin_tiles(tiles, tile_cpus: Optional[List[int]]) -> None:
@@ -481,7 +504,8 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
                  device="cuda", feed: Optional[bool] = None,
                  feed_proc: Optional[bool] = None,
                  tile_cpus: Optional[List[int]] = None,
-                 chaos=None, flight=None, sentinel=None) -> PipelineResult:
+                 chaos=None, flight=None, sentinel=None,
+                 xray=None) -> PipelineResult:
     """Replay-sourced pipeline: payloads -> verify -> dedup -> pack ->
     sink, over the topology's verify lanes (topo.pod). feed None or True
     runs the fd_feed runtime when it can serve the topology (feed_proc:
@@ -495,17 +519,19 @@ def run_pipeline(topo: Topology, payloads: List[bytes],
     a (seed, schedule) pair or a disco.chaos.ChaosInjector, is armed
     for the run in either runner (a pair gives a fresh injector, so the
     run replays its faults) and uninstalled when the run ends or raises;
-    the feed then runs every tile in process. flight and sentinel are
-    the run's fd_flight and fd_sentinel options (None: the flight
-    options in force and the sentinel's defaults, both on; a bool turns
-    one on or off; see the module docstring). Shutdown is by quiescence
+    the feed then runs every tile in process. flight, sentinel and xray
+    are the run's fd_flight, fd_sentinel and fd_xray options (None: the
+    flight and xray options in force and the sentinel's defaults, all
+    on; a bool turns one on or off; see the module docstring). Shutdown is by quiescence
     (source exhausted and every link drained); filtered frags never
     reach the sink, so the caller reads recv_cnt and the diag
     counters."""
     from . import chaos as chaos_mod
     from . import flight as flight_mod
 
-    with flight_mod.configured(flight), chaos_mod.armed(chaos) as inj:
+    with flight_mod.configured(flight), \
+            xray_mod.configured(xray, sentinel, verify_opts or {}), \
+            chaos_mod.armed(chaos) as inj:
         return _run_pipeline(topo, payloads, verify_backend, verify_batch,
                              verify_max_msg_len, bank_cnt, timeout_s,
                              tcache_depth, verify_opts, record_digests,
@@ -539,6 +565,7 @@ def _run_pipeline(topo, payloads, verify_backend, verify_batch,
         logging.getLogger(LOGGER).warning(
             "fd_feed cannot serve this topology, falling back to the "
             "in-process step loop: %s", reason)
+    xray_mod.reset_rings()
     wksp = Workspace.join(topo.wksp_path)
     flight.install_dump_signal(wksp)  # SIGUSR1 -> a live dump
     replay = build_tile(wksp, "replay", payloads=payloads, lanes=lanes)

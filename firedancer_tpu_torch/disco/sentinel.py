@@ -15,8 +15,11 @@ and that every running tile's cnc heartbeat moves
 (``tile_heartbeat``); the effectiveness SLO reads the drain's claim
 counters. Alerts go to the "sentinel" flight recorder, the shared
 ``flight.slo`` rows (``render_prom``'s ``fd_flight_slo_*``) and
-``PipelineResult.slo``. The runners stop the sentinel at quiescence,
-before HALT and before the workspace is left, on every path.
+``PipelineResult.slo``, and, where the run's xray options name a
+directory, each new alert asks fd_xray's flusher thread for an autopsy
+(``xray.flusher_for_run``; the poll only enqueues). The runners stop the
+sentinel, and with it the flusher, at quiescence, before HALT and before
+the workspace is left, on every path.
 
 Three rows have no source in the port yet and report no data, as the
 JAX ones do on traffic that lacks them: ``quic_ingest_p99`` (no QUIC
@@ -350,6 +353,12 @@ class Sentinel:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._stopped = False
+        # fd_xray's alert autopsies (the JAX :464-470), written on a
+        # thread of their own; None unless the xray options name a
+        # directory. Imported here: xray imports this module.
+        from . import xray
+
+        self._xray_flusher = xray.flusher_for_run(wksp)
 
     @staticmethod
     def _make_pod_tiles_fn(wksp, pod):
@@ -592,6 +601,9 @@ class Sentinel:
                     }
                     self.alerts.append(alert)
                     self.rec.record("slo_alert", **alert)
+                    if self._xray_flusher is not None:
+                        self._xray_flusher.request(f"slo:{slo.name}",
+                                                   [alert])
             elif st.alerting:
                 st.alerting = False
                 self.rec.record("slo_clear", slo=slo.name,
@@ -623,13 +635,16 @@ class Sentinel:
         return self
 
     def alive(self) -> bool:
-        """The poller thread exists and has not exited: while it lives
-        the runner must not leave the workspace."""
-        return self._thread is not None and self._thread.is_alive()
+        """The poller thread or the autopsy flusher exists and has not
+        exited: while either lives the runner must not leave the
+        workspace."""
+        return (self._thread is not None and self._thread.is_alive()) or (
+            self._xray_flusher is not None and self._xray_flusher.alive())
 
     def stop(self) -> dict:
         """Stop the poller (idempotent), run a last pass once its thread
-        is gone, return the summary (PipelineResult.slo)."""
+        is gone, then write the queued autopsies and stop the flusher;
+        return the summary (PipelineResult.slo)."""
         if not self._stopped:
             self._stop.set()
             if self._thread is not None:
@@ -639,6 +654,8 @@ class Sentinel:
                     self.poll()
                 except Exception:  # noqa: BLE001 - the summary stands
                     pass
+            if self._xray_flusher is not None:
+                self._xray_flusher.stop()
             self._stopped = True
         return self.summary()
 

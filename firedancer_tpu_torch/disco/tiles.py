@@ -147,7 +147,7 @@ from ..tango.tcache import TCache
 from ..utils.rng import Rng
 from . import chaos
 from . import engine as fd_engine
-from . import flight
+from . import flight, xray
 from .drain import (
     CTL_BLOCK_MASK,
     CTL_NOVEL,
@@ -207,8 +207,6 @@ BREAKER_THRESHOLD = 3
 BREAKER_COOLDOWN_MS = 100
 
 _U64 = (1 << 64) - 1
-# A ring dwell from a 32-bit stamp at or past this is a wrap artifact.
-DWELL_WRAP_NS = 4_000_000_000
 # The keys of a live reconfig request (VerifyTile.request_reconfig): the
 # JAX request's FD_FRONTEND_IMPL and FD_DRAIN flips are the port's
 # frontend and drain; its decompress flip has no counterpart.
@@ -319,23 +317,49 @@ class LinkNames:
 
 
 class InLink:
-    """Consumer side of a link; resumes from the published fseq."""
+    """Consumer side of a link; resumes from the published fseq. Given an
+    edge name, with xray on, its consumer's queue row (``xq``): a dwell
+    (the producer's tspub to the drain) every ``queue_sample``th drained
+    frag, the ring's depth and the consumer's idle ns."""
 
-    def __init__(self, wksp: Workspace, names: LinkNames):
+    def __init__(self, wksp: Workspace, names: LinkNames,
+                 edge: Optional[str] = None):
         self.mcache = MCache(wksp, names.mcache)
         self.dcache = DCache(wksp, names.dcache)
         self.fseq = FSeq(wksp, names.fseq)
         self.seq = self.fseq.query()
+        self.xq: Optional[xray.EdgeRx] = (
+            xray.edge_rx(wksp, edge) if edge else None)
+        self.xq_cnt = 0
+        # At least 1: the stride is a modulus on the drain path.
+        self.xq_every = (max(1, xray.options().queue_sample)
+                         if self.xq is not None else 0)
 
     def housekeep(self) -> None:
         self.fseq.update(self.seq)
+
+    def dwell_round(self, tspubs: np.ndarray, n: int) -> None:
+        """The sampled dwells of a drained round of n frags (their tspub
+        stamps): every xq_every-th frag of the link's stream (a round of
+        at most Tile.BULK_FRAGS holds a few); a frag without a stamp is
+        skipped. A round with none due costs a modulus."""
+        first = (-self.xq_cnt - 1) % self.xq_every
+        self.xq_cnt += n
+        if first >= n:
+            return
+        now32 = tempo.tickcount() & 0xFFFFFFFF
+        for ts in tspubs[first:n:self.xq_every].tolist():
+            if ts:
+                self.xq.observe_dwell((now32 - ts) & 0xFFFFFFFF)
 
 
 class OutLink:
     """Producer side: dcache chunk walk, mcache publish, credit control.
     Given an edge name, with flight on, every publish of a stamped frag
     observes (tspub - tsorig) & 0xFFFFFFFF into the edge's span
-    histogram (``span``)."""
+    histogram (``span``) and, with xray on, its exemplar sampler
+    (``xspan``); the producer's queue row (``xq_tx``) books its credit
+    stalls and credits."""
 
     def __init__(self, wksp: Workspace, names: LinkNames,
                  mtu: int = FD_TPU_MTU,
@@ -359,26 +383,43 @@ class OutLink:
         self.lat: Optional[LatReservoir] = None
         # The edge's always-on span histogram; None keeps none.
         self.span: Optional[flight.EdgeHist] = flight.span(wksp, edge)
+        # fd_xray's exemplar sampler and queue row; None with xray off.
+        self.xspan: Optional[xray.SpanCtx] = (
+            xray.span_ctx(edge) if edge else None)
+        self.xq_tx: Optional[xray.EdgeTx] = (
+            xray.edge_tx(wksp, edge) if edge else None)
 
     def lat_sample(self, tsorig: int, now: int) -> None:
-        """One stamped frag published at tick now: its span and its
-        reservoir sample."""
+        """One stamped frag published at tick now: its span, its exemplar
+        capture and its reservoir sample."""
+        lat = (now - tsorig) & 0xFFFFFFFF
         if self.span is not None:
-            self.span.observe((now - tsorig) & 0xFFFFFFFF)
+            self.span.observe(lat)
+        if self.xspan is not None:
+            self.xspan.observe(tsorig, now & 0xFFFFFFFF, lat)
         if self.lat is not None:
             self.lat.add(tsorig, now)
 
     def lat_sample_many(self, ts: np.ndarray, now: int) -> None:
         """The frags of a bulk publish at tick now (uint32 stamps; 0,
-        unstamped, skipped): one vectorised span update."""
+        unstamped, skipped): one vectorised span update and one exemplar
+        mask."""
         ts = ts[ts != 0]
         if not len(ts):
             return
-        if self.span is not None:
-            self.span.observe_many(
-                ((now & 0xFFFFFFFF) - ts.astype(np.int64)) & 0xFFFFFFFF)
+        if self.span is not None or self.xspan is not None:
+            lats = ((now & 0xFFFFFFFF) - ts.astype(np.int64)) & 0xFFFFFFFF
+            if self.span is not None:
+                self.span.observe_many(lats)
+            if self.xspan is not None:
+                self.xspan.observe_many(ts, lats)
         if self.lat is not None:
             self.lat.add_many(ts, now)
+
+    def stall_since(self, t_stall: int) -> None:
+        """Book a credit stall that began at tick t_stall (0: none)."""
+        if t_stall and self.xq_tx is not None:
+            self.xq_tx.add_stall(tempo.tickcount() - t_stall)
 
     def housekeep(self) -> None:
         self.cr_avail = self.fctl.tx_cr_update(self.cr_avail, self.seq)
@@ -456,6 +497,10 @@ class Tile:
         self._bulk: dict = {}
         if self.in_links:
             rings.require_drain()
+        # fd_xray: ns of idle naps, flushed to the first in-edge's queue
+        # row at housekeeping (this thread writes the row).
+        self._xq_idle_ns = 0
+        self._xq_on = any(il.xq is not None for il in self.in_links)
 
     # -- overridables ----------------------------------------------------
 
@@ -532,6 +577,8 @@ class Tile:
                 overrun = True
             if n > 0:
                 self.in_cur = il
+                if il.xq is not None:
+                    il.dwell_round(st["tspubs"], n)
                 self.on_round(il, st, n)
                 progressed = True
             il.seq = seq.value
@@ -554,16 +601,36 @@ class Tile:
         """Out-link credit refresh and the backpressure gauge."""
         if self.out_link:
             self.out_link.housekeep()
+            if self.out_link.xq_tx is not None:
+                self.out_link.xq_tx.sample_credits(self.out_link.cr_avail)
             backp = 1 if self.out_link.fctl.in_backpressure else 0
             if backp != self._last_in_backp:
                 self.cnc.diag_add(CNC_DIAG_IN_BACKP,
                                   (backp - self._last_in_backp) & _U64)
                 self._last_in_backp = backp
 
+    def _xq_housekeep(self) -> None:
+        """fd_xray's queue rows at housekeeping: each in-edge's ring depth
+        and the idle ns into the first. The tile's own thread drains its
+        in-links, so it is the rows' one writer (the verify tile's
+        housekeep skips this: its drain books them)."""
+        if not self._xq_on:
+            return
+        first = True
+        for il in self.in_links:
+            if il.xq is None:
+                continue
+            il.xq.sample_depth(il.mcache.seq_next() - il.seq)
+            if first and self._xq_idle_ns:
+                il.xq.add_idle(self._xq_idle_ns)
+                self._xq_idle_ns = 0
+                first = False
+
     def housekeep(self, now: int) -> None:
         self.cnc.heartbeat(now)
         for il in self.in_links:
             il.housekeep()
+        self._xq_housekeep()
         self._housekeep_out()
         self.on_housekeep()
 
@@ -595,6 +662,7 @@ class Tile:
             # (written when the run's flight options name a directory).
             self.flightrec.record("crash", err=repr(e)[:200])
             flight.maybe_dump(f"crash:{self.flight_label}", wksp=self.wksp)
+            xray.maybe_autopsy(f"crash:{self.flight_label}", wksp=self.wksp)
             raise
         finally:
             try:
@@ -640,17 +708,24 @@ class Tile:
                 pause = self.idle_sleep(idle_spins)
                 if pause:
                     time.sleep(pause)
+                    if self._xq_on:
+                        self._xq_idle_ns += int(pause * 1e9)
 
     def publish_backp(self, payload: bytes, sig: int, tsorig: int = 0,
                       count_diag: bool = True) -> bool:
         """Publish downstream, spinning through backpressure (counted in
-        the BACKP diag) until credits arrive or HALT. False when HALT
-        came first and the frag was dropped."""
+        the BACKP diag, its wall time in the out-edge's xray stall) until
+        credits arrive or HALT. False when HALT came first and the frag
+        was dropped."""
+        t_stall = 0
         while not self.out_link.can_publish():
             if self.cnc.signal_query() == CNC_HALT:
                 return False
+            if not t_stall:
+                t_stall = tempo.tickcount()
             self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
             time.sleep(20e-6)
+        self.out_link.stall_since(t_stall)
         self.out_link.publish(payload, sig, tsorig=tsorig)
         if count_diag and self.in_cur is not None:
             self.in_cur.fseq.diag_add(DIAG_PUB_CNT, 1)
@@ -710,9 +785,12 @@ class ReplayTile(Tile):
     def step(self) -> None:
         lane = self.out_links[self.pos % len(self.out_links)]
         c = chaos.active()
-        # An injected credit starvation backs off as a refused publish.
+        # An injected credit starvation backs off as a refused publish; the
+        # backoff is a 20 us credit stall on the lane's xray row.
         if (c is not None and c.source_starved()) or not lane.can_publish():
             self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
+            if lane.xq_tx is not None:
+                lane.xq_tx.add_stall(20_000)
             time.sleep(20e-6)
             return
         if c is not None:
@@ -901,6 +979,15 @@ class VerifyTile(Tile):
         # The tile's flight lane: every dispatch and healing counter of
         # TILE_METRICS (the stat_* properties read it).
         self.fl = flight.tile_lane(wksp, self.flight_label)
+        # fd_xray (the JAX :976-983): the tile's ring of batch-context
+        # exemplars (each head-sampled txn of a dispatched batch) and
+        # trigger events (quarantine, breaker, CTL_ERR), and the sampling
+        # threshold. The in-edge's queue row is booked where the ring is
+        # drained (the stager in feed mode), not at housekeeping.
+        self._xr_on = xray.enabled()
+        self.xr = xray.ring(f"tile:{self.flight_label}")
+        self._xr_thr = xray.sample_threshold() if self._xr_on else 0
+        self._xq_on = False
         self.backend = backend
         self.batch = batch
         self.max_msg_len = max_msg_len
@@ -1024,6 +1111,48 @@ class VerifyTile(Tile):
             self.flightrec.record("flush", verdict=verdict, lanes=lanes)
         self.flightrec.record("dispatch", lanes=lanes, **ev)
 
+    def _xr_engine(self) -> str:
+        spec = self._engine_spec
+        return spec.key if spec is not None else self.backend
+
+    def _xr_batch(self, tsorigs, n: int, verdict: str, device: bool,
+                  slot_idx=None, rung=None) -> None:
+        """fd_xray's batch context (the JAX _xr_batch:1220): a span for
+        each head-sampled txn of a dispatched batch (at most 16), with the
+        batch's ordinal, the engine's key, the flush verdict, whether the
+        card ran it, and the slot and rung of a feed batch. One
+        vectorised hash a batch."""
+        if not self._xr_on or n <= 0:
+            return
+        ids = np.asarray(tsorigs[:n], np.uint64)
+        idxs = np.nonzero(xray.sampled_mask(ids, self._xr_thr))[0]
+        if idxs.size == 0:
+            return
+        now = tempo.tickcount() & 0xFFFFFFFF
+        extra = {"batch": self.stat_batches, "engine": self._xr_engine(),
+                 "verdict": verdict, "device": device}
+        if slot_idx is not None:
+            extra["slot"] = slot_idx
+        if rung is not None:
+            extra["rung"] = rung
+            extra["rung_target"] = self._rung_last
+        for i in idxs[:16]:
+            t = int(ids[i])
+            self.xr.record(t, t, now, "head", dict(extra))
+
+    def _xr_trigger(self, trigger: str, tsorigs=None, **extra) -> None:
+        """fd_xray's trigger event (quarantine, breaker, ctl_err; the JAX
+        _xr_trigger:1270), with up to 8 of the trace ids it touched."""
+        if not self._xr_on:
+            return
+        ids = []
+        if tsorigs is not None:
+            ids = [int(t) for t in np.asarray(tsorigs).ravel()[:8]]
+        now = tempo.tickcount() & 0xFFFFFFFF
+        first = ids[0] if ids else 0
+        self.xr.record(first, first, now, trigger,
+                       dict(extra, traces=ids, engine=self._xr_engine()))
+
     def _account_compile(self, entry) -> None:
         """Book an engine warm this tile paid into its lane (the JAX
         _account_compile:1285): count, wall ns and build cache hits."""
@@ -1053,6 +1182,8 @@ class VerifyTile(Tile):
             if cur != self._breaker_pub and self._breaker_pub[0] is not None:
                 self.flightrec.record("breaker", state=b.state,
                                       trips=b.trips, reprobes=b.reprobes)
+                self._xr_trigger("breaker", state=b.state, trips=b.trips,
+                                 reprobes=b.reprobes)
             self._breaker_pub = cur
         fl.publish()
 
@@ -1104,6 +1235,7 @@ class VerifyTile(Tile):
         if d[6]:
             self.fl.inc("ctl_err_drop", int(d[6]))
             self.flightrec.record("ctl_err_drop", n=int(d[6]))
+            self._xr_trigger("ctl_err", n=int(d[6]))
             self.cnc.diag_add(CNC_DIAG_SV_FILT_CNT, int(d[6]))
             self.cnc.diag_add(CNC_DIAG_SV_FILT_SZ, int(d[7]))
             if c is not None:
@@ -1128,6 +1260,8 @@ class VerifyTile(Tile):
             return False, False
         lane0 = self._pending_lanes
         mtu = self.max_msg_len
+        if il.xq is not None:
+            il.xq.sample_depth(il.mcache.seq_next() - il.seq)
         seq = ctypes.c_uint64(il.seq)
         ptr = self._nd_ptr
         n = self._nd_lib.fd_verify_drain(
@@ -1148,6 +1282,10 @@ class VerifyTile(Tile):
             return False, overrun
         if not self._pending:
             self._pending_since = tempo.tickcount()
+        if il.xq is not None:
+            # The round's oldest frag's ring dwell (as the stager books).
+            il.xq.observe_dwell(xray.dwell32(tempo.tickcount(),
+                                             int(self._nd_tspub[0])))
         drain_end = seq.value
         base = self._nd_pay_fill
         for i in range(n):
@@ -1216,6 +1354,9 @@ class VerifyTile(Tile):
             out=out, todo=self._pending, t_dispatch=tempo.tickcount(),
             entry=self._engine_entry))
         self._book_batch(lanes, verdict, device=True)
+        if self._xr_on:
+            self._xr_batch([t[2] for t in self._pending], len(self._pending),
+                           verdict, True)
         self._pending = []
         self._pending_lanes = 0
         self._nd_pay_fill = 0
@@ -1405,6 +1546,10 @@ class VerifyTile(Tile):
         if c is not None:
             c.stager_round_hook()
             c.overrun_rewind(il)
+        if il.xq is not None:
+            # The stager is the in-edge row's one writer (the JAX
+            # :1767-1773): the depth a round, the dwell below.
+            il.xq.sample_depth(il.mcache.seq_next() - il.seq)
         k0 = slot.n_txn
         mtu = self.max_msg_len
         seq = ctypes.c_uint64(il.seq)
@@ -1436,12 +1581,15 @@ class VerifyTile(Tile):
         if k0 == 0:
             slot.t_first = now  # the deadline's anchor
         self.drain_lat.add_many(slot.tsorigs[k0:k0 + n], now)
-        if self._dwell_span is not None:
-            # A 32-bit stamp's dwell is exact below 2^32 ns; past 4 s it
-            # is taken as a wrap and not booked (the JAX xray.dwell32).
-            dwell = (now - int(slot.tspubs[k0])) & 0xFFFFFFFF
-            if dwell < DWELL_WRAP_NS:
+        # The ring dwell of the round's oldest frag, the verify_drain span
+        # and the in-edge's xray dwell: exact below 2^32 ns, a wrap
+        # artifact past 4 s (xray.dwell32).
+        dwell = xray.dwell32(now, int(slot.tspubs[k0]))
+        if dwell >= 0:
+            if self._dwell_span is not None:
                 self._dwell_span.observe(dwell)
+            if il.xq is not None:
+                il.xq.observe_dwell(dwell)
         # The round's offsets are relative to its base: make them
         # absolute, so the completion publishes every round at once.
         slot.offs[k0:k0 + n] += slot.pay_fill
@@ -1622,6 +1770,9 @@ class VerifyTile(Tile):
         if self.rung_sched is not None:
             ev["b"] = rung
         self._book_batch(slot.n_lane, slot.flush_verdict, **ev)
+        self._xr_batch(slot.tsorigs, slot.n_txn, slot.flush_verdict,
+                       entry is not None, slot_idx=slot.idx,
+                       rung=rung if self.rung_sched is not None else None)
 
     def _feed_poll(self):
         """The dispatcher's round (poll_inputs in feed mode): supervise
@@ -1723,11 +1874,15 @@ class VerifyTile(Tile):
         now = tempo.tickcount()
         published = novel_pub = maybe_pub = 0
         while published < n_ok:
+            t_stall = 0
             while not ol.can_publish():
                 if self.cnc.signal_query() == CNC_HALT:
                     break
+                if not t_stall:
+                    t_stall = tempo.tickcount()
                 self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
                 time.sleep(20e-6)
+            ol.stall_since(t_stall)
             if ol.cr_avail <= 0:
                 break
             cur0 = cursor.value
@@ -1763,7 +1918,7 @@ class VerifyTile(Tile):
         il = self.in_link
         il.fseq.diag_add(DIAG_PUB_CNT, published)
         il.fseq.diag_add(DIAG_PUB_SZ, int(bytes_out[0]))
-        # The span of every frag published, one vectorised update.
+        # The span and the exemplars of every frag published, at once.
         ol.lat_sample_many(slot.tsorigs[:n][ok][:published], now)
         return slot.drain_end
 
@@ -1906,6 +2061,7 @@ class VerifyTile(Tile):
         if frag.ctl & CTL_ERR:
             self.fl.inc("ctl_err_drop")
             self.flightrec.record("ctl_err_drop", n=1)
+            self._xr_trigger("ctl_err", tsorigs=[frag.tsorig], n=1)
             self._filter(frag, payload, CNC_DIAG_SV_FILT_CNT,
                          CNC_DIAG_SV_FILT_SZ)
             return
@@ -1959,9 +2115,10 @@ class VerifyTile(Tile):
                 out=out, todo=todo, t_dispatch=tempo.tickcount(),
                 entry=self._engine_entry))
             # A batch cut because the next txn does not fit is full.
-            self._book_batch(len(flat), FLUSH_FULL
-                             if self._pending_lanes >= self.batch
-                             else verdict, device=True)
+            cut = FLUSH_FULL if self._pending_lanes >= self.batch else verdict
+            self._book_batch(len(flat), cut, device=True)
+            if self._xr_on:
+                self._xr_batch([t[2] for t in todo], len(todo), cut, True)
             del self._pending[:take]
             self._pending_lanes -= len(flat)
             if self._pending:
@@ -2100,6 +2257,11 @@ class VerifyTile(Tile):
             if quarantined:
                 self.fl.inc("quarantined")
                 self.flightrec.record("quarantine", err=repr(err)[:120])
+                if self._xr_on:
+                    ids = (ib.slot.tsorigs[:ib.slot.n_txn]
+                           if ib.slot is not None
+                           else [t[2] for t in ib.todo])
+                    self._xr_trigger("quarantine", ids, err=repr(err)[:80])
                 logging.getLogger(LOGGER).warning(
                     "verify batch quarantined, re-verified on the CPU lane "
                     "(%r)", err)
@@ -2233,11 +2395,15 @@ class VerifyTile(Tile):
         downstream as a CTL_ERR frag, which the dedup tile counts and
         drops before its tcache, under publish_backp's backpressure and
         HALT rules."""
+        t_stall = 0
         while not self.out_link.can_publish():
             if self.cnc.signal_query() == CNC_HALT:
                 return
+            if not t_stall:
+                t_stall = tempo.tickcount()
             self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
             time.sleep(20e-6)
+        self.out_link.stall_since(t_stall)
         self.out_link.publish(payload, sig, ctl=CTL_SOM_EOM | CTL_ERR)
         self.fl.inc("quarantine_err_txn")
 
@@ -2346,11 +2512,15 @@ class DedupTile(Tile):
         while published < n_ok:
             # publish_backp's flow control (spin through backpressure,
             # drop the rest on HALT), paid once a credit window.
+            t_stall = 0
             while not ol.can_publish():
                 if self.cnc.signal_query() == CNC_HALT:
                     break
+                if not t_stall:
+                    t_stall = tempo.tickcount()
                 self.cnc.diag_add(CNC_DIAG_BACKP_CNT, 1)
                 time.sleep(20e-6)
+            ol.stall_since(t_stall)
             if ol.cr_avail <= 0:
                 break
             pub = rings.lib().fd_frag_publish_bulk_ctl(
@@ -2670,8 +2840,10 @@ class SinkTile(Tile):
         self.recv_tsorig: list = []
         self.recv_ticks: list = []
         self.t_last = 0
-        # The end-to-end span (source stamp -> receipt), the sink edge.
+        # The end-to-end span (source stamp -> receipt), the sink edge,
+        # and its exemplar sampler, which closes each sampled txn's chain.
         self._e2e_span = flight.span(wksp, "sink")
+        self._xr_ctx: Optional[xray.SpanCtx] = xray.span_ctx("sink")
 
     def on_frag(self, frag: Frag, payload: bytes) -> None:
         self.recv_cnt += 1
@@ -2680,8 +2852,12 @@ class SinkTile(Tile):
         self.bank_hist[bank] = self.bank_hist.get(bank, 0) + 1
         now = tempo.tickcount()
         self.t_last = now
-        if frag.tsorig and self._e2e_span is not None:
-            self._e2e_span.observe((now - frag.tsorig) & 0xFFFFFFFF)
+        if frag.tsorig:
+            lat = (now - frag.tsorig) & 0xFFFFFFFF
+            if self._e2e_span is not None:
+                self._e2e_span.observe(lat)
+            if self._xr_ctx is not None:
+                self._xr_ctx.observe(frag.tsorig, now & 0xFFFFFFFF, lat)
         if self.record_digests:
             self.digests.append(_sha256(payload).digest())
             self.recv_tsorig.append(frag.tsorig)

@@ -26,13 +26,21 @@ reads the end-to-end latency and stage_latency from them.
 Options (``--opts``): mtu, tcache_depth, bank_cnt, pack_scheduler,
 record_digests, cpu_map (a core by tile name to pin it to), flight (the
 run's ``flight.FlightOptions`` fields, installed for the worker's life),
-and for the replay payloads_path (a pickled list of payloads).
+xray (``xray.XrayOptions`` fields) and slo_budgets (the run's
+``SentinelOptions.budgets``), and for the replay payloads_path (a
+pickled list of payloads).
 
 fd_flight (the JAX :200-202, :289-294): the tiles attach their rows of
 the workspace's registry by label (their lanes and spans land in the
 main process's view), the worker installs the SIGUSR1 dump and, after a
 clean HALT, writes a ``halt:worker:<tiles>`` dump where the options name
 a directory.
+
+fd_xray (the JAX :314-342): the worker installs the run's xray options
+(``xray``, with the sentinel's ``slo_budgets`` for the tail thresholds)
+for its life; its tiles' queue rows are the workspace's, and its span
+rings, which are this process's, go home in the result file's ``xray``
+section and ride in its HALT dump.
 """
 
 from __future__ import annotations
@@ -56,7 +64,8 @@ def build_tile(wksp, name: str, opts: dict):
     from firedancer_tpu_torch.disco.tiles import LatReservoir
 
     opts = dict(opts)
-    opts.pop("flight", None)
+    for k in ("flight", "xray", "slo_budgets"):
+        opts.pop(k, None)
     payloads = ()
     cpu = opts.pop("cpu_map", {}).get(name)
     path = opts.pop("payloads_path", None)
@@ -106,11 +115,13 @@ def main(argv=None) -> int:
     names = [t for t in args.tile.split(",") if t]
     opts = json.loads(args.opts)
 
-    from firedancer_tpu_torch.disco import flight
+    from firedancer_tpu_torch.disco import flight, xray
     from firedancer_tpu_torch.tango import tempo
     from firedancer_tpu_torch.tango.rings import CNC_HALT, Cnc, Workspace
 
     flight.configure(opts.get("flight"))
+    xray.configure(opts.get("xray"),
+                   {"budgets": opts.get("slo_budgets") or {}})
     wksp = Workspace.join(args.wksp)
     flight.install_dump_signal(wksp)
     cncs = [Cnc(wksp, f"{t}.cnc") for t in names]
@@ -160,6 +171,7 @@ def main(argv=None) -> int:
     flight.maybe_dump(f"halt:worker:{args.tile}", wksp=wksp)
     if args.result:
         out = {name: tile_result(name, t) for name, t in zip(names, tiles)}
+        out["xray"] = {"spans": xray.dump_spans()}
         with open(args.result, "w") as f:
             json.dump(out, f)
     wksp.leave()

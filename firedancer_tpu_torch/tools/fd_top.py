@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """fd_top: a live view of a running pipeline's fd_flight registry, the
-counterpart of ``scripts/fd_top.py`` (without its fd_xray panel).
+counterpart of ``scripts/fd_top.py``.
 
     python3 firedancer_tpu_torch/tools/fd_top.py --wksp RUN.wksp \\
         --pod TOPO.pod [--interval 1.0] [--iterations 0] [--prom] \\
@@ -10,7 +10,10 @@ It joins the workspace of a running pipeline by its pod (the file
 ``fdctl configure init`` writes, or ``Topology.pod.serialize()``) and
 prints, every interval, the monitor's TILE, FEEDER and LINK panels
 (``disco.monitor.render``), then the SPAN panel (each edge's always-on
-log2 histogram: n and the p50/p99 upper bucket bounds), the SLO panel
+log2 histogram: n and the p50/p99 upper bucket bounds), the XRAY panel
+(fd_xray's queue row of each edge: the sampled dwell's p50/p99 bounds
+and count, the ring's mean depth, the producer's credit-stall ms, the
+consumer's idle ms and the mean available credits), the SLO panel
 (each fd_sentinel SLO's state, evaluations, alerts, breach polls and
 burn) and the VERIFY panel (the verify tiles' rows, the warm
 accounting among them). ``--iterations 0`` runs until interrupted.
@@ -41,8 +44,8 @@ def _fmt_ns(ns: int) -> str:
 
 
 def render_flight(snap: dict, ansi: bool = True) -> str:
-    """The SPAN, SLO and VERIFY panels of a monitor.snapshot(), the JAX
-    fd_top's text."""
+    """The SPAN, XRAY, SLO and VERIFY panels of a monitor.snapshot(), the
+    JAX fd_top's text."""
     bold = "\x1b[1m" if ansi else ""
     rst = "\x1b[0m" if ansi else ""
     lines = []
@@ -55,6 +58,24 @@ def render_flight(snap: dict, ansi: bool = True) -> str:
             lines.append(
                 f"{name:<16}{d['n']:>10}"
                 f"{_fmt_ns(d['p50_ns_le']):>12}{_fmt_ns(d['p99_ns_le']):>12}")
+    xqs = [(k[3:], d) for k, d in sorted(snap.items())
+           if k.startswith("xq.")]
+    if xqs:
+        lines.append("")
+        lines.append(
+            f"{bold}{'XRAY edge':<16}{'q-p50<=':>10}{'q-p99<=':>10}"
+            f"{'q-n':>8}{'depth':>7}{'stall-ms':>10}{'idle-ms':>9}"
+            f"{'cr-avg':>8}{rst}")
+        for name, d in xqs:
+            lines.append(
+                f"{name:<16}"
+                f"{_fmt_ns(d.get('dwell_p50_ns_le', 0)):>10}"
+                f"{_fmt_ns(d.get('dwell_p99_ns_le', 0)):>10}"
+                f"{d.get('dwell_n', 0):>8}"
+                f"{d.get('depth_avg', 0.0):>7}"
+                f"{d.get('stall_ns', 0) / 1e6:>10.1f}"
+                f"{d.get('idle_ns', 0) / 1e6:>9.1f}"
+                f"{d.get('cr_avail_avg', 0.0):>8}")
     slos = [(k[4:], d) for k, d in sorted(snap.items())
             if k.startswith("slo.")]
     if slos:

@@ -285,11 +285,13 @@ def test_snapshot_names_every_tile_and_link(tmp_path):
     w = prings.Workspace.join(topo.wksp_path)
     snap = pmonitor.snapshot(w, ppipe.TILES, ppipe.LINKS)
     w.leave()
-    # The flight registry's overlay: its spans and SLO rows beside them.
+    # The flight registry's overlay: its spans, SLO rows and the xray
+    # queue rows beside them.
     assert set(snap) == ({f"tile.{t}" for t in ppipe.TILES}
                          | {f"link.{k}" for k in ppipe.LINKS}
                          | {f"span.{e}" for e in ppipe.topology_edges()}
-                         | {f"slo.{n}" for n in psentinel.SLO_NAMES})
+                         | {f"slo.{n}" for n in psentinel.SLO_NAMES}
+                         | {f"xq.{e}" for e in ppipe.topology_edges()})
     assert all(v == 0 for row in snap.values() for v in row.values())
 
 

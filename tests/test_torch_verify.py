@@ -275,6 +275,24 @@ def test_port_scan_reaches_the_flight_modules():
                     f"{rel} reads the environment")
 
 
+XRAY_MODULES = ("firedancer_tpu_torch/disco/xray.py",
+                "firedancer_tpu_torch/tools/fd_xray.py",
+                "firedancer_tpu_torch/tools/fd_report.py")
+
+
+def test_port_scan_reaches_the_xray_modules():
+    """The scan covers fd_xray and its two tools, and none of them reads
+    the environment: their flags are options."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert set(XRAY_MODULES) <= names
+    for rel in XRAY_MODULES:
+        tree = ast.parse((ROOT / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("environ", "getenv", "environb"), (
+                    f"{rel} reads the environment")
+
+
 def test_port_scan_reaches_the_app_and_utils_modules():
     """The scan covers the operator entry point and the utilities it
     copied from the JAX package."""
