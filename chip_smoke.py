@@ -354,7 +354,31 @@ Phases, each fatal on failure (exit code != 0, no result line):
    suspects. Prints each run's txn/s and p50/p99, the means on and off,
    the launches and the phase's seconds, beside the card's name and
    power limit.
-14. Output: the card line, one JSON line of per-kernel numbers, and the
+14. Soak: scripts/soak_smoke.py on the card through disco.soak.run_soak.
+   The plan build_plan(seed=23, n_phases=4, phase_s=10, rate=450) (the
+   drift rotation arms hb_stall in phase 1 and credit_starve in phase 3)
+   signed on the card; the verify tile at B = 8192, verify mode direct,
+   the drain on, the pack greedy, the sentinel's compressed budgets and
+   the probe every 250 ms. The soak half arms the plan's chaos (every
+   tile in process) and sends this process SIGHUP, which makes a
+   ReconfigController apply {"verify_mode": "rlc", "frontend": "fused"}
+   at 15 s, mid phase 1 (both engines warm before); the control half
+   runs the same payloads with neither, in the feed's default layout. Each must log 4 phases,
+   drop and leak nothing, arm its slopes within budget, be judged ok and
+   pass tools/bench_log_check.validate_soak; the soak half books no
+   unexplained alert, hb_stall and credit_starve injected = detected =
+   healed >= 1, one reconfig applied and none refused, the batches after
+   the swap on the rlc engine, and a sink digest multiset equal to the
+   control's, which books no alert; launches exact (the direct rows once
+   a direct batch and once an rlc fallback, the fused pass once an rlc
+   batch, dedup_filter once a batch, no warm, no plain version) and no
+   healing counter. Prints the plan, each phase's offered and published
+   rate, each half's txn/s and p50/p99, the slopes, ring_hwm, each
+   tile's housekeeping passes, the traced heap's largest growth by line,
+   the device memory before and after each half, the launches and the
+   phase's seconds, beside the card's name and power limit; the records
+   go to build/soak/.
+15. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -548,6 +572,34 @@ XRAY_KEYS = ["exemplars", "sample_rate", "suspects", "top_slowest",
              "traces", "waterfall"]
 CHAOS_OPTS = {"inflight": 4, "breaker_threshold": 2,
               "breaker_cooldown_ms": 20}
+# Phase 14 (fd_soak): scripts/soak_smoke.py's seed and compressed
+# window over four phases, so the drift rotation arms both its window
+# classes. The base rate stays well under 2,000 txn/s: the traced heap
+# grows by about 340 B a txn on this path (the sink's digest ledger and
+# the two 65,536-deep TCaches filling), so 2,000 would read as a leak
+# of about 45 MiB a minute against the 16 MiB budget, and the traced
+# in-process soak half does not drain it within its timeout. 10 s
+# phases keep about 23,000 payloads, past credit_starve's window of
+# source attempts 15,200-17,200; the swap lands mid phase 1, as the
+# JAX smoke's at 7 s of 6 s phases.
+SOAK_SEED = 23
+SOAK_PHASES = 4
+SOAK_PHASE_S = 10.0
+SOAK_RATE = 450.0
+SOAK_SWAP_AT_S = 1.5 * SOAK_PHASE_S
+# Each half's timeout: the in-process soak half may fall behind its pace
+# (tracemalloc traces every allocation of five Python tiles; on an H100
+# host it took 60-90 s for its 40 s script within a full smoke run, and
+# kept pace when run alone), which is not a failure.
+SOAK_TIMEOUT_S = 300.0
+SOAK_REQUEST = {"verify_mode": "rlc", "frontend": "fused"}
+SOAK_PROBE_MS = 250
+SOAK_SENTINEL = {"budgets": {
+    "FD_SLO_E2E_BUDGET_MS": 900000, "FD_SLO_SOURCE_BUDGET_MS": 900000,
+    "FD_SLO_QUIC_INGEST_MS": 900000, "FD_SLO_HEAP_SLOPE_KB": 16384,
+    "FD_SLO_POOL_SLOPE_MILLI": 200000, "FD_SLO_COMPILE_SLOPE": 36000,
+    "FD_SLO_STALL_MS": 300000, "FD_SLO_HB_MS": 120000}}
+SOAK_CLASSES = ("hb_stall", "credit_starve")
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -4833,6 +4885,326 @@ def xray_phase(torch, card, bench, batch: int = B) -> None:
         f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def soak_heap_growth(before, after, dt_s: float, top: int = 6) -> str:
+    """The traced heap's largest growth between two tracemalloc
+    snapshots, by source line, in KiB a minute."""
+    stats = after.compare_to(before, "lineno")[:top]
+    return "; ".join(
+        f"{s.traceback[0].filename.rsplit('/', 1)[-1]}:"
+        f"{s.traceback[0].lineno} {s.size_diff / 1024 / dt_s * 60:.0f} "
+        f"KiB/min ({s.count_diff} blocks)" for s in stats)
+
+
+def soak_half(torch, card, label, plan, payloads, batch, *, chaos=None,
+              controller=None):
+    """One run_soak of phase 14 on the card (verify mode direct at batch,
+    the drain on, SOAK_SENTINEL, the probe every SOAK_PROBE_MS). With
+    chaos (an injector) every tile runs in process; with a controller a
+    timer sends this process SIGHUP SOAK_SWAP_AT_S seconds after the
+    tiles start. Returns (record, result, launches, facts): facts holds
+    the verify tile, the batches dispatched before the swap and the
+    warm passes in the run."""
+    import signal
+    import threading
+    import tracemalloc
+
+    from firedancer_tpu_torch.disco import soak
+    from firedancer_tpu_torch.disco.engine import registry
+    from firedancer_tpu_torch.ops import backend
+
+    reg = registry()
+    warms0 = {e: e.warms for e in reg.entries()}
+    facts = {"at_swap": None, "heap": ""}
+    timers = []
+    snaps = []
+
+    def hook(v):
+        facts["tile"] = v
+        apply = v._apply_reconfig
+
+        def applied():
+            pending = v._reconfig_pending is not None
+            n = v.stat_batches
+            apply()
+            if pending and v._reconfig_pending is None:
+                facts["at_swap"] = n
+
+        v._apply_reconfig = applied
+        if controller is not None:
+            timers.append(threading.Timer(
+                SOAK_SWAP_AT_S, os.kill, (os.getpid(), signal.SIGHUP)))
+        # Two heap snapshots: where the probe's fit starts, and near the
+        # end of the scripted window.
+        for frac in (0.25, 0.9):
+            timers.append(threading.Timer(
+                frac * plan.duration_s,
+                lambda: snaps.append((time.perf_counter(),
+                                      tracemalloc.take_snapshot()))))
+        for t in timers:
+            t.daemon = True
+            t.start()
+
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    # Started here, so the snapshots see it; run_soak leaves it running.
+    tracemalloc.start()
+    # SIGHUP reaches the controller for the whole half: run_soak installs
+    # its handler over this one and puts this one back.
+    old_hup = signal.signal(signal.SIGHUP, lambda *_: (
+        controller.trigger() if controller is not None else None))
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        rec, res = soak.run_soak(
+            plan, payloads=payloads, verify_backend="gpu",
+            verify_batch=batch, controller=controller,
+            timeout_s=SOAK_TIMEOUT_S, record_digests=True,
+            verify_opts={"verify_mode": "direct"},
+            chaos=chaos, sentinel=SOAK_SENTINEL,
+            options=soak.SoakOptions(probe_ms=SOAK_PROBE_MS),
+            tile_hook=hook)
+        idle_by = time.perf_counter() + 120.0
+        while not reg.prewarm_idle() and time.perf_counter() < idle_by:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+    finally:
+        for t in timers:
+            t.cancel()
+        signal.signal(signal.SIGHUP, old_hup)
+        tracemalloc.stop()
+    mem1 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    facts["warmed"] = {e.key: (e.spec.mode, e.warms - warms0.get(e, 0))
+                       for e in reg.entries() if e.warms > warms0.get(e, 0)}
+    facts["plain"] = plain
+    if len(snaps) == 2:
+        facts["heap"] = soak_heap_growth(snaps[0][1], snaps[1][1],
+                                         snaps[1][0] - snaps[0][0])
+    vs = res.verify_stats[0]
+    say(f"{label}: {rec['continuity']['received']} of "
+        f"{len(payloads)} payloads at the sink in {res.span_s:.3f} s from "
+        f"the first publish = {len(payloads) / res.span_s:.0f} txn/s "
+        f"offered through (host clock; run {res.elapsed_s:.3f} s); latency "
+        f"p50 {res.latency_p50_ns / 1e6:.3f} ms, p99 "
+        f"{res.latency_p99_ns / 1e6:.3f} ms [{card}]")
+    for ph in rec["phases"]:
+        say(f"{label}: {ph['phase']} (chaos {ph['chaos']}): offered "
+            f"{ph['offered_tps']} txn/s, published {ph['published']} in "
+            f"{ph['duration_s']} s = "
+            f"{ph['published'] / max(ph['duration_s'], 1e-9):.1f} txn/s, "
+            f"alerts {ph['alerts']} [{card}]")
+    sl = rec["slopes"]
+    say(f"{label}: slopes over {sl['samples']} samples: heap "
+        f"{sl['heap_kb_min']} KiB/min, pool {sl['pool_milli_min']} "
+        f"milli-slots/min, compile {sl['compile_per_hr']}/h (budgets "
+        f"{sl['budgets']}, within {sl['within_budget']}); ring_hwm "
+        f"{sl['ring_hwm']}; {vs['batches']} batches (fill "
+        f"{vs['fill_ratio']}), rlc fallbacks {vs['rlc_fallback']}, drain "
+        f"batches {vs['drain_batches']}; alerts "
+        f"{[a['slo'] for a in rec['slo']['alerts']]}, explained "
+        f"{rec['slo']['explained']} [{card}]")
+    say(f"{label}: the traced heap's largest growth: "
+        f"{facts['heap'] or 'not measured (no snapshots)'} [{card}]")
+    say(f"{label}: device memory allocated {mem0[0]} -> {mem1[0]} B, "
+        f"reserved {mem0[1]} -> {mem1[1]} B (torch.cuda) [{card}]")
+    return rec, res, launches, facts
+
+
+def soak_problems(label, rec, res, launches, facts) -> list:
+    """The gates both halves share: 4 phases logged, nothing dropped or
+    leaked, the slopes armed and within budget, judged ok and valid, no
+    plain version, no warm pass of an rlc engine, no healing counter."""
+    from firedancer_tpu_torch.disco import sentinel
+    from firedancer_tpu_torch.tools import bench_log_check
+
+    problems = []
+    if len(rec["phases"]) != SOAK_PHASES:
+        problems.append(f"{len(rec['phases'])} phases logged")
+    for key in ("dropped", "slots_leaked"):
+        if rec["continuity"][key]:
+            problems.append(f"{key} {rec['continuity'][key]}")
+    if rec["slopes"]["samples"] < sentinel.MIN_SLOPE_SAMPLES:
+        problems.append(f"slopes not armed: {rec['slopes']['samples']} "
+                        "samples")
+    if not rec["slopes"]["within_budget"]:
+        problems.append(f"a slope over budget: {rec['slopes']}")
+    if not rec["ok"]:
+        problems.append(f"judged not ok: {rec['failures']}")
+    errs = bench_log_check.validate_soak(rec)
+    if errs:
+        problems.append(f"validate_soak: {errs}")
+    if facts["plain"]:
+        problems.append(f"plain versions ran: {facts['plain']}")
+    if any(mode != "direct" for mode, _ in facts["warmed"].values()):
+        problems.append(f"an rlc warm in the run: {facts['warmed']}")
+    return problems + healing_problems(res.verify_stats)
+
+
+def soak_want_launches(vs, at_swap: int, warmed: dict) -> dict:
+    """A soak half's launches: the direct rows once a batch before the
+    swap (at_swap; all of them without one) and once an rlc fallback,
+    the fused pass once a batch after it, dedup_filter once a batch, and
+    a direct batch's for each direct warm in the run."""
+    rlc_b = vs["batches"] - at_swap
+    want = {k: at_swap + vs["rlc_fallback"] for k in DIRECT_KERNELS}
+    for k, n in {**FRONT_LAUNCHES["fused"], **RLC_PASS}.items():
+        want[k] = n * rlc_b
+    want["dedup_filter"] = vs["drain_batches"]
+    for _, n in warmed.values():
+        for k in DIRECT_KERNELS:
+            want[k] += n
+    return {k: v for k, v in want.items() if v}
+
+
+def soak_phase(torch, card, rows, batch: int = B) -> None:
+    """Phase 14: fd_soak on the card (scripts/soak_smoke.py). The plan
+    (SOAK_SEED, SOAK_PHASES, SOAK_PHASE_S, SOAK_RATE) signed on the card;
+    the soak half (the plan's chaos, a SIGHUP swap to SOAK_REQUEST at
+    SOAK_SWAP_AT_S) and the control half (neither) on the same payloads
+    at batch, each judged by run_soak; every gate fatal. Adds the
+    phase's launches (the corpora's signing and both halves) to rows and
+    writes both records under build/soak/."""
+    import tempfile
+    import threading
+
+    from firedancer_tpu_torch.disco import chaos as chaos_mod
+    from firedancer_tpu_torch.disco import soak
+    from firedancer_tpu_torch.disco.engine import EngineSpec, registry
+    from firedancer_tpu_torch.disco.feed import runtime
+    from firedancer_tpu_torch.ops import backend
+    from firedancer_tpu_torch.ops.dedup_filter import DEFAULT_FILTER_BITS
+    from firedancer_tpu_torch.tools import fd_soak
+
+    t_phase = time.perf_counter()
+    # Threads that other phases left would take the GIL from the soak
+    # half's tiles.
+    say(f"soak: {threading.active_count()} threads alive at the start: "
+        f"{sorted(t.name for t in threading.enumerate())}")
+    reg = registry()
+    direct = EngineSpec("direct", batch)
+    rlc = EngineSpec.for_tile("gpu", "rlc", batch, SOAK_REQUEST["frontend"])
+    # Both engines and filters warm before the runs: a warm inside the
+    # window would land in the heap and compile-cache slopes.
+    for spec in (direct, rlc):
+        reg.acquire(spec)[0].warm_drain(DEFAULT_FILTER_BITS)
+
+    plan = soak.build_plan(seed=SOAK_SEED, n_phases=SOAK_PHASES,
+                           phase_s=SOAK_PHASE_S, rate=SOAK_RATE)
+    classes = sorted({ph.chaos for ph in plan.phases if ph.chaos})
+    if classes != sorted(SOAK_CLASSES):
+        fail(f"soak plan: chaos classes {classes}, want {SOAK_CLASSES}")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    backend.reset_counts()
+    payloads = soak.build_payloads(plan)
+    torch.cuda.synchronize()
+    sign_launches = dict(backend.launches)
+    if backend.plain_calls:
+        fail(f"soak corpora: plain versions ran {dict(backend.plain_calls)}")
+    say(f"soak plan: seed {plan.seed}, {len(payloads)} payloads signed on "
+        f"the card in {time.perf_counter() - t0:.1f} s (launches "
+        f"{sign_launches}), scripted {plan.duration_s:.1f} s a half; "
+        f"chaos {plan.chaos_schedule!r}")
+    for ph in plan.phases:
+        say(f"soak plan: {ph.name}: profile {ph.profile}, chaos "
+            f"{ph.chaos}, {ph.rate:.1f} txn/s, n {ph.n_txns} "
+            f"[{ph.start_idx}, {ph.end_idx}), {ph.n_unique_ok} unique ok")
+
+    tmp = tempfile.mkdtemp(prefix="soak_", dir=os.path.join(REPO, "build"))
+    req_path = os.path.join(tmp, "reconfig.json")
+    with open(req_path, "w", encoding="utf-8") as f:
+        json.dump(SOAK_REQUEST, f)
+    controller = soak.ReconfigController(path=req_path, poll_s=0.1)
+    inj = chaos_mod.injector(soak.chaos_spec(plan))
+    try:
+        rec, res, launches, facts = soak_half(
+            torch, card, "soak (chaos, swap)", plan, payloads, batch,
+            chaos=inj, controller=controller)
+        # The swap retired the direct entry: warm it again for the
+        # control, outside its counts.
+        reg.acquire(direct)[0].warm_drain(DEFAULT_FILTER_BITS)
+        ctl_rec, ctl_res, ctl_launches, ctl_facts = soak_half(
+            torch, card, "soak control", plan, payloads, batch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    v, vs = facts["tile"], res.verify_stats[0]
+    ctl_vs = ctl_res.verify_stats[0]
+    passes = {k.split(":", 1)[1]: n for k, n in sorted(inj._ord.items())
+              if k.startswith("housekeep:")}
+    counters = inj.snapshot()["counters"]
+    say(f"soak (chaos, swap): housekeeping passes by tile {passes}; "
+        f"chaos counters {counters}; controller log "
+        f"{[(e['ok'], e['detail']) for e in controller.log]}; swap after "
+        f"{facts['at_swap']} of {vs['batches']} batches, mode now "
+        f"{v.verify_mode} on {v._engine_entry.key} [{card}]")
+    problems = soak_problems("soak", rec, res, launches, facts)
+    if rec["slo"]["unexplained_alerts"]:
+        problems.append(f"unexplained alerts: {rec['slo']['alerts']}")
+    for cls in SOAK_CLASSES:
+        c = counters.get(cls, {})
+        if cls not in rec["slo"]["explained"] or not (
+                c.get("injected") == c.get("detected") == c.get("healed")
+                and c.get("injected", 0) >= 1):
+            problems.append(f"{cls}: {c}, explained "
+                            f"{rec['slo']['explained']}")
+    if (rec["reconfig"]["applied"], rec["reconfig"]["refused"]) != (1, 0):
+        problems.append(f"reconfig trail {rec['reconfig']}")
+    at_swap = facts["at_swap"]
+    if at_swap is None or not 0 < at_swap < vs["batches"]:
+        problems.append(f"swap after {at_swap} of {vs['batches']} batches")
+        at_swap = at_swap or 0
+    if (v.verify_mode, v._engine_entry.spec) != ("rlc", rlc):
+        problems.append(f"after the swap: mode {v.verify_mode}, engine "
+                        f"{v._engine_entry.key}")
+    want = soak_want_launches(vs, at_swap, facts["warmed"])
+    if launches != want or vs["drain_batches"] != vs["batches"]:
+        problems.append(f"launches {launches} != {want} (drain batches "
+                        f"{vs['drain_batches']} of {vs['batches']})")
+    match = (collections.Counter(res.sink_digests)
+             == collections.Counter(ctl_res.sink_digests))
+    rec["continuity"]["digest_match"] = match
+    if not match:
+        rec["ok"] = False
+        rec["failures"].append(
+            "sink digest multiset diverged from the no-reconfig control")
+        problems.append(f"digest multiset: {len(res.sink_digests)} vs the "
+                        f"control's {len(ctl_res.sink_digests)}")
+    problems += [f"control: {p}" for p in soak_problems(
+        "control", ctl_rec, ctl_res, ctl_launches, ctl_facts)]
+    if ctl_rec["slo"]["alert_cnt"]:
+        problems.append(f"control alerts: {ctl_rec['slo']['alerts']}")
+    ctl_want = soak_want_launches(ctl_vs, ctl_vs["batches"],
+                                  ctl_facts["warmed"])
+    if ctl_launches != ctl_want:
+        problems.append(f"control launches {ctl_launches} != {ctl_want}")
+    if ("workers" in ctl_res.proc_cpu_s) != (runtime.usable_cores() >= 4):
+        problems.append(f"control layout: {ctl_res.proc_cpu_s}")
+
+    os.makedirs(fd_soak.OUT_DIR, exist_ok=True)
+    paths = []
+    for r in (rec, ctl_rec):
+        path = fd_soak.next_artifact_path(fd_soak.OUT_DIR)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(r, f, indent=1, sort_keys=True)
+            f.write("\n")
+        paths.append(os.path.relpath(path, REPO))
+    for part in (sign_launches, launches, ctl_launches):
+        for name, n in part.items():
+            for row in TAILS_ROWS if name == "msm_tails" else (name,):
+                if row in rows:
+                    rows[row]["launches"] += n
+    say(f"soak: launches, signing {sign_launches}, soak half {launches}, "
+        f"control {ctl_launches}; digests {len(res.sink_digests)} equal "
+        f"to the control's: {match}; records {paths} [{card}]")
+    say(f"soak: the phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    if problems:
+        fail("soak: " + "; ".join(problems))
+    say(f"soak: judged ok twice, 0 unexplained alerts, {SOAK_CLASSES} "
+        "injected = detected = healed, 1 swap to fused rlc applied at "
+        f"B = {batch}, the sink's digests equal the control's, slopes "
+        "armed within budget, no plain version")
+
+
 def main() -> int:
     import torch
 
@@ -5256,8 +5628,9 @@ def main() -> int:
     late_trace_probe(torch)
     flight_phase(torch, card, bench)
     xray_phase(torch, card, bench)
+    soak_phase(torch, card, rows)
 
-    # 14. Output.
+    # 15. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """fd_chaos: deterministic, schedule-driven fault injection into the
 verify tile's feed path, the counterpart of ``firedancer_tpu/disco/chaos.py``
 (``FAULT_CLASSES``:95, ``ChaosFault``:134-149, ``parse_schedule``:153,
-``ChaosInjector``:197, ``active``/``install``/``uninstall``).
+``ChaosInjector``:197, ``hb_stalled``:542, ``active``/``install``/
+``uninstall``).
 
 A tile that misbehaves is restarted and the rings heal around it; this
 module makes that testable. Faults fire at fixed points: each hook site
@@ -34,11 +35,18 @@ package does. The classes the port has sites for:
                  the CPU lane serves, and a half-open probe restores
                  the card.
 
-``hb_stall``, ``worker_kill`` and the ``quic_*`` classes parse as in the
-JAX package, but their sites are the process supervisor and the QUIC
-tile, which the port does not have: an injector for a schedule naming
-one raises ValueError, since such a fault could be injected and never
-detected.
+  hb_stall       a tile skips its cnc heartbeat on its own housekeeping
+                 passes N..M (ordinals kept per tile, so which tile
+                 stalls does not depend on how the threads interleave);
+                 the frozen heartbeat is what the sentinel's
+                 tile_heartbeat row watches. Injected and detected when
+                 a tile's window opens, healed when it closes or the
+                 tile halts inside it.
+
+``worker_kill`` and the ``quic_*`` classes parse as in the JAX package,
+but their sites are the process supervisor and the QUIC tile, which the
+port does not have: an injector for a schedule naming one raises
+ValueError, since such a fault could be injected and never detected.
 
 Schedule grammar: ``entry[,entry...]`` with ``entry := class@N |
 class@N:M`` (1-based ordinals, windows inclusive, only for the window
@@ -76,7 +84,7 @@ FAULT_CLASSES = (
     "quic_slowloris",
 )
 # The classes whose hook sites the port has.
-PORTED_CLASSES = FAULT_CLASSES[:7]
+PORTED_CLASSES = FAULT_CLASSES[:8]
 
 _WINDOW_CLASSES = ("credit_starve", "device_lost", "hb_stall",
                    "quic_slowloris")
@@ -153,9 +161,9 @@ class ChaosInjector:
         if unported:
             raise ValueError(
                 f"chaos classes {', '.join(unported)} have no hook site in "
-                "the port: hb_stall and worker_kill fire in the process "
-                "supervisor and the quic_* classes in the QUIC tile, "
-                "neither of which is ported (ROADMAP queue 1 item 9)")
+                "the port: worker_kill fires in the process supervisor and "
+                "the quic_* classes in the QUIC tile, neither of which is "
+                "ported (ROADMAP queue 1 item 9)")
         # Per-site Rng streams: a choice must not depend on how draws of
         # different threads interleave.
         self._junk_rng = Rng(seq=seed ^ 0xC4A05)      # ring_ctl_err junk
@@ -172,6 +180,7 @@ class ChaosInjector:
         self._overrun_pending = 0
         self._corrupt_psigs: List[int] = []
         self._starve_active = False
+        self._hb_stall_active: set = set()   # tiles inside a window
         self.corrupted_sha256: List[str] = []
         # Every booked event also goes to the "chaos" flight recorder, so
         # a dump carries the fault timeline (the JAX :238-244).
@@ -340,6 +349,38 @@ class ChaosInjector:
         if hits:
             self.note("slot_corrupt", "detected", hits)
             self.note("slot_corrupt", "healed", hits)
+
+    # -- every tile's housekeeping ---------------------------------------
+
+    def hb_stalled(self, tile_id: str) -> bool:
+        """True while the hb_stall window covers this housekeeping pass of
+        tile tile_id: the tile skips its heartbeat. The ordinals are the
+        tile's own (a counter shared by the tiles' threads would make
+        which tile stalls depend on their interleaving). One injected
+        and one detected when a tile's window opens (the frozen beat is
+        visible at once, in monitor.snapshot and to the tile_heartbeat
+        SLO), one healed when it closes: a booking a suppressed pass
+        would flood the chaos flight recorder."""
+        n = self._tick(f"housekeep:{tile_id}")
+        if self._hit("hb_stall", n):
+            if tile_id not in self._hb_stall_active:
+                self._hb_stall_active.add(tile_id)
+                self.note("hb_stall", "injected")
+                self.note("hb_stall", "detected")
+            return True
+        if tile_id in self._hb_stall_active:
+            self._hb_stall_active.discard(tile_id)
+            self.note("hb_stall", "healed")
+        return False
+
+    def hb_stall_halt(self, tile_id: str) -> None:
+        """Tile tile_id halted inside its hb_stall window: the window
+        closes with the tile's run (healed), so a run that ends
+        mid-window still balances its counters (as the JAX
+        ``quic_slowloris_halt``:532 closes its window)."""
+        if tile_id in self._hb_stall_active:
+            self._hb_stall_active.discard(tile_id)
+            self.note("hb_stall", "healed")
 
     # -- the dispatcher --------------------------------------------------
 

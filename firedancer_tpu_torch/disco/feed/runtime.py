@@ -239,7 +239,8 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       pack_scheduler: str = "greedy", device="cuda",
                       feed_proc: Optional[bool] = None, tile_hook=None,
                       tile_cpus: Optional[List[int]] = None, chaos=None,
-                      flight=None, sentinel=None, xray=None):
+                      flight=None, sentinel=None, xray=None,
+                      source_tile=None, source_done=None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
@@ -255,8 +256,12 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
     (seed, schedule) pair or a ChaosInjector) is armed for the run
     (disco.chaos.armed) and forces every tile into this process, so that
     one injector books every site (the JAX :249-257). flight, sentinel
-    and xray are the run's options (pipeline.run_pipeline). Raises on a
-    tile error, a worker's early exit and a timeout."""
+    and xray are the run's options (pipeline.run_pipeline). source_tile,
+    with its exhaustion predicate source_done, replaces the replay of
+    payloads by a tile already built on the replay's links (fd_soak's
+    paced source; the JAX :180-181): it always runs in this process,
+    where the downstream tiles run as they would. Raises on a tile error,
+    a worker's early exit and a timeout."""
     from .. import chaos as chaos_mod
     from .. import flight as flight_mod
     from .. import xray as xray_mod
@@ -269,13 +274,14 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                          verify_max_msg_len, bank_cnt, timeout_s,
                          tcache_depth, verify_opts, record_digests,
                          pack_scheduler, device, feed_proc, tile_hook,
-                         tile_cpus, sentinel)
+                         tile_cpus, sentinel, source_tile, source_done)
 
 
 def _run_feed(topo, payloads, verify_backend, verify_batch,
               verify_max_msg_len, bank_cnt, timeout_s, tcache_depth,
               verify_opts, record_digests, pack_scheduler, device,
-              feed_proc, tile_hook, tile_cpus, sentinel_opts):
+              feed_proc, tile_hook, tile_cpus, sentinel_opts,
+              source_tile=None, source_done=None):
     """run_feed_pipeline's body, with the run's flight options installed
     and its injector (if any) armed."""
     from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
@@ -310,13 +316,23 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             "record_digests": record_digests}
     replay = dedup = pack = sink = None
     tiles = [verify]
+    if source_tile is not None:
+        # A custom source always runs here; its payloads are its own.
+        replay = source_tile
+        payloads = source_tile.payloads
+        tiles = [replay, verify]
+    elif not use_proc:
+        replay = pl.build_tile(wksp, "replay", payloads=payloads,
+                               device=device, **opts)
+        tiles = [replay, verify]
+    if replay is not None:
+        replay.out_link.lat = LatReservoir()
     if not use_proc:
-        replay, dedup, pack, sink = (
-            pl.build_tile(wksp, name, payloads=payloads, device=device,
-                          **opts)
-            for name in ("replay", "dedup", "pack", "sink"))
-        tiles = [replay, verify, dedup, pack, sink]
-        for t in (replay, dedup, pack):
+        dedup, pack, sink = (
+            pl.build_tile(wksp, name, device=device, **opts)
+            for name in ("dedup", "pack", "sink"))
+        tiles += [dedup, pack, sink]
+        for t in (dedup, pack):
             t.out_link.lat = LatReservoir()
     if tile_cpus:
         cpu_map = {name: tile_cpus[i % len(tile_cpus)] for i, name in
@@ -354,6 +370,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             procs["downstream"] = _spawn_worker(
                 "dedup,pack,sink", topo.wksp_path, wopts, tile_max_ns,
                 results["downstream"], tmp)
+        if use_proc and replay is None:
             payloads_path = os.path.join(tmp, "payloads.pkl")
             with open(payloads_path, "wb") as f:
                 pickle.dump(list(payloads), f)
@@ -369,11 +386,17 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
 
         links = [(MCache(wksp, f"{k}.mcache"), FSeq(wksp, f"{k}.fseq"))
                  for k in ("verify_dedup", "dedup_pack", "pack_sink")]
-        worker_cncs = [Cnc(wksp, f"{t}.cnc") for t in
-                       ("replay", "dedup", "pack", "sink")] if use_proc \
-            else []
+        in_worker = ("dedup", "pack", "sink") + (
+            ("replay",) if replay is None else ())
+        worker_cncs = [Cnc(wksp, f"{t}.cnc") for t in in_worker] \
+            if use_proc else []
         src_mcache = MCache(wksp, "replay_verify.mcache")
         n_payloads = len(payloads)
+
+        def src_done() -> bool:
+            if source_done is not None:
+                return source_done()
+            return src_mcache.seq_next() >= n_payloads
 
         def feeder_drained() -> bool:
             return (verify.in_link.seq >= src_mcache.seq_next()
@@ -391,7 +414,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             if died or errors:
                 break
             cursors = tuple((mc.seq_next(), fs.query()) for mc, fs in links)
-            if (src_mcache.seq_next() >= n_payloads and feeder_drained()
+            if (src_done() and feeder_drained()
                     and all(fs >= mc for mc, fs in cursors)
                     and (pack is None or pack.drained())
                     and cursors == last):
@@ -449,14 +472,22 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             raise TimeoutError(f"the feed pipeline did not drain within "
                                f"{timeout_s} s")
 
+        if replay is not None:
+            replay_rec = replay
+            samples = {"replay_pub": replay.out_link.lat.samples()}
+            tile_cpu = {"replay": replay.cpu_ns / 1e9}
+            rep_doc = {}
         if use_proc:
             with open(results["downstream"]) as f:
                 down = json.load(f)
-            with open(results["replay"]) as f:
-                rep_doc = json.load(f)
-            rep = rep_doc["replay"]
-            replay_rec = SimpleNamespace(payloads=payloads,
-                                         pub_ticks=rep["pub_ticks"])
+            if replay is None:
+                with open(results["replay"]) as f:
+                    rep_doc = json.load(f)
+                rep = rep_doc["replay"]
+                replay_rec = SimpleNamespace(payloads=payloads,
+                                             pub_ticks=rep["pub_ticks"])
+                samples = {"replay_pub": rep["lat"]}
+                tile_cpu = {"replay": rep["cpu_s"]}
             s = down["sink"]
             sink_rec = SimpleNamespace(
                 recv_cnt=s["recv_cnt"], recv_sz=s["recv_sz"],
@@ -464,13 +495,10 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
                 t_last=s["t_last"],
                 digests=[bytes.fromhex(d) for d in s["digests"]],
                 recv_tsorig=s["recv_tsorig"], recv_ticks=s["recv_ticks"])
-            samples = {
-                "replay_pub": rep["lat"],
-                "dedup_pub": down["dedup"]["lat"],
-                "pack_pub": down["pack"]["lat"]}
-            tile_cpu = {"replay": rep["cpu_s"],
-                        **{k: down[k]["cpu_s"]
-                           for k in ("dedup", "pack", "sink")}}
+            samples.update(dedup_pub=down["dedup"]["lat"],
+                           pack_pub=down["pack"]["lat"])
+            tile_cpu.update({k: down[k]["cpu_s"]
+                             for k in ("dedup", "pack", "sink")})
             pack_stats = down["pack"]["stats"]
             dedup_stats = down["dedup"]["stats"]
             worker_spans = xray.merge_spans(
@@ -478,12 +506,11 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
                 (rep_doc.get("xray") or {}).get("spans"))
         else:
             worker_spans = None
-            replay_rec, sink_rec = replay, sink
-            samples = {"replay_pub": replay.out_link.lat.samples(),
-                       "dedup_pub": dedup.out_link.lat.samples(),
-                       "pack_pub": pack.out_link.lat.samples()}
-            tile_cpu = {t.name: t.cpu_ns / 1e9
-                        for t in (replay, dedup, pack, sink)}
+            sink_rec = sink
+            samples.update(dedup_pub=dedup.out_link.lat.samples(),
+                           pack_pub=pack.out_link.lat.samples())
+            tile_cpu.update({t.name: t.cpu_ns / 1e9
+                             for t in (dedup, pack, sink)})
             pack_stats = pl._pack_stats(pack)
             dedup_stats = pl._dedup_stats(dedup)
         samples["verify_drain"] = verify.drain_lat.samples()

@@ -626,8 +626,16 @@ class Tile:
                 self._xq_idle_ns = 0
                 first = False
 
-    def housekeep(self, now: int) -> None:
+    def _beat(self, now: int) -> None:
+        """The cnc heartbeat, skipped while a chaos hb_stall window
+        covers this tile's housekeeping pass (the JAX :551-558)."""
+        c = chaos.active()
+        if c is not None and c.hb_stalled(self.cnc_name):
+            return
         self.cnc.heartbeat(now)
+
+    def housekeep(self, now: int) -> None:
+        self._beat(now)
         for il in self.in_links:
             il.housekeep()
         self._xq_housekeep()
@@ -672,6 +680,9 @@ class Tile:
                 self.flightrec.record("halt")
                 try:
                     self.housekeep(tempo.tickcount())
+                    c = chaos.active()
+                    if c is not None:
+                        c.hb_stall_halt(self.cnc_name)
                 finally:
                     self.cnc.signal(CNC_BOOT)
                     self.cpu_ns = time.thread_time_ns() - t0
@@ -2169,7 +2180,7 @@ class VerifyTile(Tile):
 
     def housekeep(self, now: int) -> None:
         # Publish the VERIFIED cursor, not the consumed one.
-        self.cnc.heartbeat(now)
+        self._beat(now)
         for il in self.in_links:
             il.fseq.update(min(self._acked_seq, il.seq))
         self._publish_unacked()

@@ -98,7 +98,7 @@ def test_parse_schedule_matches_jax(spec):
     assert pchaos.FAULT_CLASSES == jchaos.FAULT_CLASSES
 
 
-@pytest.mark.parametrize("spec", ["hb_stall@1", "worker_kill@2",
+@pytest.mark.parametrize("spec", ["quic_conn_churn@1", "worker_kill@2",
                                   "quic_malformed@1", "stager_kill@1,"
                                   "quic_slowloris@1:3"])
 def test_unported_classes_raise_at_run_start(spec, tmp_path):

@@ -314,6 +314,27 @@ def test_port_scan_reaches_the_healing_modules():
             "firedancer_tpu_torch/disco/feed/policy.py"} <= names
 
 
+SOAK_MODULES = ("firedancer_tpu_torch/disco/soak.py",
+                "firedancer_tpu_torch/disco/siege.py",
+                "firedancer_tpu_torch/disco/supervisor.py",
+                "firedancer_tpu_torch/tools/fd_soak.py",
+                "firedancer_tpu_torch/tools/bench_log_check.py")
+
+
+def test_port_scan_reaches_the_soak_modules():
+    """The scan covers fd_soak, the two tables it copied and its two
+    tools, and none of them reads the environment: their flags are
+    options."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert set(SOAK_MODULES) <= names
+    for rel in SOAK_MODULES:
+        tree = ast.parse((ROOT / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("environ", "getenv", "environb"), (
+                    f"{rel} reads the environment")
+
+
 def test_acquire_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="capability 9"):
