@@ -378,7 +378,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the device memory before and after each half, the launches and the
    phase's seconds, beside the card's name and power limit; the records
    go to build/soak/.
-15. Output: the card line, one JSON line of per-kernel numbers, and the
+15. QUIC: the front door on the card through
+   disco.pipeline.run_quic_pipeline over UdpBatchSock: the QUIC tile ->
+   verify -> dedup -> pack -> sink at the feed cell's width (B = 8192,
+   rings 4,096 deep, MTU rows, inflight 4, a 200 ms deadline, the drain
+   on; (q-rlc) with dedup, pack and sink in the worker process, the
+   others in process). Phase 7's traffic cut to 4,096 txns
+   (the fixtures, then the dirty corpus: duplicates, bad signatures and
+   truncated payloads; nothing signed anew), offered by the port's own
+   QUIC client (tango.quic.client.deliver) over 8 connections from one
+   client thread. (q) direct, (q-rlc) fused RLC, (q-def) direct under
+   attack: the eighth connection offers 1,408 txns against a bucket of
+   512 refilling 100 a second (the other seven 384 each), a junk peer
+   sends 128 datagrams of garbage, and quic_malformed, quic_conn_churn
+   and quic_slowloris fire at fixed ordinals (handshake deadline
+   0.5 s). Each run fails unless the sink's multiset is the oracle's
+   valid txns, each once, less exactly the shed ledger; offered =
+   admitted + shed; quic_ingest's span count = admitted; the engine's
+   kernels launched exactly batches x a batch's launches (dedup_filter
+   once a batch), no plain version, no healing counter, the sentinel
+   without alerts (but in (q-def)); (q-def) also needs admit_shed > 0,
+   the junk peer quarantined with quarantine_drop > 0 and each quic_*
+   class injected = detected = healed. Prints each run's txn/s from the
+   first stream's completion to the sink's last frag, p50/p99 on the
+   64-bit tick, handshakes/s, the device's busy share, the verify
+   tile's flush verdicts and the run's seconds beside the card's name
+   and power limit, and fails past its 60 s budget. The launches of (q)
+   and (q-rlc) join the kernel rows.
+16. Output: the card line, one JSON line of per-kernel numbers, and the
    last line {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -600,6 +627,36 @@ SOAK_SENTINEL = {"budgets": {
     "FD_SLO_POOL_SLOPE_MILLI": 200000, "FD_SLO_COMPILE_SLOPE": 36000,
     "FD_SLO_STALL_MS": 300000, "FD_SLO_HB_MS": 120000}}
 SOAK_CLASSES = ("hb_stall", "credit_starve")
+
+# The QUIC phase (15): phase 7's traffic (the fixtures, then the dirty
+# corpus) cut to QUIC_N txns, offered by the port's QUIC client over
+# QUIC_CONNS connections from one thread, at the feed cell's width (B,
+# rings FEED_DEPTH deep, MTU rows, inflight 4, a 200 ms deadline). (q)
+# keeps every tile in process: a second worker boot (8-12 s) would not
+# fit the phase's budget. (q-rlc) runs dedup, pack and sink in the
+# feed's worker process: each RLC pass retakes the GIL about 700 times,
+# and with those three, the QUIC server and its client in one process
+# the verify tile's heartbeat froze past the sentinel's 1.5 s. (q-def)
+# is in process, as every armed run is.
+QUIC_N = 4096
+QUIC_CONNS = 8
+QUIC_WKSP = 1 << 26
+QUIC_OPTS = {"inflight": 4, "max_wait_us": 200_000}
+QUIC_MODES = (("q", {"verify_mode": "direct"}, False),
+              ("q-rlc", {"verify_mode": "rlc", "frontend": "fused"}, True))
+# (q-def): seven connections offer 384 txns each, inside a burst of 512;
+# the eighth offers the rest, past it, against 100 tokens a second. A
+# junk peer sends QUIC_JUNK datagrams of garbage (the breaker trips at
+# the default abuse_threshold, 32); the quic_* classes fire at fixed
+# ordinals of the tile's rounds, the churn connection reaped at 0.5 s.
+QUIC_DEF_OPTS = {"admit_rate": 100, "admit_burst": 512, "hs_timeout_s": 0.5}
+QUIC_LIGHT = 384
+QUIC_JUNK = 128
+QUIC_SCHEDULE = ("quic_malformed@5,quic_malformed@40,quic_conn_churn@8,"
+                 "quic_slowloris@20:160")
+QUIC_CLASSES = ("quic_malformed", "quic_conn_churn", "quic_slowloris")
+QUIC_BUDGET_S = 60.0
+
 
 # Peak rates of an H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # 3.35 TB/s of HBM; 67 TFLOP/s fp32 = 33.5 T FMA/s, and the
@@ -5205,6 +5262,254 @@ def soak_phase(torch, card, rows, batch: int = B) -> None:
         "armed within budget, no plain version")
 
 
+# ------------------------------------------------------------------ quic
+
+
+def quic_traffic(fixtures, fx_ok, corpus, n: int = QUIC_N) -> dict:
+    """Phase 15's payloads: the fixtures, then the dirty corpus, QUIC_N
+    in all, and what may reach the sink: a txn the oracle accepts (a
+    corpus OK or DUP, a fixture that verifies and that the pack takes)
+    within the MTU, each digest once (the dedup tile keeps the first
+    copy that arrives, whichever connection brought it)."""
+    import hashlib
+
+    from firedancer_tpu_torch.ballet.pack import CuEstimator
+    from firedancer_tpu_torch.disco import corpus as dcorpus
+    from firedancer_tpu_torch.disco.tiles import FD_TPU_MTU, pack_txn
+
+    cut = n - len(fixtures)
+    payloads = list(fixtures) + list(corpus.payloads[:cut])
+    est = CuEstimator()
+    valid = set()
+    for p, ok in zip(fixtures, fx_ok):
+        t = pack_txn(p, 0, est) if ok else None
+        if t is not None and t.est_cus <= PACK_CAP:
+            valid.add(hashlib.sha256(p).digest())
+    for p, e in zip(corpus.payloads[:cut], corpus.expected[:cut]):
+        if int(e) in (dcorpus.OK, dcorpus.DUP):
+            valid.add(hashlib.sha256(p).digest())
+    digests = [hashlib.sha256(p).digest() for p in payloads]
+    over = sum(len(p) > FD_TPU_MTU for p in payloads)
+    valid -= {d for d, p in zip(digests, payloads) if len(p) > FD_TPU_MTU}
+    return {"payloads": payloads, "digests": digests, "valid": valid,
+            "over_mtu": over,
+            "classes": collections.Counter(
+                int(e) for e in corpus.expected[:cut])}
+
+
+def quic_want(traffic, ledger) -> collections.Counter:
+    """The sink's multiset of a run that shed exactly ledger (sha256 hex
+    digests): the payloads less the ledger's, each valid digest once."""
+    left = (collections.Counter(traffic["digests"])
+            - collections.Counter(bytes.fromhex(h) for h in ledger))
+    return collections.Counter({d: 1 for d in left
+                                if d in traffic["valid"]})
+
+
+def quic_client(traffic, label, out: dict):
+    """The run's client_fn: QUIC_CONNS connections from one client thread
+    over the batched socket; in (q-def) the eighth connection over-offers
+    and a junk peer sprays garbage from a socket of its own first."""
+    from firedancer_tpu_torch.tango.quic import client as qclient
+
+    pays = traffic["payloads"]
+    if label == "q-def":
+        light = QUIC_LIGHT * (QUIC_CONNS - 1)
+        shares = [pays[i:light:QUIC_CONNS - 1]
+                  for i in range(QUIC_CONNS - 1)] + [pays[light:]]
+    else:
+        shares = [pays[i::QUIC_CONNS] for i in range(QUIC_CONNS)]
+
+    def client_fn(addr):
+        if label == "q-def":
+            out["junk_sent"], out["junk_addr"] = qclient.junk(
+                addr, QUIC_JUNK, seed=15)
+        out.update(qclient.deliver(addr, shares, deadline_s=QUIC_BUDGET_S))
+        out["shares"] = [len(s) for s in shares]
+
+    return client_fn
+
+
+def quic_run(torch, card, traffic, label, vopts, batch, feed_proc=False):
+    """One run_quic_pipeline on the card over UdpBatchSock, the QUIC tile
+    -> verify (vopts' engine) -> dedup -> pack -> sink, at the feed
+    cell's width, dedup, pack and sink in the worker process where
+    feed_proc, with its gates (phase 15). Returns (result, launches, the
+    client's record, seconds)."""
+    from firedancer_tpu_torch.disco import pipeline
+    from firedancer_tpu_torch.disco.engine import registry
+    from firedancer_tpu_torch.ops import backend
+    from torch.profiler import ProfilerActivity, profile
+
+    defended = label == "q-def"
+    path = os.path.join(REPO, "build", "quic_smoke.wksp")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    topo = pipeline.build_topology(path, depth=FEED_DEPTH, wksp_sz=QUIC_WKSP)
+    reg = registry()
+    warms0 = {e: e.warms for e in reg.entries()}
+    out: dict = {}
+    opts = dict(QUIC_OPTS, **vopts)
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = pipeline.run_quic_pipeline(
+                topo, quic_client(traffic, label, out),
+                len(traffic["payloads"]), verify_backend="gpu",
+                verify_batch=batch, record_digests=True,
+                timeout_s=QUIC_BUDGET_S, verify_opts=opts,
+                feed_proc=feed_proc,
+                chaos=(CHAOS_SEED, QUIC_SCHEDULE) if defended else None,
+                quic=QUIC_DEF_OPTS if defended else None)
+            idle_by = time.perf_counter() + 60.0
+            while not reg.prewarm_idle() and time.perf_counter() < idle_by:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = dict(backend.launches), dict(backend.plain_calls)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    warmed = {e.key: (e.spec.mode, e.warms - warms0.get(e, 0))
+              for e in reg.entries() if e.warms > warms0.get(e, 0)}
+    q, vs = res.quic, res.verify_stats[0]
+    problems = []
+    got = collections.Counter(res.sink_digests)
+    want = quic_want(traffic, q["shed_sha256"])
+    if got != want:
+        problems.append(f"sink multiset differs: {sum((want - got).values())}"
+                        f" missing, {sum((got - want).values())} unexpected")
+    n = len(traffic["payloads"])
+    if q["streams_seen"] != n or q["offered"] != n - traffic["over_mtu"]:
+        problems.append(f"streams seen {q['streams_seen']}, offered "
+                        f"{q['offered']} of {n} ({traffic['over_mtu']} over "
+                        "the MTU)")
+    if q["admitted"] + q["shed_total"] != q["offered"]:
+        problems.append(f"admitted {q['admitted']} + shed {q['shed_total']} "
+                        f"!= offered {q['offered']}")
+    if len(q["shed_sha256"]) != q["shed_total"]:
+        problems.append("the shed ledger misses a shed")
+    if res.stage_hist["quic_ingest"]["n"] != q["admitted"]:
+        problems.append(f"quic_ingest spans {res.stage_hist['quic_ingest']}"
+                        f" != admitted {q['admitted']}")
+    if res.diag["link.replay_verify"]["tx_seq"] != q["admitted"]:
+        problems.append("the QUIC tile's publishes differ from admitted")
+    want_l = tile_want_launches(vopts["verify_mode"], vs["batches"],
+                                vs["rlc_fallback"])
+    for key, (wmode, k) in warmed.items():
+        if wmode != "direct":
+            problems.append(f"an {wmode} warm in the run ({key})")
+        for name in DIRECT_KERNELS:
+            want_l[name] = want_l.get(name, 0) + k
+    want_l["dedup_filter"] = vs["drain_batches"]
+    if vs["drain_batches"] != vs["batches"]:
+        problems.append(f"drain batches {vs['drain_batches']} != batches "
+                        f"{vs['batches']}")
+    want_l = {k: v for k, v in want_l.items() if v}
+    if not vs["batches"] or launches != want_l:
+        problems.append(f"launches {launches} != {want_l}")
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    if not res.feed or res.feed_fallback_reason is not None:
+        problems.append(f"feed {res.feed}, fallback "
+                        f"{res.feed_fallback_reason!r}")
+    if ("workers" in res.proc_cpu_s) != feed_proc:
+        problems.append(f"process layout: {res.proc_cpu_s}")
+    problems += healing_problems(res.verify_stats)
+    problems += flight_problems(res)
+    if not out.get("acked"):
+        problems.append(f"the client did not finish: {out}")
+    alerts = [(a["slo"], a.get("tiles", a["burn_milli"]))
+              for a in (res.slo or {}).get("alerts", ())]
+    if res.slo is None:
+        problems.append("the sentinel did not run")
+    elif alerts and not defended:
+        problems.append(f"sentinel alerts {alerts}")
+    if defended:
+        counters = vs.get("chaos", {}).get("counters", {})
+        for cls in QUIC_CLASSES:
+            c = counters.get(cls, {})
+            if not (c.get("injected", 0) >= 1
+                    and c["injected"] == c["detected"] == c["healed"]):
+                problems.append(f"{cls}: {c}")
+        if not q["admit_shed"]:
+            problems.append("no admission shed")
+        junk = repr(tuple(out.get("junk_addr", ())))
+        if not q["quarantine_drop"] or junk not in q["quarantined_peers"]:
+            problems.append(f"junk peer {junk} not quarantined: "
+                            f"{q['quarantined_peers']}, quarantine_drop "
+                            f"{q['quarantine_drop']}")
+    elif q["shed_total"] or q["conn_quarantine"]:
+        problems.append(f"shed {q['shed_total']}, quarantined "
+                        f"{q['conn_quarantine']} without an attack")
+
+    busy, _ = trace_busy(prof)
+    t_last = q["t_first_pub"] + res.span_s
+    span = t_last - q["t_first_stream"]
+    share = (f"device busy {busy * 1e3:.1f} ms of {span * 1e3:.1f} = "
+             f"{100 * busy / span:.2f}% (torch.profiler, the main process)"
+             if busy > 0
+             else "device busy share not measured (no device time traced)")
+    hs = out.get("t_established", 0.0) - out.get("t_connect", 0.0)
+    full = vs["batches"] - vs["flush_timeout"] - vs["flush_starved"]
+    say(f"quic ({label}): {q['admitted']} txns admitted of {q['offered']} "
+        f"offered in {span:.3f} s from the first stream's completion to the "
+        f"sink's last frag = {q['admitted'] / span:.0f} txn/s (host clock); "
+        f"latency p50 {res.latency_p50_ns / 1e6:.3f} ms, p99 "
+        f"{res.latency_p99_ns / 1e6:.3f} ms (the tile's publish -> the "
+        f"sink, 64-bit tick); {QUIC_CONNS} handshakes in {hs:.3f} s = "
+        f"{QUIC_CONNS / hs:.1f} handshakes/s; {share}; run {seconds:.2f} s "
+        f"[{card}]")
+    say(f"quic ({label}): verify {vopts['verify_mode']} B={batch}: "
+        f"{vs['batches']} batches (flush full {full}, deadline "
+        f"{vs['flush_timeout']}, starved {vs['flush_starved']}), fill "
+        f"{vs['fill_ratio']}, RLC fallbacks {vs['rlc_fallback']}; "
+        f"{'worker processes' if feed_proc else 'in process'}; sink "
+        f"{res.recv_cnt}; launches {launches}; warm passes "
+        f"{warmed or 'none'}; shares {out.get('shares')}; quic_ingest "
+        f"p99<= {res.stage_hist['quic_ingest']['p99_ns_le'] / 1e6:.3f} ms; "
+        f"endpoint {q['quic_metrics']}; aes {q['aes_path']}, UdpBatchSock; "
+        f"sentinel alerts {alerts} [{card}]")
+    if defended:
+        say(f"quic (q-def): options {QUIC_DEF_OPTS} (the rest default); "
+            f"admit_shed {q['admit_shed']}, queue_shed {q['queue_shed']}, "
+            f"ledger {len(q['shed_sha256'])}; junk peer {out.get('junk_addr')}"
+            f" sent {out.get('junk_sent')}, conn_quarantine "
+            f"{q['conn_quarantine']}, quarantine_drop {q['quarantine_drop']};"
+            f" chaos {QUIC_SCHEDULE}: {vs['chaos']['counters']} [{card}]")
+    if problems:
+        fail(f"quic ({label}): " + "; ".join(problems))
+    return res, launches, out, seconds
+
+
+def quic_phase(torch, card, rows, fixtures, fx_ok, corpus,
+               batch: int = B) -> None:
+    """Phase 15: the QUIC front door on the card. (q) direct, (q-rlc)
+    fused RLC, (q-def) direct under attack; each run's gates in quic_run,
+    the launches of (q) and (q-rlc) added to the kernel rows."""
+    t_phase = time.perf_counter()
+    traffic = quic_traffic(fixtures, fx_ok, corpus)
+    say(f"quic traffic: {len(traffic['payloads'])} payloads ({len(fixtures)} "
+        f"fixtures, the dirty corpus's classes "
+        f"{dict(traffic['classes'])}), {len(traffic['valid'])} distinct "
+        f"valid, {traffic['over_mtu']} over the MTU; {QUIC_CONNS} "
+        f"connections, B={batch}, rings {FEED_DEPTH}, opts {QUIC_OPTS}")
+    for label, vopts, proc in QUIC_MODES:
+        _, launches, _, _ = quic_run(torch, card, traffic, label, vopts,
+                                     batch, feed_proc=proc)
+        for name, n in launches.items():
+            for row in TAILS_ROWS if name == "msm_tails" else (name,):
+                if row in rows:
+                    rows[row]["launches"] += n
+    quic_run(torch, card, traffic, "q-def", {"verify_mode": "direct"}, batch)
+    secs = time.perf_counter() - t_phase
+    say(f"quic: the phase {secs:.1f} s of its {QUIC_BUDGET_S:.0f} [{card}]")
+    if secs > QUIC_BUDGET_S:
+        fail(f"quic: the phase took {secs:.1f} s, past its "
+             f"{QUIC_BUDGET_S:.0f} s budget")
+
+
 def main() -> int:
     import torch
 
@@ -5629,8 +5934,9 @@ def main() -> int:
     flight_phase(torch, card, bench)
     xray_phase(torch, card, bench)
     soak_phase(torch, card, rows)
+    quic_phase(torch, card, rows, *traffic)
 
-    # 15. Output.
+    # 16. Output.
     say(card_line())
     say(json.dumps({"kernels": list(rows.values())}))
     say(json.dumps({"ok": True, "device": {

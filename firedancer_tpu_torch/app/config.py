@@ -55,8 +55,9 @@ DEFAULTS: Dict[str, Any] = {
         "quic": {
             "identity_seed_path": "",  # "" = generated under scratch
             # Stateless Retry for the public ingest port (RFC 9000
-            # section 8.1.2); the port has no QUIC tile yet, so the key
-            # is kept for the JAX package's TOMLs.
+            # section 8.1.2): run_quic_pipeline's quic_retry. fdctl's
+            # run drives the replay and synth sources, so it reads
+            # neither key yet.
             "retry": False,
         },
     },

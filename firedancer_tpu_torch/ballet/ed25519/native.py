@@ -14,8 +14,14 @@ dispatch fails and the re-verify of a quarantined batch
 (``disco.tiles.VerifyTile._verify_slot_cpu``). It is never a fallback
 for a kernel: the engines run their kernels or raise. Where the JAX
 binding returns None for a library that is missing or predates the
-verifier, this one raises, naming the library's path. The signing
-entry points are not bound: the port signs on the card.
+verifier, this one raises, naming the library's path.
+
+``sign`` and ``public_key`` (the JAX :90-125, over
+``fd_ed25519_cpu_sign`` and ``fd_ed25519_cpu_keypair``) are the QUIC
+handshake's signer: the TLS CertificateVerify and the self-signed
+certificate (``ballet.x509``). Where the JAX ones fall back to the oracle
+(about 180 ms a signature), these raise. Batches of signatures are
+signed on the card (``ops.sign``).
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import numpy as np
 from ...tango import rings
 
 _ENTRIES = ("fd_ed25519_cpu_verify1", "fd_ed25519_cpu_verify_batch")
+_SIGN_ENTRIES = ("fd_ed25519_cpu_sign", "fd_ed25519_cpu_keypair")
 _LIB = None
+_SIGN_LIB = None
 
 
 def lib() -> ctypes.CDLL:
@@ -58,6 +66,47 @@ def lib() -> ctypes.CDLL:
         vp, ctypes.c_uint32, vp, vp, vp, vp, ctypes.c_uint32]
     _LIB = L
     return L
+
+
+def sign_lib() -> ctypes.CDLL:
+    """The ring library with the signer's prototypes; RuntimeError,
+    naming its path and the rebuild, when it lacks them."""
+    global _SIGN_LIB
+    if _SIGN_LIB is not None:
+        return _SIGN_LIB
+    L = lib()
+    missing = [name for name in _SIGN_ENTRIES if not hasattr(L, name)]
+    if missing:
+        raise RuntimeError(f"native ed25519 signer: {rings.LIB_PATH} lacks "
+                           f"{', '.join(missing)}: rebuild it with "
+                           f"`{rings.REBUILD}`")
+    L.fd_ed25519_cpu_sign.restype = None
+    L.fd_ed25519_cpu_sign.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint32, ctypes.c_char_p, ctypes.c_char_p]
+    L.fd_ed25519_cpu_keypair.restype = None
+    L.fd_ed25519_cpu_keypair.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    _SIGN_LIB = L
+    return L
+
+
+def sign(msg: bytes, seed: bytes) -> bytes:
+    """RFC 8032 signature of msg by the key of a 32-byte seed (vartime:
+    a test and handshake signer), bit-equal to ``oracle.sign``."""
+    if len(seed) != 32:
+        raise ValueError("seed must be 32 bytes")  # oracle.sign's contract
+    out = ctypes.create_string_buffer(64)
+    sign_lib().fd_ed25519_cpu_sign(msg, len(msg), seed, out)
+    return out.raw
+
+
+def public_key(seed: bytes) -> bytes:
+    """The 32-byte public key of a seed (``oracle.keypair_from_seed``'s
+    third item)."""
+    if len(seed) != 32:
+        raise ValueError("seed must be 32 bytes")
+    out = ctypes.create_string_buffer(32)
+    sign_lib().fd_ed25519_cpu_keypair(seed, out)
+    return out.raw
 
 
 def verify(msg: bytes, sig: bytes, pub: bytes) -> int:

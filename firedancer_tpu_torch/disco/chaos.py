@@ -1,8 +1,8 @@
 """fd_chaos: deterministic, schedule-driven fault injection into the
 verify tile's feed path, the counterpart of ``firedancer_tpu/disco/chaos.py``
 (``FAULT_CLASSES``:95, ``ChaosFault``:134-149, ``parse_schedule``:153,
-``ChaosInjector``:197, ``hb_stalled``:542, ``active``/``install``/
-``uninstall``).
+``ChaosInjector``:197, the ``quic_*`` hooks :459-538 and :572,
+``hb_stalled``:542, ``active``/``install``/``uninstall``).
 
 A tile that misbehaves is restarted and the rings heal around it; this
 module makes that testable. Faults fire at fixed points: each hook site
@@ -43,10 +43,26 @@ package does. The classes the port has sites for:
                  a tile's window opens, healed when it closes or the
                  tile halts inside it.
 
-``worker_kill`` and the ``quic_*`` classes parse as in the JAX package,
-but their sites are the process supervisor and the QUIC tile, which the
-port does not have: an injector for a schedule naming one raises
-ValueError, since such a fault could be injected and never detected.
+  quic_malformed   at the QUIC tile's Nth rx round one seeded junk
+                   datagram goes straight into the endpoint, which
+                   must drop it unprocessed (detection and heal).
+  quic_conn_churn  at the tile's Nth churn round a well-formed Initial
+                   of seeded garbage from a synthetic peer: the server
+                   allocates a half-open connection (detected), which
+                   the handshake-deadline reaper retires (healed), or
+                   refuses it at the connection cap (both at once).
+  quic_slowloris   a window over the tile's service rounds in which
+                   completed streams are held, never lost: injected
+                   and detected at the window's start, healed at its
+                   end, when the held txns requeue.
+
+The ``quic_*`` sites are in ``disco.quic_tile.QuicTile.step``, which
+takes the run's injector from ``run_quic_pipeline``; a run with no QUIC
+tile ticks none of them and books 0 on their counters, as the JAX
+package's ``run_pipeline`` does. ``worker_kill`` parses as in the JAX
+package, but its site is the process supervisor, which the port does not
+have: an injector for a schedule naming it raises ValueError, since such
+a fault could be injected and never detected.
 
 Schedule grammar: ``entry[,entry...]`` with ``entry := class@N |
 class@N:M`` (1-based ordinals, windows inclusive, only for the window
@@ -84,7 +100,7 @@ FAULT_CLASSES = (
     "quic_slowloris",
 )
 # The classes whose hook sites the port has.
-PORTED_CLASSES = FAULT_CLASSES[:8]
+PORTED_CLASSES = FAULT_CLASSES[:8] + FAULT_CLASSES[9:]
 
 _WINDOW_CLASSES = ("credit_starve", "device_lost", "hb_stall",
                    "quic_slowloris")
@@ -161,9 +177,8 @@ class ChaosInjector:
         if unported:
             raise ValueError(
                 f"chaos classes {', '.join(unported)} have no hook site in "
-                "the port: worker_kill fires in the process supervisor and "
-                "the quic_* classes in the QUIC tile, neither of which is "
-                "ported (ROADMAP queue 1 item 9)")
+                "the port: worker_kill fires in the process supervisor, "
+                "which is not ported (ROADMAP queue 1 item 9)")
         # Per-site Rng streams: a choice must not depend on how draws of
         # different threads interleave.
         self._junk_rng = Rng(seq=seed ^ 0xC4A05)      # ring_ctl_err junk
@@ -181,6 +196,7 @@ class ChaosInjector:
         self._corrupt_psigs: List[int] = []
         self._starve_active = False
         self._hb_stall_active: set = set()   # tiles inside a window
+        self._slowloris_active = False       # quic_slowloris window open
         self.corrupted_sha256: List[str] = []
         # Every booked event also goes to the "chaos" flight recorder, so
         # a dump carries the fault timeline (the JAX :238-244).
@@ -401,6 +417,93 @@ class ChaosInjector:
         if self._hit("backend_raise", n):
             self.note("backend_raise", "injected")
             raise ChaosBackendError(f"injected backend error at batch {n}")
+
+
+    # -- the QUIC tile (disco.quic_tile) ---------------------------------
+
+    def quic_malformed_junk(self) -> Optional[bytes]:
+        """Ticked once a QUIC tile rx round: at a scheduled ordinal, 40
+        seeded junk bytes to feed straight into the endpoint (past the
+        tile's quarantine gate), else None. The first byte is a short
+        header's, so the junk takes the unknown-cid path and the
+        endpoint must count it rx_dropped (on_quic_malformed_dropped)."""
+        n = self._tick("quic_rx_round")
+        if not self._hit("quic_malformed", n, consume=True):
+            return None
+        junk = bytes([0x40 | self._junk_rng.roll(0x40)]) + bytes(
+            self._junk_rng.roll(256) for _ in range(39))
+        self.note("quic_malformed", "injected")
+        return junk
+
+    def on_quic_malformed_dropped(self) -> None:
+        """The endpoint dropped the injected junk: detection and heal."""
+        self.note("quic_malformed", "detected")
+        self.note("quic_malformed", "healed")
+
+    def quic_churn_initial(self) -> Optional[bytes]:
+        """Ticked once a QUIC tile churn round: at a scheduled ordinal a
+        well-formed Initial datagram of seeded garbage (a half-open
+        connection's first packet), else None. The tile books detected
+        when the connection appears or the cap refuses it, healed when
+        the handshake-deadline reaper retires it."""
+        n = self._tick("quic_churn_round")
+        if not self._hit("quic_conn_churn", n, consume=True):
+            return None
+        from ..tango.quic import wire
+
+        rng = self._junk_rng
+        dcid = bytes(rng.roll(256) for _ in range(8))
+        scid = bytes(rng.roll(256) for _ in range(8))
+        payload = bytes(rng.roll(256) for _ in range(64))
+        hdr = wire.encode_long_header(
+            wire.PKT_INITIAL, dcid, scid, pn=0, pn_len=2,
+            payload_len=len(payload))
+        self.note("quic_conn_churn", "injected")
+        return hdr + payload
+
+    def quic_slowloris_held(self) -> bool:
+        """Ticked once a QUIC tile service round: True while the
+        quic_slowloris window covers it (the tile holds completed
+        streams). One injected and detected when the window opens,
+        healed when it closes, as hb_stall."""
+        n = self._tick("quic_service_round")
+        if self._hit("quic_slowloris", n):
+            if not self._slowloris_active:
+                self._slowloris_active = True
+                self.note("quic_slowloris", "injected")
+                self.note("quic_slowloris", "detected")
+            return True
+        if self._slowloris_active:
+            self._slowloris_active = False
+            self.note("quic_slowloris", "healed")
+        return False
+
+    def quic_slowloris_active(self) -> bool:
+        """A quic_slowloris window is open (no tick): the stream
+        completion path holds the stream."""
+        return self._slowloris_active
+
+    def quic_slowloris_halt(self) -> None:
+        """The tile halted inside the window: it closes here (healed),
+        the tile booking its held txns as shed."""
+        if self._slowloris_active:
+            self._slowloris_active = False
+            self.note("quic_slowloris", "healed")
+
+    def quic_faults_pending(self) -> bool:
+        """A scheduled quic_* fault has not fired yet, or a slowloris
+        window is open: the QUIC tile folds this into done(), so it
+        keeps stepping (each step ticks the ordinals) until every
+        injection landed, whatever the pace of its clients."""
+        with self._lock:
+            if self._slowloris_active:
+                return True
+            for cls in ("quic_malformed", "quic_conn_churn"):
+                if self.schedule.get(cls):
+                    return True  # unconsumed point entries remain
+            n = self._ord.get("quic_service_round", 0)
+            return any(hi > n
+                       for lo, hi in self.schedule.get("quic_slowloris", []))
 
 
 # -- the process-global injector of the running pipeline ---------------------

@@ -3,8 +3,9 @@
 flush (``AdaptiveFlush``:48 and the ``FLUSH_*`` verdicts), the
 device -> CPU failover breaker (``CircuitBreaker``:129 and the
 ``BREAKER_*`` states) and the restart delay of a crashed stager
-(``respawn_backoff_s``:252). ``TokenBucket``:212 belongs to the QUIC
-tile and the fabric, which the port does not have yet.
+(``respawn_backoff_s``:252), and the QUIC tile's per-connection
+admission bucket (``TokenBucket``:212; the JAX fabric's tenant bucket
+waits for the fabric).
 
 The policy is deadline-based with one adaptive early-out:
 
@@ -192,6 +193,46 @@ class CircuitBreaker:
             self._mult = 1
         if self.state == BREAKER_CLOSED:
             self.errors = 0
+
+
+class TokenBucket:
+    """One admission token bucket: `rate` tokens per unit of the
+    CALLER'S clock, capacity `burst`, one token per admit.
+
+    Pure decision logic like AdaptiveFlush/CircuitBreaker: no clock
+    reads — the caller passes `now` in whatever unit its clock ticks
+    (fd_quic passes seconds, fd_fabric passes a virtual-nanosecond
+    arrival clock with rate pre-scaled to per-ns), so the property
+    tests can drive arbitrary arrival schedules and the fabric's
+    deterministic replay admission is a pure function of the stream.
+    A backward clock jump refills nothing (tokens never mint from
+    jitter) but still charges the admit — the bucket is monotone in
+    the work it lets through, not in the clock it is shown.
+    """
+
+    def __init__(self, rate: float, burst: float):
+        if rate <= 0.0:
+            raise ValueError(f"bucket rate must be positive, got {rate}")
+        if burst < 1.0:
+            raise ValueError(f"bucket burst must be >= 1, got {burst}")
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.tokens = self.burst
+        self._at: Optional[float] = None
+
+    def admit(self, now) -> bool:
+        """Spend one token at clock-time `now`; False means shed."""
+        if self._at is None or now < self._at:
+            self._at = now
+        else:
+            self.tokens = min(
+                self.burst, self.tokens + (now - self._at) * self.rate
+            )
+            self._at = now
+        if self.tokens < 1.0:
+            return False
+        self.tokens -= 1.0
+        return True
 
 
 def respawn_backoff_s(restarts: int, base_s: float, max_s: float,

@@ -240,7 +240,7 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                       feed_proc: Optional[bool] = None, tile_hook=None,
                       tile_cpus: Optional[List[int]] = None, chaos=None,
                       flight=None, sentinel=None, xray=None,
-                      source_tile=None, source_done=None):
+                      source_tile=None, source_done=None, pre_wait=None):
     """pipeline.run_pipeline's contract through the fd_feed runtime
     (run_pipeline routes here); returns a PipelineResult with feed=True,
     the feeder's verify_stats, stage_latency and CPU seconds by process.
@@ -259,9 +259,14 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
     and xray are the run's options (pipeline.run_pipeline). source_tile,
     with its exhaustion predicate source_done, replaces the replay of
     payloads by a tile already built on the replay's links (fd_soak's
-    paced source; the JAX :180-181): it always runs in this process,
-    where the downstream tiles run as they would. Raises on a tile error,
-    a worker's early exit and a timeout."""
+    paced source, the QUIC tile; the JAX :180-181): it always runs in
+    this process, where the downstream tiles run as they would, and
+    keeps its publish log in its payloads and pub_ticks. pre_wait, if
+    given, is called once the tiles run and the worker processes' tiles
+    have booted (the QUIC run's client thread) and returns a function
+    called after they joined (the JAX :182-190, which calls it before
+    the workers boot). Raises on a tile error, a worker's early exit and a
+    timeout."""
     from .. import chaos as chaos_mod
     from .. import flight as flight_mod
     from .. import xray as xray_mod
@@ -274,14 +279,15 @@ def run_feed_pipeline(topo, payloads, verify_backend: str = "gpu",
                          verify_max_msg_len, bank_cnt, timeout_s,
                          tcache_depth, verify_opts, record_digests,
                          pack_scheduler, device, feed_proc, tile_hook,
-                         tile_cpus, sentinel, source_tile, source_done)
+                         tile_cpus, sentinel, source_tile, source_done,
+                         pre_wait)
 
 
 def _run_feed(topo, payloads, verify_backend, verify_batch,
               verify_max_msg_len, bank_cnt, timeout_s, tcache_depth,
               verify_opts, record_digests, pack_scheduler, device,
               feed_proc, tile_hook, tile_cpus, sentinel_opts,
-              source_tile=None, source_done=None):
+              source_tile=None, source_done=None, pre_wait=None):
     """run_feed_pipeline's body, with the run's flight options installed
     and its injector (if any) armed."""
     from ...tango.rings import CNC_HALT, Cnc, FSeq, MCache, Workspace
@@ -302,6 +308,8 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         use_proc = False
     mtu = topo.mtu
     xray.reset_rings()
+    if source_tile is not None:
+        xray.adopt(getattr(source_tile, "xr", None))
     wksp = Workspace.join(topo.wksp_path)
     flight.install_dump_signal(wksp)  # SIGUSR1 -> a live dump
     vopts = dict(verify_opts or {}, feed=True)
@@ -338,7 +346,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         cpu_map = {name: tile_cpus[i % len(tile_cpus)] for i, name in
                    enumerate(("replay", "verify", "dedup", "pack", "sink"))}
         for t in tiles:
-            t.cpu_idx = cpu_map[t.name]
+            t.cpu_idx = cpu_map["replay" if t is replay else t.name]
         opts["cpu_map"] = cpu_map
     # The workers run under this run's flight and xray options (and the
     # sentinel's budgets, their tail thresholds).
@@ -362,6 +370,7 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
                "downstream": os.path.join(tmp, "downstream.json")}
     procs: Dict[str, subprocess.Popen] = {}
     snt = None
+    post_wait = None
     ru_self = resource.getrusage(resource.RUSAGE_SELF)
     ru_kids = resource.getrusage(resource.RUSAGE_CHILDREN)
     t0 = time.perf_counter()
@@ -390,6 +399,18 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
             ("replay",) if replay is None else ())
         worker_cncs = [Cnc(wksp, f"{t}.cnc") for t in in_worker] \
             if use_proc else []
+        if pre_wait is not None:
+            # The source's clients arrive once every worker tile has left
+            # BOOT (bounded; a worker that exits is caught below): a
+            # source that publishes into a downstream still importing
+            # torch would book the workers' boot as the pipeline's
+            # latency and stall.
+            boot_by = time.perf_counter() + BOOT_WAIT_S
+            while (time.perf_counter() < boot_by
+                   and not any(p.poll() is not None for p in procs.values())
+                   and not all(c.signal_query() != 0 for c in worker_cncs)):
+                time.sleep(0.01)
+            post_wait = pre_wait()
         src_mcache = MCache(wksp, "replay_verify.mcache")
         n_payloads = len(payloads)
 
@@ -447,6 +468,8 @@ def _run_feed(topo, payloads, verify_backend, verify_batch,
         join_deadline = time.perf_counter() + timeout_s + 35.0
         for th in threads:
             th.join(timeout=max(0.1, join_deadline - time.perf_counter()))
+        if post_wait is not None:
+            post_wait()
         if died is None:
             for name, proc in procs.items():
                 try:

@@ -83,7 +83,7 @@ from .tiles import (
 LINKS = ("replay_verify", "verify_dedup", "dedup_pack", "pack_sink")
 TILES = ("replay", "verify", "dedup", "pack", "sink", "quic")
 # The span edges beside the links: the stager's ring dwell, the
-# end-to-end span and the QUIC front door's (no QUIC tile yet).
+# end-to-end span and the QUIC tile's admission span.
 SPAN_EDGES = ("verify_drain", "sink", "quic_ingest")
 
 
@@ -252,10 +252,12 @@ def chain_quiesced(replay, verifies, sink) -> bool:
 
 
 def run_tiles(tiles, quiesced, timeout_s: float = 60.0,
-              sentinel=None) -> float:
+              sentinel=None, pre_wait=None) -> float:
     """Run each tile on a thread until quiesced() (or timeout_s, or a
     tile raising), stop the run's sentinel (if given), then signal HALT
-    through every cnc and join. Returns the seconds it ran; raises the
+    through every cnc and join. pre_wait, if given, is called once the
+    threads run and returns a function called after they joined (the
+    QUIC run's client thread). Returns the seconds it ran; raises the
     first tile error, and TimeoutError when the tiles never quiesced."""
     errors: list = []
 
@@ -271,7 +273,10 @@ def run_tiles(tiles, quiesced, timeout_s: float = 60.0,
     for th in threads:
         th.start()
     done = False
+    post_wait = None
     try:
+        if pre_wait is not None:
+            post_wait = pre_wait()
         while time.perf_counter() - t0 < timeout_s and not errors:
             if quiesced():
                 done = True
@@ -285,6 +290,8 @@ def run_tiles(tiles, quiesced, timeout_s: float = 60.0,
         t.cnc.signal(CNC_HALT)
     for th in threads:
         th.join(timeout=timeout_s + 35.0)
+    if post_wait is not None:
+        post_wait()
     elapsed = time.perf_counter() - t0
     if errors:
         raise errors[0]
@@ -354,6 +361,9 @@ class PipelineResult:
     # trigger, sampled traces, the slowest exemplars, the waterfall, the
     # suspects); None with xray off.
     xray: Optional[dict] = None
+    # The QUIC tile's record (quic_tile.quic_tile_stats) of a
+    # run_quic_pipeline run; None for the other runners.
+    quic: Optional[dict] = None
 
 
 def _pack_stats(pack: PackTile) -> Dict[str, object]:
@@ -409,14 +419,16 @@ def pin_tiles(tiles, tile_cpus: Optional[List[int]]) -> None:
         t.cpu_idx = tile_cpus[i % len(tile_cpus)]
 
 
-def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
+def _run_tiles(wksp: Workspace, replay, verify_backend: str,
                verify_batch: int, verify_max_msg_len: int, bank_cnt: int,
                timeout_s: float, tcache_depth: int, verify_opts: dict,
                record_digests: bool, pack_scheduler: str,
                device, lanes: int = 1,
                tile_cpus: Optional[List[int]] = None, pod=None,
-               sentinel_opts=None):
-    """Wire the replay tile's lanes through a verify tile each (lane i on
+               sentinel_opts=None, pre_wait=None):
+    """Wire the source's lanes (replay, a ReplayTile, or any source with
+    its out_links, done(), payloads and pub_ticks, as the QUIC tile) through
+    a verify tile each (lane i on
     ``verify.v<i>.cnc`` and its lane's links) -> dedup -> pack -> sink,
     run the tiles until pipeline_quiesced (raising on a tile error or a
     timeout) beside the run's sentinel (stopped on every path), snapshot
@@ -446,7 +458,7 @@ def _run_tiles(wksp: Workspace, replay: ReplayTile, verify_backend: str,
         elapsed = run_tiles(
             tiles,
             lambda: pipeline_quiesced(replay, verifies, dedup, pack, sink),
-            timeout_s=timeout_s, sentinel=snt)
+            timeout_s=timeout_s, sentinel=snt, pre_wait=pre_wait)
     finally:
         slo = snt.stop() if snt is not None else None
     lat = latencies_ns(replay, sink) if record_digests else []
@@ -581,3 +593,119 @@ def _run_pipeline(topo, payloads, verify_backend, verify_batch,
         wksp.leave()
     res.feed_fallback_reason = reason
     return res
+
+
+def run_quic_pipeline(topo: Topology, client_fn, n_txns: int,
+                      identity_seed: bytes = b"\x11" * 32,
+                      verify_backend: str = "gpu", verify_batch: int = 128,
+                      verify_max_msg_len: Optional[int] = None,
+                      bank_cnt: int = 4, timeout_s: float = 60.0,
+                      tile_cpus: Optional[List[int]] = None,
+                      quic_retry: bool = False, record_digests: bool = False,
+                      feed: Optional[bool] = None,
+                      quic_idle_timeout: float = 10.0, quic_stop_when=None,
+                      device="cuda", verify_opts: Optional[dict] = None,
+                      feed_proc: Optional[bool] = None, chaos=None,
+                      flight=None, sentinel=None, xray=None,
+                      quic=None) -> PipelineResult:
+    """The ingest path: QUIC tile -> verify -> dedup -> pack -> sink (the
+    JAX :559-655, its arguments and the port's run_pipeline's device,
+    verify_opts, feed_proc, chaos, flight, sentinel and xray; the verify
+    backend the card's, "gpu", by default).
+
+    The QUIC tile (``disco.quic_tile.QuicTile``, its options quic: None,
+    a bool for the defenses, a dict or ``QuicOptions``) binds an
+    ephemeral localhost UDP port; client_fn is called on a helper thread
+    with the listen address once the tiles run, and must deliver n_txns
+    transactions over QUIC, one a unidirectional stream. The run ends
+    when the tile has seen n_txns completed streams, admitted or shed
+    each (and, with chaos armed, every scheduled quic_* fault landed and
+    healed) and every link has drained, or raises at timeout_s. As
+    run_pipeline it routes through the fd_feed runtime with the tile as
+    its source where the feed can serve the topology, else through the
+    in-process step loop (warned, the reason in feed_fallback_reason).
+    The run's injector is handed to the tile. res.quic is
+    ``quic_tile_stats``; the end-to-end latency is from the tile's
+    publish (record_digests)."""
+    from . import chaos as chaos_mod
+    from . import flight as flight_mod
+
+    with flight_mod.configured(flight), \
+            xray_mod.configured(xray, sentinel, verify_opts or {}), \
+            chaos_mod.armed(chaos) as inj:
+        return _run_quic_pipeline(
+            topo, client_fn, n_txns, identity_seed, verify_backend,
+            verify_batch, verify_max_msg_len, bank_cnt, timeout_s,
+            tile_cpus, quic_retry, record_digests, feed, quic_idle_timeout,
+            quic_stop_when, device, verify_opts, feed_proc, inj, sentinel,
+            quic)
+
+
+def _run_quic_pipeline(topo, client_fn, n_txns, identity_seed,
+                       verify_backend, verify_batch, verify_max_msg_len,
+                       bank_cnt, timeout_s, tile_cpus, quic_retry,
+                       record_digests, feed, quic_idle_timeout,
+                       quic_stop_when, device, verify_opts, feed_proc, inj,
+                       sentinel, quic_opts) -> PipelineResult:
+    """run_quic_pipeline's body, its options installed and its injector
+    inj (or None) armed."""
+    from .quic_tile import QuicTile, quic_tile_stats
+
+    lanes = topo.verify_lanes
+    reason = None
+    xray_mod.reset_rings()
+    wksp = Workspace.join(topo.wksp_path)
+    quic = QuicTile(
+        wksp, "quic.cnc", out_link(wksp, "replay_verify", topo.mtu),
+        identity_seed=identity_seed, stop_after=n_txns, retry=quic_retry,
+        idle_timeout=quic_idle_timeout, record_digests=record_digests,
+        stop_when=quic_stop_when, options=quic_opts, chaos=inj)
+
+    def pre_wait():
+        client = threading.Thread(target=client_fn,
+                                  args=(quic.listen_addr,), daemon=True,
+                                  name="quic-client")
+        client.start()
+        return lambda: client.join(timeout=5.0)
+
+    snt = None
+    try:
+        if feed is None or feed:
+            reason = _feed_fallback_reason(verify_backend, verify_batch,
+                                           verify_opts, lanes)
+            if reason is None:
+                from .feed.runtime import run_feed_pipeline
+
+                res = run_feed_pipeline(
+                    topo, [], verify_backend=verify_backend,
+                    verify_batch=verify_batch,
+                    verify_max_msg_len=verify_max_msg_len,
+                    bank_cnt=bank_cnt, timeout_s=timeout_s,
+                    verify_opts=verify_opts, record_digests=record_digests,
+                    device=device, feed_proc=feed_proc, tile_cpus=tile_cpus,
+                    chaos=inj, sentinel=sentinel, source_tile=quic,
+                    source_done=quic.done, pre_wait=pre_wait)
+                res.quic = quic_tile_stats(quic)
+                return res
+            logging.getLogger(LOGGER).warning(
+                "fd_feed cannot serve the QUIC topology, falling back to "
+                "the in-process step loop: %s", reason)
+        if lanes != 1:
+            raise ValueError(f"run_quic_pipeline serves one verify lane, "
+                             f"the topology has {lanes}")
+        flight.install_dump_signal(wksp)  # SIGUSR1 -> a live dump
+        res, snt = _run_tiles(
+            wksp, quic, verify_backend, verify_batch,
+            verify_max_msg_len or topo.mtu, bank_cnt, timeout_s, 4096,
+            dict(verify_opts or {}), record_digests, "greedy", device,
+            lanes, tile_cpus, topo.pod, sentinel, pre_wait=pre_wait)
+        res.feed_fallback_reason = reason
+        res.quic = quic_tile_stats(quic)
+        return res
+    finally:
+        if not quic.halted:
+            quic.sock.close()  # the tile never ran, or outlived its join
+        # Only after the tile's thread and the sentinel have ended: a
+        # thread still writing the mapping would fault.
+        elif snt is None or not snt.alive():
+            wksp.leave()

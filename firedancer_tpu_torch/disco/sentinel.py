@@ -21,11 +21,13 @@ directory, each new alert asks fd_xray's flusher thread for an autopsy
 sentinel, and with it the flusher, at quiescence, before HALT and before
 the workspace is left, on every path.
 
-Three rows have no source in the port yet and report no data, as the
-JAX ones do on traffic that lacks them: ``quic_ingest_p99`` (no QUIC
-tile), ``tenant_fairness`` (no fabric, so no tenant source is set) and
-``shard_balance`` (no ``verify.shardN`` rows before multi-GPU). The
-slope SLOs arm only when a soak registers a slope source.
+Rows whose source a run lacks report no data, as the JAX ones do on
+traffic that lacks them: ``quic_ingest_p99`` has data only on a
+``run_quic_pipeline`` run (the QUIC tile's ``quic_ingest`` span);
+``tenant_fairness`` (no fabric, so no tenant source is set) and
+``shard_balance`` (no ``verify.shardN`` rows before multi-GPU) have
+none in the port yet. The slope SLOs arm only when a soak registers a
+slope source.
 
 The JAX flags are options (``SentinelOptions``: ``enabled``
 FD_SENTINEL, ``interval_ms`` FD_SENTINEL_INTERVAL_MS, ``burn``,

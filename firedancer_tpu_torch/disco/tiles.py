@@ -487,6 +487,7 @@ class Tile:
                  out_link.mcache.depth if out_link is not None else 128)
         lazy = lazy_ns if lazy_ns is not None else tempo.lazy_default(depth)
         self._async_min = tempo.async_min(lazy)
+        self._hk_then = 0  # tick of the next housekeeping pass
         self._last_in_backp = 0
         self.halted = False
         self.error: Optional[BaseException] = None
@@ -687,20 +688,28 @@ class Tile:
                     self.cnc.signal(CNC_BOOT)
                     self.cpu_ns = time.thread_time_ns() - t0
 
+    def housekeep_if_due(self) -> bool:
+        """Housekeep when the jittered interval has passed (the run
+        loop's check, also made between a feed dispatcher's
+        dispatches); True when it did."""
+        now = tempo.tickcount()
+        if now < self._hk_then:
+            return False
+        self.housekeep(now)
+        self._hk_then = now + tempo.async_reload(self.rng, self._async_min)
+        return True
+
     def _run_loop(self, max_ns: int) -> None:
         self.cnc.signal(CNC_RUN)
         start = tempo.tickcount()
-        then = start
+        self._hk_then = start
         idle_spins = 0
         while True:
-            now = tempo.tickcount()
-            if now >= then:
-                self.housekeep(now)
+            if self.housekeep_if_due():
                 if self.cnc.signal_query() == CNC_HALT:
                     break
-                if now - start > max_ns:
+                if tempo.tickcount() - start > max_ns:
                     break
-                then = now + tempo.async_reload(self.rng, self._async_min)
             if self.done():
                 if self.cnc.signal_query() == CNC_HALT:
                     break
@@ -1808,6 +1817,12 @@ class VerifyTile(Tile):
                 break
             self._feed_dispatch(slot)
             progressed = True
+            # A JAX dispatch is one call; the port's RLC pass retakes the
+            # GIL about 700 times, and under a busy host (the QUIC tile
+            # and its clients in this process) four back to back
+            # outlast the sentinel's FD_SLO_HB_MS: housekeep between them
+            # when it is due.
+            self.housekeep_if_due()
         now = tempo.tickcount()
         if (self.batch_log and not self._inflight
                 and self.feed_pool.ready_cnt() == 0):

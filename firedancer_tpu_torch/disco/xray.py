@@ -327,6 +327,14 @@ def ring(name: str):
     return r
 
 
+def adopt(r) -> None:
+    """Register again a ring built before the run's reset_rings (a source
+    tile its runner built first); a no-op ring stays unregistered."""
+    if isinstance(r, SpanRing):
+        with _rings_lock:
+            _rings[r.name] = r
+
+
 def reset_rings() -> None:
     """Forget every ring of this process: a runner's first step, so its
     run summary and dumps hold its own spans and none of an earlier

@@ -4,7 +4,9 @@
   (``tests/test_chaos.py:34-56``); the injector fires at the same
   ordinals, draws the same ``Rng`` choices (the junk frag, the corrupted
   byte) and heals its window classes on close; a schedule naming a class
-  whose site the port lacks (the supervisor's, the QUIC tile's) raises.
+  whose site the port lacks (the supervisor's worker_kill) raises; each
+  quic_* class fires on a run_quic_pipeline run and books nothing on a
+  run without a QUIC tile, as in the JAX package.
 * ``feed.policy``: ``CircuitBreaker`` goes through the JAX state sequence
   on the same events (``tests/test_chaos.py:95-157``);
   ``respawn_backoff_s`` equals the JAX one on the same ``Rng`` seed.
@@ -98,9 +100,8 @@ def test_parse_schedule_matches_jax(spec):
     assert pchaos.FAULT_CLASSES == jchaos.FAULT_CLASSES
 
 
-@pytest.mark.parametrize("spec", ["quic_conn_churn@1", "worker_kill@2",
-                                  "quic_malformed@1", "stager_kill@1,"
-                                  "quic_slowloris@1:3"])
+@pytest.mark.parametrize("spec", ["worker_kill@2",
+                                  "quic_malformed@1,worker_kill@1"])
 def test_unported_classes_raise_at_run_start(spec, tmp_path):
     with pytest.raises(ValueError, match="ROADMAP queue 1 item 9"):
         pchaos.ChaosInjector(seed=1, schedule=spec)
@@ -109,6 +110,63 @@ def test_unported_classes_raise_at_run_start(spec, tmp_path):
         ppipe.run_pipeline(topo, [b"x"], verify_batch=32, device="cpu",
                            chaos=(1, spec))
     assert pchaos.active() is None
+
+
+@pytest.mark.parametrize("spec,classes", [
+    ("quic_conn_churn@1", ("quic_conn_churn",)),
+    ("quic_malformed@1", ("quic_malformed",)),
+    ("stager_kill@1,quic_slowloris@1:3", ("stager_kill", "quic_slowloris")),
+])
+def test_quic_classes_fire_on_a_quic_run(native_engine, spec, classes,
+                                         tmp_path):
+    """The injector takes each quic_* class, and a run_quic_pipeline run
+    fires it in the QUIC tile: injected == detected == healed, the sink
+    whole."""
+    inj = pchaos.ChaosInjector(seed=1, schedule=spec)
+    assert set(inj.counters) == set(classes)
+    from firedancer_tpu_torch.tango.quic import client as pclient
+
+    corpus = _corpus(n=40, seed=43)
+    payloads = list(corpus.payloads)
+    topo = ppipe.build_topology(str(tmp_path / "q.wksp"), depth=256,
+                                wksp_sz=1 << 25)
+    res = ppipe.run_quic_pipeline(
+        topo, lambda a: pclient.deliver(a, [payloads], deadline_s=20.0),
+        len(payloads), record_digests=True, device="cpu", feed_proc=False,
+        timeout_s=60.0, chaos=(1, spec), quic={"hs_timeout_s": 0.3})
+    vs = res.verify_stats[0]
+    _assert_parity(vs, classes)
+    assert Counter(res.sink_digests) == expected_sink_digests(corpus)
+    assert pchaos.active() is None
+
+
+def test_quic_schedule_without_a_quic_tile_books_nothing(native_engine,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A quic_* schedule on the replay pipeline ticks no site: the class
+    books 0 on each counter and the run is clean, as the JAX package's
+    run_pipeline does with the same schedule."""
+    corpus = _corpus(n=60, seed=47)
+    spec = "quic_malformed@1,quic_slowloris@2:4"
+    topo = ppipe.build_topology(str(tmp_path / "r.wksp"), depth=256,
+                                wksp_sz=1 << 25)
+    res = ppipe.run_pipeline(topo, corpus.payloads, record_digests=True,
+                             device="cpu", feed_proc=False, timeout_s=60.0,
+                             chaos=(1, spec))
+    snap = res.verify_stats[0]["chaos"]
+    zero = {"injected": 0, "detected": 0, "healed": 0}
+    assert snap["counters"] == {"quic_malformed": zero,
+                                "quic_slowloris": zero}
+    assert Counter(res.sink_digests) == expected_sink_digests(corpus)
+    for k, v in (("FD_CHAOS", "1"), ("FD_CHAOS_SEED", "1"),
+                 ("FD_CHAOS_SCHEDULE", spec)):
+        monkeypatch.setenv(k, v)
+    jtopo = jpipe.build_topology(str(tmp_path / "j.wksp"), depth=256)
+    jres = jpipe.run_pipeline(jtopo, corpus.payloads, verify_backend="cpu",
+                              timeout_s=60.0, record_digests=True,
+                              feed=False)
+    assert jchaos.active().snapshot()["counters"] == snap["counters"]
+    assert Counter(jres.sink_digests) == Counter(res.sink_digests)
 
 
 def test_injector_counters_only_for_scheduled_classes():

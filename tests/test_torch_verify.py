@@ -335,6 +335,28 @@ def test_port_scan_reaches_the_soak_modules():
                     f"{rel} reads the environment")
 
 
+QUIC_MODULES = tuple(f"firedancer_tpu_torch/{m}.py" for m in (
+    "ballet/hmac", "ballet/hkdf", "ballet/aes", "ballet/x509",
+    "ballet/ed25519/x25519", "tango/aio", "tango/udpsock",
+    "tango/quic/__init__", "tango/quic/wire", "tango/quic/crypto_suites",
+    "tango/quic/tls", "tango/quic/conn", "tango/quic/quic",
+    "tango/quic/client", "disco/quic_tile"))
+
+
+def test_port_scan_reaches_the_quic_modules():
+    """The scan covers the QUIC front door: its crypto, the UDP
+    transports, the QUIC/TLS stack, its client and the QUIC tile, and
+    none of them reads the environment: the tile's flags are options."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert set(QUIC_MODULES) <= names
+    for rel in QUIC_MODULES:
+        tree = ast.parse((ROOT / rel).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("environ", "getenv", "environb"), (
+                    f"{rel} reads the environment")
+
+
 def test_acquire_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="capability 9"):
